@@ -1,34 +1,58 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernel.
+outputs, and time its kernels. Two paths are driven: Perona's scoring
+path (edge-softmax kernel) and RecurrentGemma-9B serving at full width
+(flash-attention and RG-LRU scan kernels).
 
     python3 chip_smoke.py
 
 Phases, each printing on lines of its own:
 
 0. the card: name and power limit, torch and CUDA versions;
-1. build: the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
-2. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes, ragged N, single heads and fully masked rows;
+1. build: the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, one
+   process per source, all started together;
+2. the edge-softmax kernel against its plain PyTorch version on the
+   card, at the main path's shapes, ragged N, single heads and fully
+   masked rows;
 3. the scoring engine on the §IV-C acquisition (1800 rows, bucket 2048)
    against the JAX engine's outputs stored in the golden file;
 4. the watchdog at fleet size (512 nodes, 196,608 rows of history,
    3 rounds of 6,144 new rows) against a CPU run of the port;
-5. timing: kernel, kernel in a CUDA graph, plain version, the library
-   call and the byte bound; the scoring call per bucket and the
-   profiler's top device kernels.
+5. the flash-attention and RG-LRU kernels against their plain versions
+   on the card (f32 and bf16; B 1/2, KH 1/16, D 64/256, S up to 4096,
+   window 0/2048; the scan at C=4096, S 1/257/4096, with and without h0);
+6. a small RecurrentGemma (float32) against the JAX package's prefill
+   and decode logits and served tokens (golden file);
+7. recurrentgemma-9b at full width (bf16, seed-0 weights drawn on the
+   card) serving 8 requests of 128..4096 prompt tokens through
+   ``SlotServer``: completion, kernel launches per prefill, time to
+   first token (from the request's arrival) and prefill latency,
+   prefill and decode tokens/s, peak memory; prefill
+   logits through the kernels vs the plain versions and decode after a
+   3000-token prefill vs a no-cache forward (the ring check), in bf16
+   and with the same weights in f32, where the reference's ring layout
+   must fail the check (a control); the profiler's top device entries;
+8. timing: the edge-softmax kernel (kernel, in a CUDA graph, plain
+   version, the library call and the byte bound) and the scoring call
+   per bucket; the flash and RG-LRU kernels at the full-width prefill
+   shapes with their plain versions, library call and bounds.
 
-Then it prints the ``{"kernels": [...]}`` line, the card's name and
-power limit, and as its last line the ``{"ok": true, ...}`` line. Any
-failed check raises, and the script exits non-zero without that line.
+Each phase prints its seconds. Then it writes every number to
+``build/chip_smoke_report.json`` and prints the ``{"kernels":
+[...]}`` line, the card's name and power limit, and as its last line
+the ``{"ok": true, ...}`` line. Any failed check raises, and the script
+exits non-zero without that line.
 It imports nothing of JAX and nothing of the JAX package; it exits
 non-zero when no CUDA device is available.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -42,10 +66,28 @@ sys.path.insert(0, str(ROOT / "src"))
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # card vs JAX CPU outputs: float32 on both, summed in different orders
 ENGINE_ATOL = 1e-4
-# NVIDIA H100 SXM data sheet: HBM3 rate and float32 rate outside the
-# tensor cores
+LM_GOLDEN_ATOL = 1e-4
+# NVIDIA H100 SXM data sheet: HBM3 rate, float32 rate outside the tensor
+# cores, dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+
+# RecurrentGemma-9B serving at full width
+FULL_LENGTHS = (128, 512, 1024, 2048, 2049, 3000, 4000, 4096)
+FULL_SLOTS, FULL_MAX_NEW, FULL_MAX_LEN = 4, 16, 4112
+FULL_CHECK_LENGTHS = (4096, 3000)  # prefill, kernels vs plain versions
+FULL_RING_LENGTH = 3000  # > W = 2048 and not a multiple of it
+# Logits of two runs that round differently (kernels vs plain versions,
+# decode vs no-cache forward), as ||a - b|| / ||b||. Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W: in bf16 at full depth with random
+# weights (logits up to about 900) single rounding steps grow to 3.3e-2
+# to 3.6e-2, so bf16 is held at 1e-1; the same weights in float32 give
+# 7.6e-6 to 9.1e-6 and are held at 1e-4, which the reference's ring
+# layout (1.5e-3 at S = 3000) exceeds 15 times.
+FULL_BF16_REL_TOL = 1e-1
+FULL_F32_REL_TOL = 1e-4
+REPORT = ROOT / "build" / "chip_smoke_report.json"
 
 FLEET_NODES = 512
 FLEET_HISTORY = 64  # runs per (node x benchmark type) chain
@@ -116,12 +158,16 @@ def phase_build():
     from repro_torch.kernels import build
 
     print("[1] build")
-    built = build.build("edge_softmax")
+    built = build.build("edge_softmax", "flash_attention", "rg_lru")
     for name, b in built.items():
         print(f"  {name}: {b.seconds:.2f} s nvcc -> {b.path.name}")
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
+            entry = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)"
+                              r"(I\w+?Li\d+E)?", line)
+            if entry:  # the kernel and its template arguments, mangled
+                print(f"    {entry.group(1)}{entry.group(2) or ''}")
+            elif "registers" in line or "spill" in line:
+                print(f"      {line.strip()}")
 
 
 def _inputs(g, N, H, hd, P, dtype):
@@ -390,15 +436,533 @@ def time_engine(engine, frame, reps):
           f"{row['device_idle_share']:.4f}")
     for k in row["top_kernels"]:
         print(f"    {k['us']:10.1f} us x{k['count']:3d}  {k['name']}")
+    return row
 
 
 def phase_timing(engine, paper_frame, fleet_frame):
-    print("[5] timing (CUDA events after warm-up; host clock ending in "
+    print("[8] timing (CUDA events after warm-up; host clock ending in "
           "synchronize for the scoring call)")
     kernel = {str(N): time_kernel(N) for N in (2048, 262144)}
-    time_engine(engine, paper_frame, reps=10)
-    time_engine(engine, fleet_frame, reps=3)
-    return kernel
+    engine_rows = [time_engine(engine, paper_frame, reps=10),
+                   time_engine(engine, fleet_frame, reps=3)]
+    return kernel, engine_rows, time_lm_kernels()
+
+
+# ------------------------------------------------------------ the LM slice
+def _plain_flash(q, k, v, *, causal=True, window=0, scale=None):
+    """The plain version in the model's layout (B, S, H, D)."""
+    from repro_torch.kernels.flash_attention import ref
+
+    out = ref.attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window,
+                        scale=scale)
+    return out.transpose(1, 2)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Run the model with the kernels' plain versions on the card: the
+    model reaches both kernels through ``ops.flash_attention`` and
+    ``ops.linear_scan``, which this swaps for the duration."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    saved = fa_ops.flash_attention, lru_ops.linear_scan
+    fa_ops.flash_attention, lru_ops.linear_scan = (_plain_flash,
+                                                   lru_ref.linear_scan)
+    try:
+        yield
+    finally:
+        fa_ops.flash_attention, lru_ops.linear_scan = saved
+
+
+def _flash_inputs(g, B, H, KH, S, D, dtype):
+    """q (B, S, H, D), k/v (B, S, KH, D): the model's layout."""
+    import torch
+
+    return tuple(torch.randn(B, S, h, D, generator=g, device="cuda")
+                 .to(dtype) for h in (H, KH, KH))
+
+
+def _lru_inputs(g, B, S, C):
+    """a in (0.5, 1), as the RG-LRU's exp(log a) sits near 1; b normal."""
+    import torch
+
+    a = torch.rand(B, S, C, generator=g, device="cuda") * 0.5 + 0.5
+    b = torch.randn(B, S, C, generator=g, device="cuda")
+    h0 = torch.randn(B, C, generator=g, device="cuda")
+    return a, b, h0
+
+
+def phase_lm_kernels():
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    print("[5] flash_attention_fwd and rg_lru_scan: kernels vs plain "
+          "versions on the card")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"flash": 0.0, "flash_main": 0.0, "rg_lru": 0.0,
+             "rg_lru_main": 0.0}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tol = TOL[name]
+            n, largest = 0, 0.0
+            for B, KH, D, S, W in itertools.product(
+                    (1, 2), (1, 16), (64, 256), (1, 100, 2048, 3000, 4096),
+                    (0, 2048)):
+                q, k, v = _flash_inputs(g, B, 16, KH, S, D, dtype)
+                out = fa_ops.flash_attention(q, k, v, window=W)
+                expect = _plain_flash(q, k, v, window=W)
+                torch.cuda.synchronize()
+                check(out.shape == expect.shape and out.dtype == q.dtype,
+                      "flash shapes and type")
+                err = float((out.float() - expect.float()).abs().max())
+                label = (f"B={B} H=16 KH={KH} D={D} S={S} window={W} "
+                         f"{name}")
+                check(err <= tol, f"flash kernel vs plain, {label}: {err}")
+                largest = max(largest, err)
+                if (B, KH, D, S, W) == (1, 1, 256, 4096, 2048) and \
+                        dtype == torch.bfloat16:
+                    worst["flash_main"] = err
+                n += 1
+                del q, k, v, out, expect
+            worst["flash"] = max(worst["flash"], largest)
+            print(f"  flash {name}: {n} cases (B 1/2, H 16, KH 1/16, D "
+                  f"64/256, S 1/100/2048/3000/4096, window 0/2048), largest "
+                  f"error {largest:.3e} (tol {tol:g}) ok")
+        torch.cuda.empty_cache()
+        for B, S, with_h0 in itertools.product((1, 4), (1, 257, 4096),
+                                               (True, False)):
+            a, b, h0 = _lru_inputs(g, B, S, 4096)
+            h0 = h0 if with_h0 else None
+            y, h = lru_ops.linear_scan(a, b, h0)
+            ye, he = lru_ref.linear_scan(a, b, h0)
+            torch.cuda.synchronize()
+            err = max(float((y - ye).abs().max()),
+                      float((h - he).abs().max()))
+            label = f"B={B} S={S} C=4096 h0={'yes' if with_h0 else 'no'}"
+            print(f"  rg_lru {label:30s} err {err:.3e} tol "
+                  f"{TOL['float32']:g} ok" if err <= TOL["float32"] else
+                  f"  rg_lru {label} err {err:.3e} FAIL")
+            check(err <= TOL["float32"], f"rg_lru kernel vs plain, {label}")
+            worst["rg_lru"] = max(worst["rg_lru"], err)
+            if (B, S, with_h0) == (1, 4096, False):
+                worst["rg_lru_main"] = err
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_lm_golden():
+    """The small RecurrentGemma of the golden file, on the card, in
+    float32: prefill and decode logits against the JAX package's, and
+    the served tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import Request, SlotServer
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import cast_params, load_lm_golden
+
+    print("[6] small RecurrentGemma on the card vs the JAX package's "
+          "outputs (golden file)")
+    golden = load_lm_golden()
+    cfg = golden.config
+    model = build_model(cfg)
+    params = cast_params(golden.params, cfg, "cuda")
+    B = golden.prefill_tokens.shape[0]
+    S = golden.prefill_tokens.shape[1]
+    with torch.inference_mode():
+        cache = model.init_cache(B, golden.cache_len, device="cuda")
+        lp, cache = model.prefill(
+            params, cache,
+            tokens=torch.as_tensor(golden.prefill_tokens, device="cuda"))
+        errs = [float(np.abs(lp.cpu().numpy() - golden.prefill_logits)
+                      .max())]
+        for i, tok in enumerate(golden.decode_tokens):
+            ld, cache = model.decode_step(
+                params, torch.as_tensor(tok, device="cuda")[:, None],
+                torch.full((B,), S + i, device="cuda"), cache)
+            errs.append(float(np.abs(ld.cpu().numpy()
+                                     - golden.decode_logits[i]).max()))
+        check(bool(torch.isfinite(lp).all()), "finite golden logits")
+    server = SlotServer(model, params, n_slots=golden.slots,
+                        max_len=golden.max_len)
+    reqs = [Request(rid=i, prompt=p, max_new=golden.max_new)
+            for i, p in enumerate(golden.prompts)]
+    done = {r.rid: r.tokens for r in server.serve(reqs)["completed"]}
+    served = [done[i] for i in range(len(reqs))]
+    same = served == golden.served
+    print(f"  {cfg.name} scaled down ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, float32): prefill logits err {errs[0]:.3e}, "
+          f"decode steps err {max(errs[1:]):.3e} (atol {LM_GOLDEN_ATOL:g}); "
+          f"{len(reqs)} served requests, tokens equal JAX's: {same}")
+    check(max(errs) <= LM_GOLDEN_ATOL, f"golden logits: {errs}")
+    check(same, "served tokens equal the JAX SlotServer's")
+    return {"prefill_err": errs[0], "decode_err": max(errs[1:]),
+            "served_equal": same}
+
+
+def _rel(a, b):
+    """max |a - b|, max |b| and ||a - b|| / ||b||, in float32."""
+    import torch
+
+    a, b = a.float(), b.float()
+    return (float((a - b).abs().max()), float(b.abs().max()),
+            float(torch.linalg.vector_norm(a - b)
+                  / torch.linalg.vector_norm(b)))
+
+
+def _kernels_vs_plain(model, params, prompts, tol, label):
+    """Prefill logits of each prompt through the kernels and through
+    the plain versions, on the card; returns {S: (max err, max |logit|,
+    relative L2)}."""
+    import torch
+
+    errs = {}
+    for prompt in prompts:
+        toks = torch.as_tensor(prompt, device="cuda").long()[None]
+        logits = {}
+        for mode in ("kernels", "plain"):
+            cache = model.init_cache(1, FULL_MAX_LEN, device="cuda")
+            with (plain_versions() if mode == "plain"
+                  else contextlib.nullcontext()):
+                logits[mode], _ = model.prefill(params, cache, tokens=toks)
+            del cache
+        err = errs[len(prompt)] = _rel(logits["kernels"], logits["plain"])
+        print(f"  {label} prefill logits S={len(prompt)}, kernels vs plain "
+              f"versions: max err {err[0]:.3e} of max |logit| {err[1]:.1f},"
+              f" relative L2 {err[2]:.2e} (tol {tol:g})")
+        check(err[2] <= tol, f"{label} prefill S={len(prompt)}, kernels vs "
+                             f"plain versions")
+    return errs
+
+
+def _reference_ring_layout(cfg, cache, length):
+    """Rearrange the local-attention caches after a prefill of
+    ``length`` > W tokens into the reference's layout (the last W keys
+    at ring indices 0..W-1, ``repro/models/attention.py:310-312``) from
+    the port's (position p at index p mod W)."""
+    import torch
+
+    for i, kind in enumerate(cfg.body_pattern):
+        if kind != "local_attn":
+            continue
+        for leaf in cache["body"][i].values():  # (n_periods, B, W, ...)
+            W = leaf.shape[2]
+            leaf.copy_(torch.roll(leaf, -((length - W) % W), dims=2))
+
+
+def _ring_check(model, params, req, cache_dtype, tol, label,
+                reference_layout=False):
+    """Decode after a prefill of ``req.prompt`` vs a no-cache forward
+    over the prompt and the first token, on the card."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg
+    S = len(req.prompt)
+    toks = torch.as_tensor(req.prompt, device="cuda").long()[None]
+    first = torch.tensor([[req.tokens[0]]], device="cuda")
+    cache = model.init_cache(1, FULL_MAX_LEN, dtype=cache_dtype,
+                             device="cuda")
+    model.prefill(params, cache, tokens=toks)
+    if reference_layout:
+        _reference_ring_layout(cfg, cache, S)
+    ld, _ = model.decode_step(params, first,
+                              torch.tensor([S], device="cuda"), cache)
+    del cache
+    hidden, _ = tfm.forward(params, cfg, tokens=torch.cat([toks, first], 1),
+                            skip_unembed=True)
+    lf = tfm.unembed(params, cfg, hidden[:, -1:])[:, 0]
+    del hidden
+    check(bool(torch.isfinite(ld).all()), "finite decode logits")
+    err = _rel(ld, lf)
+    print(f"  {label}: decode at position {S} after prefill vs no-cache "
+          f"forward over {S + 1} tokens: max err {err[0]:.3e} of max "
+          f"|logit| {err[1]:.1f}, relative L2 {err[2]:.2e} (tol {tol:g})")
+    return err
+
+
+def phase_lm_full():
+    """recurrentgemma-9b at full width, bf16, weights from seed 0 on the
+    card, serving eight requests through SlotServer; then the same
+    weights in float32 for the sharp checks."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.launch.serve import SlotServer, make_requests
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("recurrentgemma-9b")
+    print(f"[7] {cfg.name} at full width on the card: {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; {FULL_SLOTS} slots, prompts {FULL_LENGTHS}, "
+          f"max_new {FULL_MAX_NEW}, max_len {FULL_MAX_LEN}")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  weights: {n_params / 1e9:.3f} B parameters, "
+          f"{n_bytes / 1e9:.2f} GB on the card, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    per_prefill = {"flash": cfg.layer_kinds.count("local_attn"),
+                   "rg_lru": cfg.layer_kinds.count("rg_lru")}
+    requests = make_requests(len(FULL_LENGTHS), cfg.vocab_size,
+                             FULL_MAX_NEW, seed=0, lengths=FULL_LENGTHS)
+    server = SlotServer(model, params, n_slots=FULL_SLOTS,
+                        max_len=FULL_MAX_LEN)
+    # warm-up, not measured: one short request through a second server
+    # (first cuBLAS plans, first kernel calls)
+    warm = make_requests(1, cfg.vocab_size, 2, seed=1, lengths=(64,))
+    SlotServer(model, params, n_slots=FULL_SLOTS,
+               max_len=FULL_MAX_LEN).serve(warm)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa_ops.LAUNCHES = 0  # the LM main path starts here
+    lru_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = server.serve(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash": fa_ops.LAUNCHES,
+                "rg_lru": lru_ops.LAUNCHES}  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    done = sorted(out["completed"], key=lambda r: r.rid)
+    check(len(done) == len(FULL_LENGTHS), "every request completed")
+    check(all(len(r.tokens) == FULL_MAX_NEW for r in done),
+          f"every request got {FULL_MAX_NEW} tokens")
+    for name, n in per_prefill.items():
+        check(launches[name] == n * len(FULL_LENGTHS),
+              f"{name}: {launches[name]} launches, expected {n} per "
+              f"prefill x {len(FULL_LENGTHS)}")
+    prompt_tokens = sum(FULL_LENGTHS)
+    prefill_s = sum(r.prefill_s for r in done)
+    row = {
+        "requests": len(done), "prompt_tokens": prompt_tokens,
+        "decode_steps": out["decode_steps"], "wall_s": wall,
+        "ttft_s": {len(r.prompt): r.ttft_s for r in done},
+        "prefill_latency_s": {len(r.prompt): r.prefill_s for r in done},
+        "prefill_tokens_per_s": prompt_tokens / prefill_s,
+        "decode_tokens": server.decode_tokens,
+        "decode_s": server.decode_s,
+        "decode_tokens_per_s": server.decode_tokens / server.decode_s,
+        "peak_memory_bytes": peak, "weight_bytes": n_bytes,
+        "launches": launches, "launches_per_prefill": per_prefill,
+    }
+    print(f"  served {len(done)} requests x {FULL_MAX_NEW} tokens in "
+          f"{wall:.2f} s, {out['decode_steps']} decode steps; launches "
+          f"{launches} ({per_prefill} per prefill)")
+    print("  time to first token (arrival at the server -> first token, "
+          "host clock): " + ", ".join(
+              f"S={s} {t * 1e3:.1f} ms" for s, t in row["ttft_s"].items()))
+    print("  prefill latency (prefill start -> first token): " + ", ".join(
+        f"S={s} {t * 1e3:.1f} ms"
+        for s, t in row["prefill_latency_s"].items()))
+    print(f"  prefill {row['prefill_tokens_per_s']:.0f} tokens/s; decode "
+          f"{row['decode_tokens_per_s']:.1f} tokens/s ({server.decode_tokens}"
+          f" tokens in {server.decode_s:.2f} s, {FULL_SLOTS} slots); peak "
+          f"memory {peak / 1e9:.2f} GB")
+
+    by_len = {len(r.prompt): r for r in done}
+    ring_req = by_len[FULL_RING_LENGTH]
+    checks = {}
+    with torch.inference_mode():
+        # the served model, bf16
+        for length in FULL_CHECK_LENGTHS:
+            toks = torch.as_tensor(by_len[length].prompt, device="cuda")
+            logits, _ = model.prefill(
+                params, model.init_cache(1, FULL_MAX_LEN, device="cuda"),
+                tokens=toks.long()[None])
+            check(int(logits.argmax()) == by_len[length].tokens[0],
+                  "a prefill of the served prompt gives the served token")
+        checks["bf16_kernels_vs_plain"] = _kernels_vs_plain(
+            model, params, [by_len[n].prompt for n in FULL_CHECK_LENGTHS],
+            FULL_BF16_REL_TOL, "bf16")
+        checks["bf16_ring"] = _ring_check(
+            model, params, ring_req, torch.bfloat16, FULL_BF16_REL_TOL,
+            "bf16 ring check")
+        check(checks["bf16_ring"][2] <= FULL_BF16_REL_TOL,
+              "bf16 ring check at full width")
+        row["profile"] = profile_lm(model, params, server, by_len[4096])
+        del server
+        # the same weights in float32 (bf16 -> f32 is exact): the
+        # sharp versions of both checks, and the reference's layout as
+        # the control that the ring check sees a misplaced key
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = build_model(cfg32)
+        params32 = tfm.tree_map(lambda t: t.float(), params)
+        checks["f32_kernels_vs_plain"] = _kernels_vs_plain(
+            model32, params32, [by_len[FULL_CHECK_LENGTHS[0]].prompt],
+            FULL_F32_REL_TOL, "f32")
+        ring = _ring_check(model32, params32, ring_req, torch.float32,
+                           FULL_F32_REL_TOL, "f32 ring check")
+        check(ring[2] <= FULL_F32_REL_TOL, "f32 ring check at full width")
+        control = _ring_check(model32, params32, ring_req, torch.float32,
+                              FULL_F32_REL_TOL,
+                              "f32, reference's ring layout (control)",
+                              reference_layout=True)
+        check(control[2] > FULL_F32_REL_TOL,
+              "the f32 ring check sees the reference's ring layout")
+        checks["f32_ring"], checks["f32_ring_reference_layout"] = (ring,
+                                                                   control)
+        del params32
+    torch.cuda.empty_cache()
+    row["checks"] = {k: ({str(s): e for s, e in v.items()}
+                         if isinstance(v, dict) else v)
+                     for k, v in checks.items()}
+    return row, launches
+
+
+def _leaves(tree):
+    from repro_torch.models.transformer import tree_map
+
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _top_device(prof, n=10):
+    from torch.autograd import DeviceType
+
+    kernels = [(evt.self_device_time_total, evt.count, evt.key)
+               for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA
+               and not evt.key.startswith("Activity Buffer")]
+    kernels.sort(reverse=True)
+    return sum(us for us, _, _ in kernels), kernels[:n]
+
+
+def profile_lm(model, params, server, req):
+    """The profiler's top device entries for one 4096-token prefill and
+    for four decode steps of all slots."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tfm
+
+    toks = torch.as_tensor(req.prompt, device="cuda").long()[None]
+    pos = torch.full((server.n_slots,), FULL_MAX_LEN // 2, device="cuda")
+    last = torch.zeros(server.n_slots, 1, dtype=torch.long, device="cuda")
+    rows = tfm.cache_rows(server.cache, slice(0, 1))
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (
+                ("prefill_4096",
+                 lambda: model.prefill(params, rows, tokens=toks)),
+                ("decode_4_steps", lambda: [
+                    model.decode_step(params, last, pos + i, server.cache)
+                    for i in range(4)])):
+            fn()  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            device_us, top = _top_device(prof)
+            out[name] = {"wall_s": wall, "device_s": device_us / 1e6,
+                         "device_idle_share": 1.0 - device_us / 1e6 / wall,
+                         "top": [{"name": k[:90], "us": us, "count": c}
+                                 for us, c, k in top]}
+            print(f"  profiled {name}: {wall * 1e3:.1f} ms wall, "
+                  f"{device_us / 1e3:.1f} ms of device activity, idle share "
+                  f"{out[name]['device_idle_share']:.4f}; top device entries:")
+            for us, c, k in top:
+                print(f"    {us:10.1f} us x{c:4d}  {k[:90]}")
+    return out
+
+
+def time_lm_kernels():
+    """Each LM kernel at the full-width prefill shapes, with its plain
+    version, the library call and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, H, KH, S, D, W = 1, 16, 1, 4096, 256, 2048
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, window=W), 20)
+        plain = cuda_ms(lambda: _plain_flash(q, k, v, window=W), 3)
+        # one library call of the same function: SDPA with a boolean
+        # causal + window mask, in its own layout (B, H, S, D), with k/v
+        # expanded to the 16 query heads; the copies are not timed
+        pos = torch.arange(S, device="cuda")
+        rel = pos[:, None] - pos[None, :]
+        mask = (rel >= 0) & (rel < W)
+        qt = q.transpose(1, 2).contiguous()
+        ke, ve = (t.transpose(1, 2).contiguous().expand(B, H, S, D)
+                  for t in (k, v))
+        library = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, ke, ve, attn_mask=mask), 5)
+        lib_err = float((F.scaled_dot_product_attention(
+            qt, ke, ve, attn_mask=mask).transpose(1, 2).float()
+            - fa_ops.flash_attention(q, k, v, window=W).float())
+            .abs().max())
+    check(lib_err <= TOL["bfloat16"], f"SDPA vs flash kernel: {lib_err}")
+    pairs = sum(min(i + 1, W) for i in range(S))  # live (q, k) per head
+    flops = 4 * D * pairs * H * B
+    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    flash = {"shape": f"B={B} H={H} KH={KH} S={S} D={D} window={W} "
+                      f"bfloat16", "ms": ms, "plain_ms": plain,
+             "library_ms": library, "bound_ms": max(t_ops, t_bytes),
+             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+             "flops": flops, "bytes": nbytes, "pairs_per_head": pairs,
+             "library_vs_kernel": lib_err}
+    print(f"  flash {flash['shape']}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, SDPA {library:.4f} ms, bound "
+          f"{flash['bound_ms']:.4f} ms ({flash['bound_by']}: "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; SDPA vs kernel {lib_err:.2e}")
+    del q, k, v, qt, ke, ve
+    Bl, Sl, C = 1, 4096, 4096
+    a, b, _ = _lru_inputs(g, Bl, Sl, C)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: lru_ops.linear_scan(a, b), 50)
+        plain = cuda_ms(lambda: lru_ref.linear_scan(a, b), 2)
+    nbytes = 3 * a.nbytes + Bl * C * 4  # a, b in; y, h_last out
+    flops = 2 * Bl * Sl * C
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    lru = {"shape": f"B={Bl} S={Sl} C={C} float32, no h0", "ms": ms,
+           "plain_ms": plain, "library_ms": None,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": nbytes}
+    print(f"  rg_lru {lru['shape']}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, no library call, bound {lru['bound_ms']:.4f} ms "
+          f"({lru['bound_by']}: {nbytes / 1e6:.1f} MB); "
+          f"{nbytes / ms / 1e9:.2f} TB/s")
+    return {"flash": flash, "rg_lru": lru}
+
+
+def timed(label, seconds, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    seconds[label] = time.perf_counter() - t0
+    print(f"  -- {label}: {seconds[label]:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -416,9 +980,10 @@ def main() -> int:
     from repro_torch.kernels.edge_softmax import ops
 
     t_start = time.perf_counter()
-    phase_card()
-    phase_build()
-    max_err = phase_kernels()
+    seconds = {}
+    timed("card", seconds, phase_card)
+    timed("build", seconds, phase_build)
+    max_err = timed("edge_softmax kernel", seconds, phase_kernels)
 
     golden = load_golden()
     frame = paper_acquisition_frame(seed=0)
@@ -429,14 +994,21 @@ def main() -> int:
                              np.asarray(getattr(golden.preproc, key))),
               f"preprocessor statistic {key} equals the golden file's")
 
-    ops.LAUNCHES = 0  # the main path starts here
-    engine = phase_engine(golden, pre, frame)
-    fleet_frame = phase_watchdog(golden, pre)
+    ops.LAUNCHES = 0  # the Perona main path starts here
+    engine = timed("engine", seconds, phase_engine, golden, pre, frame)
+    fleet_frame = timed("watchdog", seconds, phase_watchdog, golden, pre)
     launches = ops.LAUNCHES  # ... and ends here
     check(launches > 0, "the main path launched the kernel")
 
-    timing = phase_timing(engine, frame, fleet_frame)
+    lm_err = timed("LM kernels", seconds, phase_lm_kernels)
+    lm_golden = timed("LM golden", seconds, phase_lm_golden)
+    lm_full, lm_launches = timed("LM full width", seconds, phase_lm_full)
+    torch.cuda.empty_cache()
+
+    timing, engine_rows, lm_timing = timed(
+        "timing", seconds, phase_timing, engine, frame, fleet_frame)
     big = timing["262144"]
+    flash, lru = lm_timing["flash"], lm_timing["rg_lru"]
     kernels = [{
         "name": "edge_softmax_aggregate",
         "route": "cuda",
@@ -451,10 +1023,45 @@ def main() -> int:
         "library_ms": big["library_ms"],
         "shape": "N=262144 H=4 hd=8 P=3 float32",
         "by_n": timing,
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "launches": lm_launches["flash"],
+        "max_abs_err": lm_err["flash_main"],
+        "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
+        "shape": flash["shape"],
+    }, {
+        "name": "rg_lru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rg_lru.cu",
+        "replaces": "src/repro/kernels/rg_lru/kernel.py:23",
+        "launches": lm_launches["rg_lru"],
+        "max_abs_err": lm_err["rg_lru_main"],
+        "ms": lru["ms"],
+        "plain_ms": lru["plain_ms"],
+        "bound_ms": lru["bound_ms"],
+        "bound_by": lru["bound_by"],
+        "library_ms": lru["library_ms"],
+        "shape": lru["shape"],
     }]
-    print(f"[6] done in {time.perf_counter() - t_start:.1f} s")
+    card = card_line()
+    REPORT.parent.mkdir(parents=True, exist_ok=True)
+    REPORT.write_text(json.dumps({
+        "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "seconds": seconds, "kernels": kernels, "engine": engine_rows,
+        "lm_kernel_errors": lm_err, "lm_golden": lm_golden,
+        "lm_full_width": lm_full, "lm_kernel_timing": lm_timing},
+        indent=1, default=str))
+    print(f"[9] done in {time.perf_counter() - t_start:.1f} s; report in "
+          f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
-    print(card_line())
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,43 @@
+"""Architecture registry of the port: ``get_config(name)``.
+
+The names are the reference's (``repro/configs/__init__.py``). The port
+serves one architecture so far; asking for another raises a
+``KeyError`` that names the slice of ``ROADMAP.md`` that brings it.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS = (
+    "olmo-1b",
+    "smollm-135m",
+    "qwen2.5-3b",
+    "gemma3-4b",
+    "whisper-small",
+    "recurrentgemma-9b",
+    "qwen2-vl-7b",
+    "xlstm-1.3b",
+    "deepseek-v2-lite-16b",
+    "granite-moe-1b-a400m",
+)
+
+#: The architectures whose serving path the port runs.
+PORTED = ("recurrentgemma-9b",)
+
+_MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch '{name}'; known: {', '.join(ARCHS)}")
+    if name not in PORTED:
+        slice_ = ("the xLSTM serving slice (mlstm_chunkwise kernel)"
+                  if name == "xlstm-1.3b" else
+                  "the remaining LM-zoo modules (queue 1 of ROADMAP.md)")
+        raise KeyError(f"arch '{name}' is not ported yet; it comes with "
+                       f"{slice_}. Ported: {', '.join(PORTED)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG

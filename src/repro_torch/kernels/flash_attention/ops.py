@@ -1,0 +1,122 @@
+"""Public wrapper of the flash-attention forward.
+
+:func:`flash_attention` takes the model's layout, q ``(B, S, H, D)`` and
+k/v ``(B, T, KH, D)``, as the reference's ``ops`` does. For CUDA tensors
+it launches the hand-written kernel of ``csrc/flash_attention.cu`` on
+the current stream, which reads that layout in place; for CPU tensors
+it takes the plain version (``ref``, in the TPU kernel's layout
+``(B, H, S, D)``). Nothing else picks the path: a CUDA tensor launches
+the kernel or raises. ``LAUNCHES`` counts the launches.
+
+The kernel takes any S and T (the TPU kernel asks S % 512 == 0 past
+512), GQA/MQA with H % KH == 0, D in {16, 64, 256}, and one batch row
+of q or k below 2**31 elements. The forward is not differentiable on
+CUDA yet: a call that would need a gradient raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ref
+
+#: Kernel launches so far (a plain count; callers reset it to 0).
+LAUNCHES = 0
+
+HEAD_DIMS = (16, 64, 256)
+DTYPES = (torch.float32, torch.bfloat16)
+
+_FN = None
+
+
+def _kernel():
+    global _FN
+    if _FN is None:
+        lib = build.load("flash_attention")
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _FN = (fn, lib.flash_attention_error_string)
+    return _FN
+
+
+def _check(q, k, v, window):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q must be (B, S, H, D) and k (B, T, KH, D), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}: expected (B, T, KH, D)")
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
+    if KH < 1 or H % KH:
+        raise ValueError(f"H={H} must be a multiple of KH={KH}")
+    if k.shape[1] < 1:
+        raise ValueError("the kernel takes T >= 1 keys")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one of {DTYPES}, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes D in {HEAD_DIMS}, got {D}")
+    if max(S * H, k.shape[1] * KH) * D >= 2 ** 31:
+        raise ValueError("the kernel indexes one batch row with 32-bit "
+                         "offsets: S*H*D and T*KH*D must stay below 2**31")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the CUDA flash-attention kernel has no backward "
+                           "yet: call it under torch.no_grad()")
+
+
+def _launch(q, k, v, causal, window, scale):
+    global LAUNCHES
+    _check(q, k, v, window)
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if S == 0 or B == 0:  # nothing to launch
+        return out
+    fn, error_string = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, H, KH, S, T, D, int(causal), int(window), float(scale),
+                int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"{error_string(rc).decode()} ({rc})")
+    LAUNCHES += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: float | None = None):
+    """q: (B, S, H, D); k/v: (B, T, KH, D) with H % KH == 0. Returns
+    (B, S, H, D) in q's type."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    if q.device.type == "cpu":
+        out = ref.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal,
+                            window=window, scale=scale)
+        return out.transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    return _launch(q, k, v, causal, window, scale)

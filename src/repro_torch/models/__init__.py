@@ -1,1 +1,3 @@
-"""Layer library of the port (the linear layer of ``repro.models.nn``)."""
+"""The LM zoo of the port (``repro.models``): configuration, layers,
+attention, the Griffin recurrent block, assembly, the public ``Model``
+and the parameters carried across from the JAX package."""

@@ -1,8 +1,18 @@
-"""The linear layer of ``repro.models.nn`` as a PyTorch module.
+"""Layer library of the port: ``repro/models/nn.py`` in PyTorch.
 
-The weight keeps the reference layout ``w (d_in, d_out)`` and the layer
-computes ``y = x @ w + b``, so parameters cross between the packages
-without a transpose (``torch.nn.Linear`` stores ``(d_out, d_in)``).
+Parameters keep the reference's layout, so that they cross between the
+packages without a transpose: a linear layer is ``{"w": (d_in, d_out)}``
+and computes ``y = x @ w + b``; a gated MLP is ``{"wi": (d, 2, d_ff),
+"wo": (d_ff, d)}``; an embedding is ``{"table": (vocab, d)}``.
+
+The reference keeps every parameter in float32 and casts it to the
+compute type (``cfg.dtype``) at each use. The port holds the parameters
+read in the compute type in that type once (:class:`Init` with a
+``dtype``; ``models.params.cast_params`` for carried weights), which
+gives the same products with half the memory in bfloat16. The leaves
+read in float32 (norm scales, the RG-LRU ``lambda``) stay float32.
+
+:class:`Linear` is the linear layer as a module, for ``core.model``.
 """
 
 from __future__ import annotations
@@ -11,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -30,3 +41,145 @@ class Linear(nn.Module):
         if self.b is not None:
             y = y + self.b.to(x.dtype)
         return y
+
+
+# ---------------------------------------------------------------------------
+# Seeded initialisation
+# ---------------------------------------------------------------------------
+
+class Init:
+    """Draws parameters from a ``torch.Generator`` with the distributions
+    of ``repro.models.nn.Init`` (not its draws): ``normal`` x scale,
+    ``zeros``, ``ones`` and ``lru_lambda`` U(0.2, 0.85).
+
+    Every draw is made in float32 on ``generator``'s device and then
+    stored in ``dtype`` (the compute type), or in float32 for leaves
+    the reference reads in float32 (``f32=True``).
+    """
+
+    def __init__(self, generator: torch.Generator, dtype=torch.float32):
+        self.generator = generator
+        self.device = generator.device
+        self.dtype = dtype
+
+    def param(self, shape, scale: float = 1.0, mode: str = "normal",
+              f32: bool = False) -> torch.Tensor:
+        shape = tuple(shape)
+        dtype = torch.float32 if f32 else self.dtype
+        kw = dict(device=self.device, dtype=torch.float32)
+        if mode == "zeros":
+            return torch.zeros(shape, device=self.device, dtype=dtype)
+        if mode == "ones":
+            return torch.ones(shape, device=self.device, dtype=dtype)
+        if mode == "normal":
+            arr = torch.randn(shape, generator=self.generator, **kw)
+            arr.mul_(scale)
+        elif mode == "lru_lambda":  # Griffin Lambda init: U(0.2, 0.85)
+            arr = torch.rand(shape, generator=self.generator, **kw)
+            arr.mul_(0.85 - 0.2).add_(0.2)
+        else:
+            raise ValueError(mode)
+        return arr.to(dtype)
+
+
+def fanin_scale(fan_in: int) -> float:
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+# ---------------------------------------------------------------------------
+# Linear / embeddings
+# ---------------------------------------------------------------------------
+
+def linear_init(init: Init, d_in: int, d_out: int, bias: bool = False,
+                scale: Optional[float] = None):
+    scale = fanin_scale(d_in) if scale is None else scale
+    params = {"w": init.param((d_in, d_out), scale=scale)}
+    if bias:
+        params["b"] = init.param((d_out,), mode="zeros")
+    return params
+
+
+def linear(params, x):
+    y = x @ params["w"].to(x.dtype)
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def embed_init(init: Init, vocab: int, d_model: int):
+    return {"table": init.param((vocab, d_model), scale=1.0)}
+
+
+def embed(params, ids, dtype):
+    return params["table"][ids].to(dtype)
+
+
+def unembed(params, x):
+    """Logits via the (tied) embedding table."""
+    return x @ params["table"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# Norms (RMSNorm, computed in float32)
+# ---------------------------------------------------------------------------
+
+def norm_init(init: Init, kind: str, dim: int):
+    if kind != "rmsnorm":
+        raise ValueError(f"the port has only rmsnorm so far, not {kind!r}")
+    return {"scale": init.param((dim,), mode="ones", f32=True)}
+
+
+def apply_norm(params, kind: str, x, eps: float = 1e-6):
+    if kind != "rmsnorm":
+        raise ValueError(f"the port has only rmsnorm so far, not {kind!r}")
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(init: Init, kind: str, d_model: int, d_ff: int):
+    if kind not in ("swiglu", "geglu"):
+        raise ValueError(f"the port has swiglu and geglu so far, not "
+                         f"{kind!r}")
+    return {"wi": init.param((d_model, 2, d_ff), scale=fanin_scale(d_model)),
+            "wo": init.param((d_ff, d_model), scale=fanin_scale(d_ff))}
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def apply_mlp(params, kind: str, x):
+    wi = params["wi"].to(x.dtype)
+    d, _, d_ff = wi.shape
+    # (d, 2, d_ff) as (d, 2*d_ff): columns [0, d_ff) gate, [d_ff, 2 d_ff) up
+    h = x @ wi.reshape(d, 2 * d_ff)
+    gate, up = h[..., :d_ff], h[..., d_ff:]
+    act = F.silu(gate) if kind == "swiglu" else gelu(gate)
+    return (act * up) @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (half-split RoPE)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)  # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integers."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions[..., None].float() * freqs  # (..., seq, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)

@@ -1,0 +1,231 @@
+"""LM assembly: embedding -> head/body/tail layers -> final norm ->
+logits; ``repro/models/transformer.py`` in PyTorch for the layer kinds
+"attn", "local_attn" and "rg_lru".
+
+Parameters and caches keep the reference's tree: ``params["body"][i]``
+holds layer ``i`` of the period with every leaf stacked over a leading
+``n_periods`` axis, ``params["head"]`` / ``params["tail"]`` are lists of
+per-layer trees. Caches do the same, so a body cache leaf is ``(n_periods,
+B, ...)`` (batch axis 1) and a head/tail cache leaf is ``(B, ...)`` (batch
+axis 0). The reference scans the body with ``lax.scan``; here a Python
+loop over ``n_periods`` takes views ``leaf[p]`` of the stacked leaves.
+
+Layers write their caches in place, so :func:`prefill` and
+:func:`decode_step` update the cache they are given and return it.
+Training (``loss_fn``) comes with a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import nn
+from repro_torch.models import recurrent as rec
+from repro_torch.models.config import ModelConfig
+
+ATTN_KINDS = ("attn", "local_attn")
+KINDS = ATTN_KINDS + ("rg_lru",)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+def _check_kinds(cfg: ModelConfig):
+    other = sorted(set(cfg.layer_kinds) - set(KINDS))
+    if other or cfg.n_encoder_layers or cfg.rope_style == "learned":
+        raise ValueError(f"{cfg.name}: layer kinds {other} (or an encoder / "
+                         f"learned positions) come with a later slice")
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# Single layer init / apply / cache
+# ---------------------------------------------------------------------------
+
+def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
+    params = {"norm1": nn.norm_init(init, cfg.norm, cfg.d_model)}
+    if kind in ATTN_KINDS:
+        params["attn"] = attn.attention_init(init, cfg)
+    elif kind == "rg_lru":
+        params["mix"] = rec.griffin_block_init(init, cfg)
+    else:
+        raise ValueError(kind)
+    params["norm2"] = nn.norm_init(init, cfg.norm, cfg.d_model)
+    params["mlp"] = nn.mlp_init(init, cfg.mlp, cfg.d_model, cfg.d_ff)
+    return params
+
+
+def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
+                mode: str, cache=None):
+    """One layer. Returns (x, cache)."""
+    rm = cfg.residual_multiplier
+    h = nn.apply_norm(params["norm1"], cfg.norm, x)
+    if kind in ATTN_KINDS:
+        y, cache = attn.attention_block(params["attn"], cfg, h, positions,
+                                        local=(kind == "local_attn"),
+                                        mode=mode, cache=cache)
+    elif kind == "rg_lru":
+        y, cache = rec.griffin_block(params["mix"], cfg, h, mode=mode,
+                                     cache=cache)
+    else:
+        raise ValueError(kind)
+    x = x + y * rm
+    h2 = nn.apply_norm(params["norm2"], cfg.norm, x)
+    x = x + nn.apply_mlp(params["mlp"], cfg.mlp, h2) * rm
+    return x, cache
+
+
+def layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
+                dtype=torch.bfloat16, device="cpu"):
+    if kind in ATTN_KINDS:
+        return attn.init_kv_cache(cfg, batch, length,
+                                  local=(kind == "local_attn"), dtype=dtype,
+                                  device=device)
+    if kind == "rg_lru":
+        return rec.init_griffin_cache(cfg, batch, dtype=dtype, device=device)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model init / cache
+# ---------------------------------------------------------------------------
+
+class _StackedInit(nn.Init):
+    """Prepends an ``n_periods`` axis to every parameter."""
+
+    def __init__(self, base: nn.Init, n: int):
+        super().__init__(base.generator, base.dtype)
+        self.n = n
+
+    def param(self, shape, scale: float = 1.0, mode: str = "normal",
+              f32: bool = False):
+        return super().param((self.n,) + tuple(shape), scale=scale,
+                             mode=mode, f32=f32)
+
+
+def model_init(cfg: ModelConfig, generator: torch.Generator) -> Dict:
+    """Seeded parameters on ``generator``'s device, in the compute type
+    (float32 for norm scales and the RG-LRU ``lambda``)."""
+    _check_kinds(cfg)
+    init = nn.Init(generator, dtype=compute_dtype(cfg))
+    params: Dict[str, Any] = {
+        "embed": nn.embed_init(init, cfg.vocab_size, cfg.d_model)}
+    for group, pattern in (("head", cfg.head_pattern),
+                           ("tail", cfg.tail_pattern)):
+        if pattern:
+            params[group] = [layer_init(init, cfg, k) for k in pattern]
+    body = _StackedInit(init, cfg.n_periods)
+    params["body"] = [layer_init(body, cfg, k) for k in cfg.body_pattern]
+    params["final_norm"] = nn.norm_init(init, cfg.norm, cfg.d_model)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = nn.linear_init(init, cfg.d_model, cfg.vocab_size)
+    return params
+
+
+def model_cache(cfg: ModelConfig, batch: int, length: int,
+                dtype=torch.bfloat16, device="cpu") -> Dict:
+    _check_kinds(cfg)
+    cache: Dict[str, Any] = {}
+    for group, pattern in (("head", cfg.head_pattern),
+                           ("tail", cfg.tail_pattern)):
+        if pattern:
+            cache[group] = [layer_cache(cfg, k, batch, length, dtype, device)
+                            for k in pattern]
+    cache["body"] = [
+        tree_map(lambda x: x[None].repeat((cfg.n_periods,)
+                                          + (1,) * x.dim()),
+                 layer_cache(cfg, k, batch, length, dtype, device))
+        for k in cfg.body_pattern]
+    return cache
+
+
+def layers(cfg: ModelConfig, params, cache=None
+           ) -> Iterator[Tuple[str, Dict, Any]]:
+    """(kind, layer params, layer cache or None) in execution order;
+    body entries are views of period p of the stacked leaves."""
+    def group(name, pattern):
+        for i, kind in enumerate(pattern):
+            yield (kind, params[name][i],
+                   None if cache is None else cache[name][i])
+
+    yield from group("head", cfg.head_pattern)
+    for p in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.body_pattern):
+            lp = tree_map(lambda a: a[p], params["body"][i])
+            lc = (None if cache is None
+                  else tree_map(lambda a: a[p], cache["body"][i]))
+            yield kind, lp, lc
+    yield from group("tail", cfg.tail_pattern)
+
+
+def cache_rows(cache, rows: slice):
+    """Views of the batch rows ``rows`` of every cache leaf (batch axis 1
+    in the body, 0 in head and tail): writing into them writes into
+    ``cache``."""
+    out = {}
+    for group, tree in cache.items():
+        if group == "body":
+            out[group] = tree_map(lambda a: a[:, rows], tree)
+        else:
+            out[group] = tree_map(lambda a: a[rows], tree)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, *, tokens, positions=None,
+            mode: str = "train", cache=None, skip_unembed: bool = False):
+    """Decoder forward. tokens (B, S) integers. Returns (logits or the
+    final hidden state, cache); the cache (prefill / decode) is written
+    in place."""
+    x = nn.embed(params["embed"], tokens, compute_dtype(cfg))
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    for kind, lp, lc in layers(cfg, params, cache):
+        x, _ = layer_apply(lp, cfg, kind, x, positions, mode=mode, cache=lc)
+    x = nn.apply_norm(params["final_norm"], cfg.norm, x)
+    if skip_unembed:
+        return x, cache
+    return unembed(params, cfg, x), cache
+
+
+def unembed(params, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        logits = nn.unembed(params["embed"], x)
+    else:
+        logits = nn.linear(params["lm_head"], x)
+    return logits / cfg.logits_scaling
+
+
+def prefill(params, cfg: ModelConfig, cache, *, tokens, positions=None):
+    """Run the whole prompt, fill the cache in place; returns
+    (last-position logits (B, V), cache)."""
+    hidden, cache = forward(params, cfg, tokens=tokens, positions=positions,
+                            mode="prefill", cache=cache, skip_unembed=True)
+    return unembed(params, cfg, hidden[:, -1:])[:, 0], cache
+
+
+def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
+    """One token for every sequence. tokens (B, 1); pos (B,) absolute."""
+    logits, cache = forward(params, cfg, tokens=tokens,
+                            positions=pos[:, None], mode="decode",
+                            cache=cache)
+    return logits[:, 0], cache
