@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Two paths are driven: Perona's scoring
-path (edge-softmax kernel) and RecurrentGemma-9B serving at full width
-(flash-attention and RG-LRU scan kernels).
+outputs, and time its kernels. Three paths are driven: Perona's scoring
+path (edge-softmax kernel), RecurrentGemma-9B serving at full width
+(flash-attention and RG-LRU scan kernels) and xLSTM-1.3B serving at
+full width (chunkwise mLSTM kernel).
 
     python3 chip_smoke.py
 
@@ -36,7 +37,25 @@ Phases, each printing on lines of its own:
 8. timing: the edge-softmax kernel (kernel, in a CUDA graph, plain
    version, the library call and the byte bound) and the scoring call
    per bucket; the flash and RG-LRU kernels at the full-width prefill
-   shapes with their plain versions, library call and bounds.
+   shapes with their plain versions, library call and bounds;
+9. the chunkwise mLSTM kernel against its plain version on the card
+   (f32 and bf16; h, C, n, m): the reference's test shapes (BH, S, hd,
+   chunk) = (2, 128, 64, 64), (4, 64, 32, 32), (1, 256, 128, 64), and
+   hd 32 and 1024 at S 1, 100, 256, 257, 1000, 3000, 4096 with chunk
+   256 (ragged last chunks);
+10. a small xLSTM (float32) against the JAX package's prefill and decode
+   logits and served tokens (golden file, a 512-token prompt among them);
+11. xlstm-1.3b at full width (bf16, seed-0 weights drawn on the card,
+   1,918,085,120 parameters) serving 8 requests of 128..4096 prompt
+   tokens through ``SlotServer``: completion, mLSTM launches per
+   prefill, TTFT from arrival and prefill latency, prefill and decode
+   tokens/s, peak memory, the profiler's view of one 4096-token prefill
+   and four decode steps; then prefill logits through the kernel vs the
+   plain version and decode after a 3000-token prefill vs a no-cache
+   forward over 3001 tokens (the state handed from the ragged-tail
+   kernel to ``mlstm_step``), in bf16 and with the same weights in f32;
+12. timing: the mLSTM kernel at B=1 H=4 S=4096 hd=1024 chunk 256 bf16,
+   its plain version and its bound (no single PyTorch call computes it).
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -75,6 +94,12 @@ BF16_FLOP_PER_S = 989e12
 
 # RecurrentGemma-9B serving at full width
 FULL_LENGTHS = (128, 512, 1024, 2048, 2049, 3000, 4000, 4096)
+# xLSTM-1.3B serving at full width: a single short chunk, exact multiples
+# of 256 and ragged lengths (which the reference's Pallas route refuses)
+XLSTM_LENGTHS = (128, 256, 512, 1000, 2048, 3000, 4000, 4096)
+XLSTM_CHECK_LENGTH = 3000  # prefill vs plain, and decode after prefill
+XLSTM_PARAMS = 1_918_085_120
+MLSTM_CHUNK = 256  # the reference model's chunk (repro/models/recurrent.py:216)
 FULL_SLOTS, FULL_MAX_NEW, FULL_MAX_LEN = 4, 16, 4112
 FULL_CHECK_LENGTHS = (4096, 3000)  # prefill, kernels vs plain versions
 FULL_RING_LENGTH = 3000  # > W = 2048 and not a multiple of it
@@ -158,7 +183,7 @@ def phase_build():
     from repro_torch.kernels import build
 
     print("[1] build")
-    built = build.build("edge_softmax", "flash_attention", "rg_lru")
+    built = build.build("edge_softmax", "flash_attention", "rg_lru", "mlstm")
     for name, b in built.items():
         print(f"  {name}: {b.seconds:.2f} s nvcc -> {b.path.name}")
         for line in b.log.splitlines():
@@ -459,22 +484,34 @@ def _plain_flash(q, k, v, *, causal=True, window=0, scale=None):
     return out.transpose(1, 2)
 
 
+def _plain_mlstm(q, k, v, log_i, log_f, *, chunk=64):
+    """The plain version in the model's layout (B, S, H, hd)."""
+    from repro_torch.kernels.mlstm import ops
+
+    return ops._plain(q, k, v, log_i, log_f, chunk)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Run the model with the kernels' plain versions on the card: the
-    model reaches both kernels through ``ops.flash_attention`` and
-    ``ops.linear_scan``, which this swaps for the duration."""
+    model reaches its kernels through ``ops.flash_attention``,
+    ``ops.linear_scan`` and ``ops.mlstm_chunkwise``, which this swaps
+    for the duration."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
     from repro_torch.kernels.rg_lru import ops as lru_ops
     from repro_torch.kernels.rg_lru import ref as lru_ref
 
-    saved = fa_ops.flash_attention, lru_ops.linear_scan
-    fa_ops.flash_attention, lru_ops.linear_scan = (_plain_flash,
-                                                   lru_ref.linear_scan)
+    saved = (fa_ops.flash_attention, lru_ops.linear_scan,
+             mlstm_ops.mlstm_chunkwise)
+    fa_ops.flash_attention = _plain_flash
+    lru_ops.linear_scan = lru_ref.linear_scan
+    mlstm_ops.mlstm_chunkwise = _plain_mlstm
     try:
         yield
     finally:
-        fa_ops.flash_attention, lru_ops.linear_scan = saved
+        (fa_ops.flash_attention, lru_ops.linear_scan,
+         mlstm_ops.mlstm_chunkwise) = saved
 
 
 def _flash_inputs(g, B, H, KH, S, D, dtype):
@@ -557,27 +594,30 @@ def phase_lm_kernels():
     return worst
 
 
-def phase_lm_golden():
-    """The small RecurrentGemma of the golden file, on the card, in
-    float32: prefill and decode logits against the JAX package's, and
-    the served tokens."""
+def phase_lm_golden(path=None, label="[6] small RecurrentGemma"):
+    """The small model of an LM golden file, on the card, in float32:
+    prefill and decode logits against the JAX package's, and the served
+    tokens."""
     import numpy as np
     import torch
 
     from repro_torch.launch.serve import Request, SlotServer
     from repro_torch.models.model_zoo import build_model
-    from repro_torch.models.params import cast_params, load_lm_golden
+    from repro_torch.models.params import (LM_GOLDEN_PATH, cast_params,
+                                           load_lm_golden)
 
-    print("[6] small RecurrentGemma on the card vs the JAX package's "
-          "outputs (golden file)")
-    golden = load_lm_golden()
+    print(f"{label} on the card vs the JAX package's outputs (golden "
+          f"file)")
+    golden = load_lm_golden(path or LM_GOLDEN_PATH)
     cfg = golden.config
     model = build_model(cfg)
     params = cast_params(golden.params, cfg, "cuda")
     B = golden.prefill_tokens.shape[0]
     S = golden.prefill_tokens.shape[1]
     with torch.inference_mode():
-        cache = model.init_cache(B, golden.cache_len, device="cuda")
+        cache = model.init_cache(B, golden.cache_len,
+                                 dtype=getattr(torch, golden.cache_dtype),
+                                 device="cuda")
         lp, cache = model.prefill(
             params, cache,
             tokens=torch.as_tensor(golden.prefill_tokens, device="cuda"))
@@ -598,9 +638,10 @@ def phase_lm_golden():
     served = [done[i] for i in range(len(reqs))]
     same = served == golden.served
     print(f"  {cfg.name} scaled down ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, float32): prefill logits err {errs[0]:.3e}, "
-          f"decode steps err {max(errs[1:]):.3e} (atol {LM_GOLDEN_ATOL:g}); "
-          f"{len(reqs)} served requests, tokens equal JAX's: {same}")
+          f"{cfg.d_model}, float32, {golden.cache_dtype} caches): prefill "
+          f"logits err {errs[0]:.3e}, decode steps err {max(errs[1:]):.3e} "
+          f"(atol {LM_GOLDEN_ATOL:g}); {len(reqs)} served requests (prompts "
+          f"{[len(p) for p in golden.prompts]}), tokens equal JAX's: {same}")
     check(max(errs) <= LM_GOLDEN_ATOL, f"golden logits: {errs}")
     check(same, "served tokens equal the JAX SlotServer's")
     return {"prefill_err": errs[0], "decode_err": max(errs[1:]),
@@ -625,6 +666,7 @@ def _kernels_vs_plain(model, params, prompts, tol, label):
 
     errs = {}
     for prompt in prompts:
+        t0 = time.perf_counter()
         toks = torch.as_tensor(prompt, device="cuda").long()[None]
         logits = {}
         for mode in ("kernels", "plain"):
@@ -636,7 +678,8 @@ def _kernels_vs_plain(model, params, prompts, tol, label):
         err = errs[len(prompt)] = _rel(logits["kernels"], logits["plain"])
         print(f"  {label} prefill logits S={len(prompt)}, kernels vs plain "
               f"versions: max err {err[0]:.3e} of max |logit| {err[1]:.1f},"
-              f" relative L2 {err[2]:.2e} (tol {tol:g})")
+              f" relative L2 {err[2]:.2e} (tol {tol:g}); "
+              f"{time.perf_counter() - t0:.1f} s")
         check(err[2] <= tol, f"{label} prefill S={len(prompt)}, kernels vs "
                              f"plain versions")
     return errs
@@ -667,6 +710,7 @@ def _ring_check(model, params, req, cache_dtype, tol, label,
 
     cfg = model.cfg
     S = len(req.prompt)
+    t0 = time.perf_counter()
     toks = torch.as_tensor(req.prompt, device="cuda").long()[None]
     first = torch.tensor([[req.tokens[0]]], device="cuda")
     cache = model.init_cache(1, FULL_MAX_LEN, dtype=cache_dtype,
@@ -685,7 +729,8 @@ def _ring_check(model, params, req, cache_dtype, tol, label,
     err = _rel(ld, lf)
     print(f"  {label}: decode at position {S} after prefill vs no-cache "
           f"forward over {S + 1} tokens: max err {err[0]:.3e} of max "
-          f"|logit| {err[1]:.1f}, relative L2 {err[2]:.2e} (tol {tol:g})")
+          f"|logit| {err[1]:.1f}, relative L2 {err[2]:.2e} (tol {tol:g}); "
+          f"{time.perf_counter() - t0:.1f} s")
     return err
 
 
@@ -846,9 +891,12 @@ def _top_device(prof, n=10):
     return sum(us for us, _, _ in kernels), kernels[:n]
 
 
-def profile_lm(model, params, server, req):
+def profile_lm(model, params, server, req, host_ops=True):
     """The profiler's top device entries for one 4096-token prefill and
-    for four decode steps of all slots."""
+    for four decode steps of all slots. ``host_ops=False`` records the
+    device activity only (for a prefill of some hundred thousand small
+    launches, where recording every host op would dominate the wall
+    time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -868,8 +916,9 @@ def profile_lm(model, params, server, req):
                     for i in range(4)])):
             fn()  # warm
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            activities = ([ProfilerActivity.CPU] if host_ops else []) + [
+                ProfilerActivity.CUDA]
+            with profile(activities=activities) as prof:
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
@@ -957,6 +1006,245 @@ def time_lm_kernels():
     return {"flash": flash, "rg_lru": lru}
 
 
+# ---------------------------------------------------------- the xLSTM slice
+def _mlstm_inputs(g, B, S, H, hd, dtype):
+    """The distributions of the reference's kernel test
+    (tests/test_kernels.py:107-112) in the model's layout: q, v normal,
+    k normal / sqrt(hd), log_i 0.5 normal, log_f log_sigmoid(normal + 2)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device="cuda")
+               for _ in range(3))
+    k = k / hd ** 0.5
+    li = torch.randn(B, S, H, generator=g, device="cuda") * 0.5
+    lf = F.logsigmoid(torch.randn(B, S, H, generator=g, device="cuda") + 2)
+    return q.to(dtype), k.to(dtype), v.to(dtype), li, lf
+
+
+def phase_mlstm_kernel():
+    """(a) the mLSTM kernel against its plain version on the card."""
+    import torch
+
+    from repro_torch.kernels.mlstm import ops
+
+    print("[9] mlstm_chunkwise: kernel vs plain version on the card")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    # (B, S, H, hd, chunk): the reference's test shapes (B*H = BH), then
+    # hd 32 and 1024 at ragged and whole lengths with chunk 256
+    cases = [(2, 128, 1, 64, 64), (4, 64, 1, 32, 32), (1, 256, 1, 128, 64)]
+    cases += [(1, S, 4, hd, MLSTM_CHUNK) for hd in (32, 1024)
+              for S in (1, 100, 256, 257, 1000, 3000, 4096)]
+    worst = {"float32": 0.0, "bfloat16": 0.0, "main": 0.0}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            for B, S, H, hd, chunk in cases:
+                q, k, v, li, lf = _mlstm_inputs(g, B, S, H, hd, dtype)
+                h, state = ops.mlstm_chunkwise(q, k, v, li, lf, chunk=chunk)
+                he, state_e = ops._plain(q, k, v, li, lf, chunk)
+                torch.cuda.synchronize()
+                check(h.shape == he.shape and h.dtype == q.dtype,
+                      "mlstm h shape and type")
+                errs = {label: _rel(a, e) for label, a, e in
+                        zip("hCnm", (h,) + state, (he,) + state_e)}
+                label = f"B={B} S={S} H={H} hd={hd} chunk={chunk} {name}"
+                if name == "bfloat16":
+                    # h is rounded to bf16 on both sides: one rounding step
+                    # apart is 2^-8 |h|, over 2e-2 where |h| > 5, so the
+                    # bound is 2e-2 at unit scale and relative above it
+                    scaled = float(((h.float() - he.float()).abs()
+                                    / he.float().abs().clamp_min(1)).max())
+                    ok = (scaled <= TOL[name]
+                          and all(errs[x][2] <= 1e-4 for x in "Cnm"))
+                    rule = (f"h err / max(1, |h|) {scaled:.2e} <= "
+                            f"{TOL[name]:g}, state rel L2 1e-4")
+                elif hd == 1024:
+                    ok = all(e[2] <= 1e-4 for e in errs.values())
+                    rule = "rel L2 1e-4"
+                else:
+                    ok = all(e[0] <= TOL[name] for e in errs.values())
+                    rule = f"abs {TOL[name]:g}"
+                print(f"  {label:40s} max err h {errs['h'][0]:.2e} C "
+                      f"{errs['C'][0]:.2e} n {errs['n'][0]:.2e} m "
+                      f"{errs['m'][0]:.2e}; rel L2 h {errs['h'][2]:.2e} C "
+                      f"{errs['C'][2]:.2e} ({rule}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"mlstm kernel vs plain, {label}: {errs}")
+                worst[name] = max(worst[name], errs["h"][0])
+                if (S, hd) == (4096, 1024) and name == "bfloat16":
+                    worst["main"] = errs["h"][0]
+                del q, k, v, h, he, state, state_e
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_xlstm_full():
+    """(c) xlstm-1.3b at full width, bf16, weights from seed 0 on the
+    card, serving eight requests through SlotServer; (d) the prefill
+    logits through the kernel vs the plain version and decode after a
+    3000-token prefill vs a no-cache forward, in bf16 and with the same
+    weights in float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mlstm import ops as mlstm_ops
+    from repro_torch.launch.serve import SlotServer, make_requests
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("xlstm-1.3b")
+    print(f"[11] {cfg.name} at full width on the card: {cfg.n_layers} "
+          f"layers ({cfg.layer_kinds.count('mlstm')} mLSTM, "
+          f"{cfg.layer_kinds.count('slstm')} sLSTM), d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {cfg.dtype}; "
+          f"{FULL_SLOTS} slots, prompts {XLSTM_LENGTHS}, max_new "
+          f"{FULL_MAX_NEW}, max_len {FULL_MAX_LEN}")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"  weights: {n_params:,} parameters, {n_bytes / 1e9:.2f} GB on "
+          f"the card, drawn in {time.perf_counter() - t0:.1f} s")
+    check(n_params == XLSTM_PARAMS, f"{n_params} parameters, expected "
+                                    f"{XLSTM_PARAMS}")
+    per_prefill = cfg.layer_kinds.count("mlstm")
+    requests = make_requests(len(XLSTM_LENGTHS), cfg.vocab_size,
+                             FULL_MAX_NEW, seed=0, lengths=XLSTM_LENGTHS)
+    server = SlotServer(model, params, n_slots=FULL_SLOTS,
+                        max_len=FULL_MAX_LEN)
+    # warm-up, not measured: one short request through a second server
+    warm = make_requests(1, cfg.vocab_size, 2, seed=1, lengths=(64,))
+    SlotServer(model, params, n_slots=FULL_SLOTS,
+               max_len=FULL_MAX_LEN).serve(warm)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mlstm_ops.LAUNCHES = 0  # the xLSTM main path starts here
+    t0 = time.perf_counter()
+    out = server.serve(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mlstm_ops.LAUNCHES  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    done = sorted(out["completed"], key=lambda r: r.rid)
+    check(len(done) == len(XLSTM_LENGTHS), "every request completed")
+    check(all(len(r.tokens) == FULL_MAX_NEW for r in done),
+          f"every request got {FULL_MAX_NEW} tokens")
+    check(launches == per_prefill * len(XLSTM_LENGTHS),
+          f"mlstm: {launches} launches, expected {per_prefill} per prefill "
+          f"x {len(XLSTM_LENGTHS)}")
+    prompt_tokens = sum(XLSTM_LENGTHS)
+    prefill_s = sum(r.prefill_s for r in done)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(server.cache))
+    row = {
+        "parameters": n_params, "requests": len(done),
+        "prompt_tokens": prompt_tokens, "decode_steps": out["decode_steps"],
+        "wall_s": wall,
+        "ttft_s": {len(r.prompt): r.ttft_s for r in done},
+        "prefill_latency_s": {len(r.prompt): r.prefill_s for r in done},
+        "prefill_tokens_per_s": prompt_tokens / prefill_s,
+        "decode_tokens": server.decode_tokens,
+        "decode_s": server.decode_s,
+        "decode_tokens_per_s": server.decode_tokens / server.decode_s,
+        "peak_memory_bytes": peak, "weight_bytes": n_bytes,
+        "cache_bytes": cache_bytes,
+        "launches": launches, "launches_per_prefill": per_prefill,
+    }
+    print(f"  served {len(done)} requests x {FULL_MAX_NEW} tokens in "
+          f"{wall:.2f} s, {out['decode_steps']} decode steps; mlstm launches "
+          f"{launches} ({per_prefill} per prefill)")
+    print("  time to first token (arrival at the server -> first token, "
+          "host clock): " + ", ".join(
+              f"S={s} {t * 1e3:.1f} ms" for s, t in row["ttft_s"].items()))
+    print("  prefill latency (prefill start -> first token): " + ", ".join(
+        f"S={s} {t * 1e3:.1f} ms"
+        for s, t in row["prefill_latency_s"].items()))
+    print(f"  prefill {row['prefill_tokens_per_s']:.0f} tokens/s; decode "
+          f"{row['decode_tokens_per_s']:.1f} tokens/s ({server.decode_tokens}"
+          f" tokens in {server.decode_s:.2f} s, {FULL_SLOTS} slots); peak "
+          f"memory {peak / 1e9:.2f} GB ({n_bytes / 1e9:.2f} GB weights, "
+          f"{cache_bytes / 1e9:.2f} GB of slot caches)")
+
+    by_len = {len(r.prompt): r for r in done}
+    req = by_len[XLSTM_CHECK_LENGTH]
+    checks = {}
+    with torch.inference_mode():
+        row["profile"] = profile_lm(model, params, server, by_len[4096],
+                                    host_ops=False)
+        del server
+        torch.cuda.empty_cache()
+        checks["bf16_kernel_vs_plain"] = _kernels_vs_plain(
+            model, params, [req.prompt], FULL_BF16_REL_TOL, "bf16")
+        checks["bf16_decode"] = _ring_check(
+            model, params, req, torch.bfloat16, FULL_BF16_REL_TOL,
+            "bf16 state check")
+        check(checks["bf16_decode"][2] <= FULL_BF16_REL_TOL,
+              "bf16 decode after prefill at full width")
+        # the same weights in float32 (bf16 -> f32 is exact)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = build_model(cfg32)
+        params32 = tfm.tree_map(lambda t: t.float(), params)
+        del params
+        torch.cuda.empty_cache()
+        checks["f32_kernel_vs_plain"] = _kernels_vs_plain(
+            model32, params32, [req.prompt], FULL_F32_REL_TOL, "f32")
+        checks["f32_decode"] = _ring_check(
+            model32, params32, req, torch.float32, FULL_F32_REL_TOL,
+            "f32 state check")
+        check(checks["f32_decode"][2] <= FULL_F32_REL_TOL,
+              "f32 decode after prefill at full width")
+        del params32
+    torch.cuda.empty_cache()
+    row["checks"] = {k: ({str(s): e for s, e in v.items()}
+                         if isinstance(v, dict) else v)
+                     for k, v in checks.items()}
+    return row, launches
+
+
+def time_mlstm():
+    """(e) the mLSTM kernel at the full-width prefill shape, its plain
+    version and its bound."""
+    import torch
+
+    from repro_torch.kernels.mlstm import ops
+
+    print("[12] timing the mLSTM kernel (CUDA events after warm-up)")
+    B, S, H, hd, L = 1, 4096, 4, 1024, MLSTM_CHUNK
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, li, lf = _mlstm_inputs(g, B, S, H, hd, torch.bfloat16)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: ops.mlstm_chunkwise(q, k, v, li, lf, chunk=L),
+                     10)
+        plain = cuda_ms(lambda: ops._plain(q, k, v, li, lf, L), 3)
+    # what this call's data needs: the causal (q, k) pairs of every chunk,
+    # a short last one included, for q k^T and W v; q C and the update of
+    # C at 2 hd^2 flops a row each; every input read once, every output
+    # written once
+    chunks = [min(L, S - s0) for s0 in range(0, S, L)]
+    pairs = sum(n * (n + 1) // 2 for n in chunks)
+    flops = B * H * (4 * pairs * hd + 4 * S * hd * hd)
+    nbytes = (4 * q.nbytes + li.nbytes + lf.nbytes  # q, k, v in; h out
+              + B * H * (hd * hd + hd + 1) * 4)  # C, n, m out
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"shape": f"B={B} H={H} S={S} hd={hd} chunk={L} bfloat16",
+           "ms": ms, "plain_ms": plain, "library_ms": None,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes, "pairs_per_head": pairs}
+    print(f"  mlstm {row['shape']}: kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms, no library call, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {flops / 1e9:.1f} GFLOP at 989 TFLOP/s; "
+          f"{nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms); "
+          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    return row
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1007,6 +1295,16 @@ def main() -> int:
 
     timing, engine_rows, lm_timing = timed(
         "timing", seconds, phase_timing, engine, frame, fleet_frame)
+    torch.cuda.empty_cache()
+
+    from repro_torch.models.params import XLSTM_GOLDEN_PATH
+
+    mlstm_err = timed("mLSTM kernel", seconds, phase_mlstm_kernel)
+    xlstm_golden = timed("xLSTM golden", seconds, phase_lm_golden,
+                         XLSTM_GOLDEN_PATH, "[10] small xLSTM")
+    xlstm_full, mlstm_launches = timed("xLSTM full width", seconds,
+                                       phase_xlstm_full)
+    mlstm = timed("mLSTM timing", seconds, time_mlstm)
     big = timing["262144"]
     flash, lru = lm_timing["flash"], lm_timing["rg_lru"]
     kernels = [{
@@ -1049,6 +1347,19 @@ def main() -> int:
         "bound_by": lru["bound_by"],
         "library_ms": lru["library_ms"],
         "shape": lru["shape"],
+    }, {
+        "name": "mlstm_chunkwise",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/mlstm.cu",
+        "replaces": "src/repro/kernels/mlstm/kernel.py:24",
+        "launches": mlstm_launches,
+        "max_abs_err": mlstm_err["main"],
+        "ms": mlstm["ms"],
+        "plain_ms": mlstm["plain_ms"],
+        "bound_ms": mlstm["bound_ms"],
+        "bound_by": mlstm["bound_by"],
+        "library_ms": mlstm["library_ms"],
+        "shape": mlstm["shape"],
     }]
     card = card_line()
     REPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -1056,9 +1367,11 @@ def main() -> int:
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "seconds": seconds, "kernels": kernels, "engine": engine_rows,
         "lm_kernel_errors": lm_err, "lm_golden": lm_golden,
-        "lm_full_width": lm_full, "lm_kernel_timing": lm_timing},
+        "lm_full_width": lm_full, "lm_kernel_timing": lm_timing,
+        "mlstm_kernel_errors": mlstm_err, "xlstm_golden": xlstm_golden,
+        "xlstm_full_width": xlstm_full, "mlstm_timing": mlstm},
         indent=1, default=str))
-    print(f"[9] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[13] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_config(name)``.
 
 The names are the reference's (``repro/configs/__init__.py``). The port
-serves one architecture so far; asking for another raises a
+serves the architectures of ``PORTED``; asking for another raises a
 ``KeyError`` that names the slice of ``ROADMAP.md`` that brings it.
 """
 
@@ -25,7 +25,7 @@ ARCHS = (
 )
 
 #: The architectures whose serving path the port runs.
-PORTED = ("recurrentgemma-9b",)
+PORTED = ("recurrentgemma-9b", "xlstm-1.3b")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 
@@ -34,10 +34,8 @@ def get_config(name: str) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch '{name}'; known: {', '.join(ARCHS)}")
     if name not in PORTED:
-        slice_ = ("the xLSTM serving slice (mlstm_chunkwise kernel)"
-                  if name == "xlstm-1.3b" else
-                  "the remaining LM-zoo modules (queue 1 of ROADMAP.md)")
         raise KeyError(f"arch '{name}' is not ported yet; it comes with "
-                       f"{slice_}. Ported: {', '.join(PORTED)}")
+                       f"the rest of the LM zoo (queue 1 item 12 of "
+                       f"ROADMAP.md). Ported: {', '.join(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

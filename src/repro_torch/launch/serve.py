@@ -3,7 +3,7 @@
 
     python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --scale small --device cpu
-    python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+    python -m repro_torch.launch.serve --arch xlstm-1.3b \
         --scale full --max-len 4112
 
 A fixed pool of batch slots serves a request queue: a finished sequence
@@ -13,8 +13,9 @@ prefills a full batch with only the slot's row active and merges that
 row into the live cache (``merge_cache_slot``); here the request is
 prefilled as a batch of one straight into the slot's rows of the live
 cache (``transformer.cache_rows``: views at batch axis 1 in the body,
-0 in head and tail). Rows are independent in every layer, so the
-tokens are the same.
+0 in head and tail), where every layer writes its state in place
+(K/V rings, conv histories, RG-LRU and xLSTM states). Rows are
+independent in every layer, so the tokens are the same.
 
 It runs on the card unless ``--device cpu`` is given, and fails when
 there is no card. The Perona serving modes of the reference

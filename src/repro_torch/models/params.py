@@ -10,8 +10,9 @@ and shapes: the port keeps the reference's tree, body leaves with their
 leading ``n_periods`` axis included (``models.transformer`` takes views
 per period), and only the types change, by :func:`cast_params`.
 
-:func:`load_lm_golden` reads ``assets/recurrentgemma_small_golden.npz``:
-a small RecurrentGemma (``scaled_down(dtype="float32")``) with the JAX
+:func:`load_lm_golden` reads ``assets/recurrentgemma_small_golden.npz``
+or ``assets/xlstm_small_golden.npz`` (``XLSTM_GOLDEN_PATH``): a small
+RecurrentGemma or xLSTM (``scaled_down(dtype="float32")``) with the JAX
 package's parameters, its prefill and decode logits and the tokens its
 ``SlotServer`` served (written by ``tests/test_torch_lm_golden.py
 --write``).
@@ -31,8 +32,9 @@ from repro_torch.core.params import load_npz, params_from_numpy, unflatten
 from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.models.transformer import compute_dtype
 
-LM_GOLDEN_PATH = (Path(__file__).resolve().parents[1] / "assets"
-                  / "recurrentgemma_small_golden.npz")
+ASSETS = Path(__file__).resolve().parents[1] / "assets"
+LM_GOLDEN_PATH = ASSETS / "recurrentgemma_small_golden.npz"
+XLSTM_GOLDEN_PATH = ASSETS / "xlstm_small_golden.npz"
 
 #: Leaf names the reference reads in float32 whatever the compute type.
 F32_LEAVES = ("scale", "lambda")
@@ -82,6 +84,7 @@ class LMGolden:
     prefill_tokens: np.ndarray  # (B, S)
     prefill_logits: np.ndarray  # (B, V), JAX
     cache_len: int
+    cache_dtype: str  # of the caches behind the prefill and decode logits
     decode_tokens: np.ndarray  # (steps, B), fed one step at a time
     decode_logits: np.ndarray  # (steps, B, V), JAX, positions S, S+1, ...
     prompts: List[np.ndarray]  # the served requests
@@ -103,6 +106,7 @@ def load_lm_golden(path=LM_GOLDEN_PATH) -> LMGolden:
         prefill_tokens=g["prefill/tokens"],
         prefill_logits=g["prefill/logits"],
         cache_len=int(g["cache_len"]),
+        cache_dtype=str(g.get("cache_dtype", "bfloat16")),
         decode_tokens=g["decode/tokens"],
         decode_logits=g["decode/logits"],
         prompts=np.split(g["serve/prompts"], cuts),

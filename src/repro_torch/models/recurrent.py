@@ -1,24 +1,31 @@
-"""Griffin recurrent block (conv1d + RG-LRU): ``repro/models/recurrent.py``
-(``:29-190``) in PyTorch.
+"""Recurrent layer kinds, ``repro/models/recurrent.py`` in PyTorch: the
+Griffin block (conv1d + RG-LRU, ``:29-190``) and the xLSTM blocks (mLSTM
+``:192-358`` and sLSTM ``:365-465``).
 
 The full-sequence RG-LRU (train, prefill) goes through the kernel
-wrapper ``kernels.rg_lru.ops.linear_scan`` (the CUDA kernel on the
-card, its plain version on the CPU); one decode step is plain tensor
-code, as in the reference. The gates are computed in the compute type,
-the recurrence in float32.
+wrapper ``kernels.rg_lru.ops.linear_scan`` and the full-sequence mLSTM
+through ``kernels.mlstm.ops.mlstm_chunkwise`` (the CUDA kernels on the
+card, their plain versions on the CPU); one decode step of either is
+plain tensor code, as in the reference. The sLSTM has no TPU kernel in
+the reference (a ``lax.scan`` of jnp ops): here it is a Python loop
+over time. Gates are computed in the compute type, recurrences and
+states in float32.
 
-Caches are written in place: ``griffin_block`` in "prefill" and
-"decode" mode copies the new state into ``cache["conv"]`` (the last
-``conv1d_width - 1`` pre-conv inputs, in the cache's type, bfloat16 by
-default) and ``cache["h"]`` (float32), and returns the same dict. The
-xLSTM blocks of the reference come with a later slice.
+Caches are written in place: the blocks in "prefill" and "decode" mode
+copy the new state into the cache dict they are given and return it.
+A conv history holds the last ``conv1d_width - 1`` pre-conv inputs in
+the cache's type (bfloat16 by default), with zeros before the first
+token of a short prompt; every recurrent state is float32.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.mlstm import ops as mlstm_ops
 from repro_torch.kernels.rg_lru import ops as lru_ops
 from repro_torch.models import nn
 from repro_torch.models.config import ModelConfig
@@ -44,6 +51,14 @@ def conv1d_causal(params, x):
         shifted = F.pad(x, (0, 0, k, 0))[:, :S]
         out = out + shifted * w[k]
     return out + params["b"].to(x.dtype)
+
+
+def _conv_history(cfg: ModelConfig, pre_conv):
+    """The conv history after a prefill: the last (width - 1) pre-conv
+    inputs, with zeros before the first token of a short prompt."""
+    width = cfg.conv1d_width - 1
+    tail = pre_conv[:, -width:]
+    return F.pad(tail, (0, 0, width - tail.shape[1], 0))
 
 
 def conv1d_decode(params, x_t, conv_cache):
@@ -143,12 +158,7 @@ def griffin_block(params, cfg: ModelConfig, x, *, mode: str = "train",
         y = conv1d_causal(params["conv"], y)
         y, h_last = rg_lru_scan(params["lru"], cfg, y)
         if mode == "prefill" and cache is not None:
-            # conv history = the last (width - 1) pre-conv inputs, with
-            # zeros before the first token of a short prompt
-            width = cfg.conv1d_width - 1
-            tail = pre_conv[:, -width:]
-            tail = F.pad(tail, (0, 0, width - tail.shape[1], 0))
-            cache["conv"].copy_(tail)
+            cache["conv"].copy_(_conv_history(cfg, pre_conv))
             cache["h"].copy_(h_last)
     return nn.linear(params["wo"], y * gate), cache
 
@@ -160,4 +170,200 @@ def init_griffin_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
                             dtype=dtype, device=device),
         "h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
                          device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory block)
+# ---------------------------------------------------------------------------
+
+def mlstm_block_init(init: nn.Init, cfg: ModelConfig):
+    d = cfg.d_model
+    di = 2 * d  # proj_factor 2
+    H = cfg.n_heads
+    return {"up": nn.linear_init(init, d, 2 * di),
+            "conv": conv1d_init(init, cfg.conv1d_width, di),
+            "wq": _block_diag_init(init, H, di),
+            "wk": _block_diag_init(init, H, di),
+            "wv": _block_diag_init(init, H, di),
+            "wi": nn.linear_init(init, di, H),
+            "wf": nn.linear_init(init, di, H),
+            "hnorm": nn.norm_init(init, "rmsnorm", di),  # over all 2 d
+            "down": nn.linear_init(init, di, d)}
+
+
+def mlstm_step(q, k, v, log_i, log_f, state):
+    """One decode step. q, k, v: (B, 1, H, hd); gates (B, 1, H) float32;
+    state (C (B, H, hd, hd), n (B, H, hd), m (B, H)) float32. Returns
+    (h (B, 1, H, hd) in q's type, the new state)."""
+    C, n, m = state
+    q32, k32, v32 = (x.float()[:, 0] for x in (q, k, v))
+    li, lf = log_i[:, 0], log_f[:, 0]  # (B, H)
+    m_new = torch.maximum(lf + m, li)
+    fgate = torch.exp(lf + m - m_new)[..., None]
+    igate = torch.exp(li - m_new)[..., None]
+    C_new = (fgate[..., None] * C
+             + igate[..., None] * (k32[..., :, None] * v32[..., None, :]))
+    n_new = fgate * n + igate * k32
+    num = (q32[..., None, :] @ C_new)[..., 0, :]
+    den = (q32 * n_new).sum(-1)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return h[:, None].to(q.dtype), (C_new, n_new, m_new)
+
+
+def mlstm_block(params, cfg: ModelConfig, x, *, mode: str = "train",
+                cache=None):
+    """x: (B, S, D) normed input; cache: {"conv", "state": (C, n, m)},
+    updated in place in "prefill" and "decode" mode. Returns (out,
+    cache)."""
+    B, S, d = x.shape
+    di = 2 * d
+    H = cfg.n_heads
+    hd = di // H
+    up = nn.linear(params["up"], x)
+    x1, x2 = up[..., :di], up[..., di:]
+    if mode == "decode":
+        c, hist = conv1d_decode(params["conv"], x1, cache["conv"])
+    else:
+        c = conv1d_causal(params["conv"], x1)
+    c = F.silu(c)
+    q = _block_diag_apply(params["wq"], c, H).reshape(B, S, H, hd)
+    k = (_block_diag_apply(params["wk"], c, H).reshape(B, S, H, hd)
+         / math.sqrt(hd))  # in the compute type, as the reference
+    v = _block_diag_apply(params["wv"], x1, H).reshape(B, S, H, hd)
+    log_i = nn.linear(params["wi"], c).float()  # (B, S, H)
+    log_f = F.logsigmoid(nn.linear(params["wf"], c).float())
+
+    if mode == "decode":
+        h, state = mlstm_step(q, k, v, log_i, log_f, cache["state"])
+    else:
+        h, state = mlstm_ops.mlstm_chunkwise(q, k, v, log_i, log_f,
+                                             chunk=256)
+    if mode in ("prefill", "decode") and cache is not None:
+        cache["conv"].copy_(hist if mode == "decode"
+                            else _conv_history(cfg, x1))
+        for dst, src in zip(cache["state"], state):
+            dst.copy_(src)
+    h = nn.apply_norm(params["hnorm"], "rmsnorm", h.reshape(B, S, di))
+    return nn.linear(params["down"], h * F.silu(x2)), cache
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device="cpu"):
+    di = 2 * cfg.d_model
+    H = cfg.n_heads
+    hd = di // H
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "conv": torch.zeros((batch, cfg.conv1d_width - 1, di), dtype=dtype,
+                            device=device),
+        "state": (torch.zeros((batch, H, hd, hd), **f32),
+                  torch.zeros((batch, H, hd), **f32),
+                  torch.full((batch, H), -1e30, **f32)),
+    }
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar-memory block)
+# ---------------------------------------------------------------------------
+
+SLSTM_GATES = ("z", "i", "f", "o")
+
+
+def slstm_block_init(init: nn.Init, cfg: ModelConfig):
+    d = cfg.d_model
+    H = cfg.n_heads
+    params = {"conv": conv1d_init(init, cfg.conv1d_width, d)}
+    for g in SLSTM_GATES:
+        params[f"w{g}"] = nn.linear_init(init, d, d)
+    for g in SLSTM_GATES:
+        params[f"r{g}"] = _block_diag_init(init, H, d)
+    params["hnorm"] = nn.norm_init(init, "rmsnorm", d)
+    params["ffn"] = nn.mlp_init(init, "geglu", d, (4 * d) // 3)
+    return params
+
+
+def _slstm_recurrent(params):
+    """The four block-diagonal recurrent weights as one float32 (H, hd,
+    4 hd) matrix, gate g in columns [g hd, (g + 1) hd), and their biases
+    (4, d): cast once per call, as ``_block_diag_apply`` casts them to
+    the float32 state's type."""
+    w = torch.cat([params[f"r{g}"]["w"].float() for g in SLSTM_GATES], -1)
+    b = torch.stack([params[f"r{g}"]["b"].float() for g in SLSTM_GATES])
+    return w, b
+
+
+def _slstm_cell(w_rec, pre, state):
+    """One step for every sequence. w_rec (H, hd, 4 hd); pre (H, B, 4 hd)
+    the input-side pre-activations plus the recurrent biases; state
+    (c, n, h, m), each (H, B, hd) float32. Returns the new state."""
+    c, n, h, m = state
+    hd = c.shape[-1]
+    r = torch.baddbmm(pre, h, w_rec)  # (H, B, 4 hd)
+    z, log_i, f, o = r.split(hd, dim=-1)
+    log_f_m = F.logsigmoid(f) + m
+    m_new = torch.maximum(log_f_m, log_i)
+    i_s = torch.exp(log_i - m_new)
+    f_s = torch.exp(log_f_m - m_new)
+    c_new = f_s * c + i_s * torch.tanh(z)
+    n_new = f_s * n + i_s
+    h_new = torch.sigmoid(o) * c_new / torch.clamp_min(n_new, 1e-6)
+    return c_new, n_new, h_new, m_new
+
+
+def slstm_block(params, cfg: ModelConfig, x, *, mode: str = "train",
+                cache=None):
+    """x: (B, S, D) normed input; cache: {"conv", "state": (c, n, h, m)},
+    each state leaf (B, D) float32, updated in place in "prefill" and
+    "decode" mode. Returns (out, cache)."""
+    B, S, d = x.shape
+    H = cfg.n_heads
+    hd = d // H
+    if mode == "decode":
+        cx, hist = conv1d_decode(params["conv"], x, cache["conv"])
+    else:
+        cx = conv1d_causal(params["conv"], x)
+    cx = F.silu(cx)
+    pre = torch.stack([nn.linear(params["wz"], x), nn.linear(params["wi"], cx),
+                       nn.linear(params["wf"], cx), nn.linear(params["wo"], x)],
+                      dim=2).float()  # (B, S, 4, d)
+    w_rec, b_rec = _slstm_recurrent(params)
+    pre = pre + b_rec
+    # (B, S, 4, H, hd) -> (S, H, B, 4 hd): one step is one batched product
+    pre = pre.reshape(B, S, 4, H, hd).permute(1, 3, 0, 2, 4).reshape(
+        S, H, B, 4 * hd).contiguous()
+
+    def heads(t):  # (B, d) -> (H, B, hd)
+        return t.reshape(B, H, hd).transpose(0, 1).contiguous()
+
+    if mode == "decode":
+        state = tuple(heads(t) for t in cache["state"])
+    else:
+        zeros = torch.zeros(H, B, hd, dtype=torch.float32, device=x.device)
+        state = (zeros, zeros, zeros, torch.full_like(zeros, -1e30))
+    hs = torch.empty(S, H, B, hd, dtype=torch.float32, device=x.device)
+    for t in range(S):
+        state = _slstm_cell(w_rec, pre[t], state)
+        hs[t] = state[2]
+    if mode in ("prefill", "decode") and cache is not None:
+        cache["conv"].copy_(hist if mode == "decode"
+                            else _conv_history(cfg, x))
+        for dst, src in zip(cache["state"], state):
+            dst.copy_(src.transpose(0, 1).reshape(B, d))
+    hs = hs.permute(2, 0, 1, 3).reshape(B, S, d).to(x.dtype)
+    hs = nn.apply_norm(params["hnorm"], "rmsnorm", hs)
+    return hs + nn.apply_mlp(params["ffn"], "geglu", hs), cache
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device="cpu"):
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "conv": torch.zeros((batch, cfg.conv1d_width - 1, d), dtype=dtype,
+                            device=device),
+        "state": (torch.zeros((batch, d), **f32),
+                  torch.zeros((batch, d), **f32),
+                  torch.zeros((batch, d), **f32),
+                  torch.full((batch, d), -1e30, **f32)),
     }

@@ -1,6 +1,7 @@
 """LM assembly: embedding -> head/body/tail layers -> final norm ->
 logits; ``repro/models/transformer.py`` in PyTorch for the layer kinds
-"attn", "local_attn" and "rg_lru".
+"attn", "local_attn", "rg_lru", "mlstm" and "slstm". The xLSTM kinds are
+self-contained blocks: no ``norm2`` / ``mlp``, ``x + block(norm1(x))``.
 
 Parameters and caches keep the reference's tree: ``params["body"][i]``
 holds layer ``i`` of the period with every leaf stacked over a leading
@@ -27,7 +28,8 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ModelConfig
 
 ATTN_KINDS = ("attn", "local_attn")
-KINDS = ATTN_KINDS + ("rg_lru",)
+XLSTM_KINDS = ("mlstm", "slstm")
+KINDS = ATTN_KINDS + ("rg_lru",) + XLSTM_KINDS
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,6 +63,12 @@ def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
         params["attn"] = attn.attention_init(init, cfg)
     elif kind == "rg_lru":
         params["mix"] = rec.griffin_block_init(init, cfg)
+    elif kind == "mlstm":
+        params["mix"] = rec.mlstm_block_init(init, cfg)
+        return params  # self-contained block
+    elif kind == "slstm":
+        params["mix"] = rec.slstm_block_init(init, cfg)
+        return params
     else:
         raise ValueError(kind)
     params["norm2"] = nn.norm_init(init, cfg.norm, cfg.d_model)
@@ -80,6 +88,10 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
     elif kind == "rg_lru":
         y, cache = rec.griffin_block(params["mix"], cfg, h, mode=mode,
                                      cache=cache)
+    elif kind in XLSTM_KINDS:
+        block = rec.mlstm_block if kind == "mlstm" else rec.slstm_block
+        y, cache = block(params["mix"], cfg, h, mode=mode, cache=cache)
+        return x + y * rm, cache  # self-contained block
     else:
         raise ValueError(kind)
     x = x + y * rm
@@ -96,6 +108,10 @@ def layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
                                   device=device)
     if kind == "rg_lru":
         return rec.init_griffin_cache(cfg, batch, dtype=dtype, device=device)
+    if kind == "mlstm":
+        return rec.init_mlstm_cache(cfg, batch, dtype=dtype, device=device)
+    if kind == "slstm":
+        return rec.init_slstm_cache(cfg, batch, dtype=dtype, device=device)
     raise ValueError(kind)
 
 
