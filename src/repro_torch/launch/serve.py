@@ -135,11 +135,16 @@ class SlotServer:
 
 def make_requests(n: int, vocab: int, max_new: int, seed: int,
                   lengths=None) -> List[Request]:
-    """Prompts of seeded random tokens: lengths drawn from [4, 16], as
-    the reference's ``main`` does, unless ``lengths`` are given."""
+    """Prompts of seeded random tokens. Unless ``lengths`` are given,
+    each request draws its length from [4, 16] and then its prompt, in
+    the order of the reference's ``main``, so that one seed serves the
+    same prompts in both packages."""
     rng = np.random.default_rng(seed)
     if lengths is None:
-        lengths = [int(rng.integers(4, 17)) for _ in range(n)]
+        return [Request(rid=i, max_new=max_new,
+                        prompt=rng.integers(0, vocab, rng.integers(4, 17))
+                        .astype(np.int32))
+                for i in range(n)]
     return [Request(rid=i, max_new=max_new,
                     prompt=rng.integers(0, vocab, s).astype(np.int32))
             for i, s in enumerate(lengths)]

@@ -300,6 +300,32 @@ def test_time_to_first_token_counts_from_arrival():
     assert stamped[0].arrival_s == 0.0 and stamped[0].ttft_s > 1.0
 
 
+@pytest.mark.parametrize("n", [1, 2, 8])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_make_requests_draws_the_references_request_stream(n, seed):
+    """The reference's ``main`` (repro/launch/serve.py:556-563) draws, for
+    each request in turn, a length in [4, 16] and then its prompt; the
+    same seed gives the same prompts token for token."""
+    vocab, max_new = 256000, 5
+    rng = np.random.default_rng(seed)
+    expect = [rng.integers(0, vocab, rng.integers(4, 17)).astype(np.int32)
+              for _ in range(n)]
+    reqs = serve.make_requests(n, vocab, max_new, seed)
+    assert [r.rid for r in reqs] == list(range(n))
+    assert all(r.max_new == max_new for r in reqs)
+    for r, prompt in zip(reqs, expect):
+        assert r.prompt.dtype == np.int32
+        np.testing.assert_array_equal(r.prompt, prompt)
+
+
+def test_make_requests_keeps_given_lengths():
+    reqs = serve.make_requests(3, 100, 2, seed=0, lengths=[5, 1, 9])
+    assert [len(r.prompt) for r in reqs] == [5, 1, 9]
+    rng = np.random.default_rng(0)
+    for r, s in zip(reqs, (5, 1, 9)):
+        np.testing.assert_array_equal(r.prompt, rng.integers(0, 100, s))
+
+
 # ------------------------------------------------------------ entry point
 def test_serve_main_runs_on_cpu(capsys):
     out = serve.main(["--device", "cpu", "--requests", "3", "--max-new",
