@@ -11,7 +11,9 @@ C and n, but not h or ``C * exp(m)``.
 
 The CPU tests use it, ``chip_smoke.py`` holds the CUDA kernel against
 it on the card, and the kernel wrapper (``ops``) takes it for tensors
-that lie on the CPU.
+that lie on the CPU. Under float64 inputs (the CPU tests' float64
+evaluation of the small xLSTM) it computes and keeps its state in
+float64.
 """
 
 from __future__ import annotations
@@ -21,10 +23,10 @@ import torch
 M_INIT = -1e30  # the fresh state's stabilizer: finite, so no -inf - -inf
 
 
-def init_state(bh: int, hd: int, device="cpu"):
-    return (torch.zeros(bh, hd, hd, dtype=torch.float32, device=device),
-            torch.zeros(bh, hd, dtype=torch.float32, device=device),
-            torch.full((bh,), M_INIT, dtype=torch.float32, device=device))
+def init_state(bh: int, hd: int, device="cpu", dtype=torch.float32):
+    return (torch.zeros(bh, hd, hd, dtype=dtype, device=device),
+            torch.zeros(bh, hd, dtype=dtype, device=device),
+            torch.full((bh,), M_INIT, dtype=dtype, device=device))
 
 
 def _chunk(q, k, v, li, lf, C, n, m):
@@ -35,7 +37,7 @@ def _chunk(q, k, v, li, lf, C, n, m):
     # float32 cumsum's rounding depends on its order (sequential here, a
     # tree in XLA, a scan on the card) and exp amplifies it; this gives
     # the kernel's bits on any device
-    b = torch.cumsum(lf.double(), dim=1).float()  # (BH, Lc)
+    b = torch.cumsum(lf.double(), dim=1).to(lf.dtype)  # (BH, Lc)
     total_f = b[:, -1]  # b at the last real row
     # intra-chunk decay D[i, j] = b_i - b_j + li_j for j <= i
     dmat = b[:, :, None] - b[:, None, :] + li[:, None, :]
@@ -65,14 +67,15 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int = 64, state=None):
     q's type, (C, n, m) float32)."""
     BH, S, hd = q.shape
     L = min(chunk, S)
-    C, n, m = (init_state(BH, hd, q.device) if state is None
-               else tuple(t.float() for t in state))
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    C, n, m = (init_state(BH, hd, q.device, f) if state is None
+               else tuple(t.to(f) for t in state))
     h = torch.empty(BH, S, hd, dtype=q.dtype, device=q.device)
-    li, lf = log_i.float(), log_f.float()
+    li, lf = log_i.to(f), log_f.to(f)
     for s0 in range(0, S, L):
         rows = slice(s0, min(s0 + L, S))
-        hc, (C, n, m) = _chunk(q[:, rows].float(), k[:, rows].float(),
-                               v[:, rows].float(), li[:, rows], lf[:, rows],
+        hc, (C, n, m) = _chunk(q[:, rows].to(f), k[:, rows].to(f),
+                               v[:, rows].to(f), li[:, rows], lf[:, rows],
                                C, n, m)
         h[:, rows] = hc.to(q.dtype)
     return h, (C, n, m)

@@ -11,6 +11,9 @@ read in the compute type in that type once (:class:`Init` with a
 ``dtype``; ``models.params.cast_params`` for carried weights), which
 gives the same products with half the memory in bfloat16. The leaves
 read in float32 (norm scales, the RG-LRU ``lambda``) stay float32.
+A float64 compute type (tests only: the reference the float32 runs of
+both packages are measured against) keeps norms and recurrent states in
+float64 too (:func:`state_dtype`).
 
 :class:`Linear` is the linear layer as a module, for ``core.model``.
 """
@@ -123,6 +126,12 @@ def unembed(params, x):
 # Norms (RMSNorm, computed in float32)
 # ---------------------------------------------------------------------------
 
+def state_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type of norms and recurrent states for a compute type:
+    float32, or float64 when the compute type is float64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def norm_init(init: Init, kind: str, dim: int):
     if kind != "rmsnorm":
         raise ValueError(f"the port has only rmsnorm so far, not {kind!r}")
@@ -132,9 +141,9 @@ def norm_init(init: Init, kind: str, dim: int):
 def apply_norm(params, kind: str, x, eps: float = 1e-6):
     if kind != "rmsnorm":
         raise ValueError(f"the port has only rmsnorm so far, not {kind!r}")
-    xf = x.float()
+    xf = x.to(state_dtype(x.dtype))
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    return (y * params["scale"].to(xf.dtype)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,8 @@ card, their plain versions on the CPU); one decode step of either is
 plain tensor code, as in the reference. The sLSTM has no TPU kernel in
 the reference (a ``lax.scan`` of jnp ops): here it is a Python loop
 over time. Gates are computed in the compute type, recurrences and
-states in float32.
+states in float32 (float64 under a float64 compute type, the tests'
+float64 evaluation).
 
 Caches are written in place: the blocks in "prefill" and "decode" mode
 copy the new state into the cache dict they are given and return it.
@@ -231,8 +232,9 @@ def mlstm_block(params, cfg: ModelConfig, x, *, mode: str = "train",
     k = (_block_diag_apply(params["wk"], c, H).reshape(B, S, H, hd)
          / math.sqrt(hd))  # in the compute type, as the reference
     v = _block_diag_apply(params["wv"], x1, H).reshape(B, S, H, hd)
-    log_i = nn.linear(params["wi"], c).float()  # (B, S, H)
-    log_f = F.logsigmoid(nn.linear(params["wf"], c).float())
+    sd = nn.state_dtype(x.dtype)
+    log_i = nn.linear(params["wi"], c).to(sd)  # (B, S, H)
+    log_f = F.logsigmoid(nn.linear(params["wf"], c).to(sd))
 
     if mode == "decode":
         h, state = mlstm_step(q, k, v, log_i, log_f, cache["state"])
@@ -283,13 +285,13 @@ def slstm_block_init(init: nn.Init, cfg: ModelConfig):
     return params
 
 
-def _slstm_recurrent(params):
-    """The four block-diagonal recurrent weights as one float32 (H, hd,
-    4 hd) matrix, gate g in columns [g hd, (g + 1) hd), and their biases
-    (4, d): cast once per call, as ``_block_diag_apply`` casts them to
-    the float32 state's type."""
-    w = torch.cat([params[f"r{g}"]["w"].float() for g in SLSTM_GATES], -1)
-    b = torch.stack([params[f"r{g}"]["b"].float() for g in SLSTM_GATES])
+def _slstm_recurrent(params, dtype):
+    """The four block-diagonal recurrent weights as one (H, hd, 4 hd)
+    matrix of the state's type ``dtype``, gate g in columns
+    [g hd, (g + 1) hd), and their biases (4, d): cast once per call, as
+    ``_block_diag_apply`` casts them to the float32 state's type."""
+    w = torch.cat([params[f"r{g}"]["w"].to(dtype) for g in SLSTM_GATES], -1)
+    b = torch.stack([params[f"r{g}"]["b"].to(dtype) for g in SLSTM_GATES])
     return w, b
 
 
@@ -326,8 +328,10 @@ def slstm_block(params, cfg: ModelConfig, x, *, mode: str = "train",
     cx = F.silu(cx)
     pre = torch.stack([nn.linear(params["wz"], x), nn.linear(params["wi"], cx),
                        nn.linear(params["wf"], cx), nn.linear(params["wo"], x)],
-                      dim=2).float()  # (B, S, 4, d)
-    w_rec, b_rec = _slstm_recurrent(params)
+                      dim=2)  # (B, S, 4, d)
+    sd = nn.state_dtype(x.dtype)
+    pre = pre.to(sd)
+    w_rec, b_rec = _slstm_recurrent(params, sd)
     pre = pre + b_rec
     # (B, S, 4, H, hd) -> (S, H, B, 4 hd): one step is one batched product
     pre = pre.reshape(B, S, 4, H, hd).permute(1, 3, 0, 2, 4).reshape(
@@ -339,9 +343,9 @@ def slstm_block(params, cfg: ModelConfig, x, *, mode: str = "train",
     if mode == "decode":
         state = tuple(heads(t) for t in cache["state"])
     else:
-        zeros = torch.zeros(H, B, hd, dtype=torch.float32, device=x.device)
+        zeros = torch.zeros(H, B, hd, dtype=sd, device=x.device)
         state = (zeros, zeros, zeros, torch.full_like(zeros, -1e30))
-    hs = torch.empty(S, H, B, hd, dtype=torch.float32, device=x.device)
+    hs = torch.empty(S, H, B, hd, dtype=sd, device=x.device)
     for t in range(S):
         state = _slstm_cell(w_rec, pre[t], state)
         hs[t] = state[2]

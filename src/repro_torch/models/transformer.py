@@ -31,7 +31,9 @@ ATTN_KINDS = ("attn", "local_attn")
 XLSTM_KINDS = ("mlstm", "slstm")
 KINDS = ATTN_KINDS + ("rg_lru",) + XLSTM_KINDS
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 serves the CPU tests' float64 evaluation of the small models
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
