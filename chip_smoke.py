@@ -22,7 +22,9 @@ Phases, each printing on lines of its own:
    3 rounds of 6,144 new rows) against a CPU run of the port;
 5. the flash-attention and RG-LRU kernels against their plain versions
    on the card (f32 and bf16; B 1/2, KH 1/16, D 64/256, S up to 4096,
-   window 0/2048; the scan at C=4096, S 1/257/4096, with and without h0);
+   window 0/2048; then the bf16 kernel's tile edges: S, T in 15..191
+   around multiples of 64 and 128, window 0/1/64/65, KH 1/4/16, D
+   16/64/256; the scan at C=4096, S 1/257/4096, with and without h0);
 6. a small RecurrentGemma (float32) against the JAX package's prefill
    and decode logits and served tokens (golden file);
 7. recurrentgemma-9b at full width (bf16, seed-0 weights drawn on the
@@ -37,7 +39,9 @@ Phases, each printing on lines of its own:
 8. timing: the edge-softmax kernel (kernel, in a CUDA graph, plain
    version, the library call and the byte bound) and the scoring call
    per bucket; the flash and RG-LRU kernels at the full-width prefill
-   shapes with their plain versions, library call and bounds;
+   shapes with their plain versions, library call and bounds (flash:
+   the bf16 tensor-core kernel with its TFLOP/s, registers and shared
+   memory, and the float32 route's CUDA-core kernel at the same shape);
 9. the chunkwise mLSTM kernel against its plain version on the card
    (f32 and bf16; h, C, n, m): the reference's test shapes (BH, S, hd,
    chunk) = (2, 128, 64, 64), (4, 64, 32, 32), (1, 256, 128, 64), and
@@ -187,12 +191,26 @@ def phase_build():
     for name, b in built.items():
         print(f"  {name}: {b.seconds:.2f} s nvcc -> {b.path.name}")
         for line in b.log.splitlines():
-            entry = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)"
-                              r"(I\w+?Li\d+E)?", line)
-            if entry:  # the kernel and its template arguments, mangled
-                print(f"    {entry.group(1)}{entry.group(2) or ''}")
+            entry = re.search(r"entry function '(\w+)'", line)
+            if entry:
+                print(f"    {_kernel_name(entry.group(1))}")
             elif "registers" in line or "spill" in line:
                 print(f"      {line.strip()}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier of a mangled entry name and its
+    template arguments, still mangled (``flash_fwd_bf16_kernelILi256E``).
+    Identifiers are prefixed with their length; a prefix may follow other
+    digits (a hash), so every tail of a run of digits is tried."""
+    for run in re.finditer(r"\d+", mangled):
+        for start in range(run.start(), run.end()):
+            n = int(mangled[start:run.end()])
+            name = mangled[run.end():run.end() + n]
+            if len(name) == n and name.endswith("_kernel"):
+                args = re.match(r"I\w*?Li\d+E", mangled[run.end() + n:])
+                return name + (args.group() if args else "")
+    return mangled
 
 
 def _inputs(g, N, H, hd, P, dtype):
@@ -532,6 +550,51 @@ def _lru_inputs(g, B, S, C):
     return a, b, h0
 
 
+# the bf16 kernel's tile edges: 128 query rows a block, 64 keys a tile,
+# 64 rows a warpgroup; T != S included
+EDGE_LENGTHS = (15, 63, 64, 65, 127, 128, 129, 191)
+EDGE_WINDOWS = (0, 1, 64, 65)
+
+
+def _flash_tile_edges(g):
+    """The bf16 kernel against the plain version at every S, T in
+    EDGE_LENGTHS, window in EDGE_WINDOWS, KH 1/4/16, D 16/64/256 (B 1,
+    H 16), at the bf16 tolerance on the rows with a live key. A row with
+    no live key (i >= T + window - 1, only when T < S) is 0 from the
+    kernel; the plain version, as the reference's oracle, averages v
+    over all keys there, so those rows are checked to be 0."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    tol = TOL["bfloat16"]
+    n, largest, dead_rows = 0, 0.0, 0
+    for S, T, W, KH, D in itertools.product(
+            EDGE_LENGTHS, EDGE_LENGTHS, EDGE_WINDOWS, (1, 4, 16),
+            fa_ops.HEAD_DIMS):
+        q = torch.randn(1, S, 16, D, generator=g, device="cuda")
+        k, v = (torch.randn(1, T, KH, D, generator=g, device="cuda")
+                for _ in range(2))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        out = fa_ops.flash_attention(q, k, v, window=W)
+        expect = _plain_flash(q, k, v, window=W)
+        rows = torch.arange(S, device="cuda")
+        rows = rows < T + W - 1 if W > 0 else rows >= 0
+        label = f"S={S} T={T} window={W} KH={KH} D={D} bfloat16"
+        err = float((out.float() - expect.float())[:, rows].abs().max())
+        check(err <= tol, f"flash kernel vs plain, {label}: {err}")
+        check(not out[:, ~rows].any(), f"flash rows with no live key are "
+                                       f"0, {label}")
+        largest = max(largest, err)
+        dead_rows += int((~rows).sum())
+        n += 1
+    print(f"  flash bfloat16 tile edges: {n} cases (S, T "
+          f"{'/'.join(map(str, EDGE_LENGTHS))}, window 0/1/64/65, KH "
+          f"1/4/16, D 16/64/256), largest error {largest:.3e} (tol "
+          f"{tol:g}) ok; {dead_rows} rows with no live key are 0")
+    return largest, n
+
+
 def phase_lm_kernels():
     import torch
 
@@ -572,6 +635,8 @@ def phase_lm_kernels():
             print(f"  flash {name}: {n} cases (B 1/2, H 16, KH 1/16, D "
                   f"64/256, S 1/100/2048/3000/4096, window 0/2048), largest "
                   f"error {largest:.3e} (tol {tol:g}) ok")
+        worst["flash_edges"], worst["flash_edge_cases"] = \
+            _flash_tile_edges(g)
         torch.cuda.empty_cache()
         for B, S, with_h0 in itertools.product((1, 4), (1, 257, 4096),
                                                (True, False)):
@@ -952,6 +1017,11 @@ def time_lm_kernels():
     with torch.no_grad():
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, window=W), 20)
         plain = cuda_ms(lambda: _plain_flash(q, k, v, window=W), 3)
+        # the float32 route (the CUDA-core kernel) at the same shape
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf,
+                                                        window=W), 5)
+        del qf, kf, vf
         # one library call of the same function: SDPA with a boolean
         # causal + window mask, in its own layout (B, H, S, D), with k/v
         # expanded to the 16 query heads; the copies are not timed
@@ -973,17 +1043,28 @@ def time_lm_kernels():
     nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    attrs = fa_ops.tensor_core_attributes(D)
     flash = {"shape": f"B={B} H={H} KH={KH} S={S} D={D} window={W} "
                       f"bfloat16", "ms": ms, "plain_ms": plain,
              "library_ms": library, "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "flops": flops, "bytes": nbytes, "pairs_per_head": pairs,
+             "tflop_per_s": flops / ms / 1e9, "f32_ms": f32_ms,
+             "f32_tflop_per_s": flops / f32_ms / 1e9,
+             "design": fa_ops.route(q.dtype, D), "attributes": attrs,
              "library_vs_kernel": lib_err}
-    print(f"  flash {flash['shape']}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, SDPA {library:.4f} ms, bound "
+    print(f"  flash {flash['shape']}: kernel ({flash['design']}) {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, bound "
           f"{flash['bound_ms']:.4f} ms ({flash['bound_by']}: "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s; SDPA vs kernel {lib_err:.2e}")
+          f"{flash['tflop_per_s']:.1f} TFLOP/s; SDPA vs kernel "
+          f"{lib_err:.2e}")
+    print(f"  flash float32 route (cuda_core) at the same shape: "
+          f"{f32_ms:.4f} ms, {flash['f32_tflop_per_s']:.1f} TFLOP/s")
+    print(f"  flash bfloat16 kernel at D={D}: {attrs['registers']} registers "
+          f"a thread, {attrs['local_bytes']} local bytes, "
+          f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} "
+          f"bytes of shared memory a block")
     del q, k, v, qt, ke, ve
     Bl, Sl, C = 1, 4096, 4096
     a, b, _ = _lru_inputs(g, Bl, Sl, C)
@@ -1334,6 +1415,8 @@ def main() -> int:
         "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
         "shape": flash["shape"],
+        "design": flash["design"],
+        "f32_ms": flash["f32_ms"],
     }, {
         "name": "rg_lru_scan",
         "route": "cuda",

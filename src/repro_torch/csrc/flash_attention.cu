@@ -17,30 +17,15 @@
 // below 2^31): with 64-bit row strides ptxas holds the D = 256 instances to
 // 128 registers and the kernel runs about 14 % slower.
 //
-// What bounds it: operations. Per (q, k) pair the kernel does 2*D flops for
-// the score and 2*D for the weighted sum, against 2*D elements of K and V
-// that are re-read from shared memory by every query row. At the full-width
-// prefill (S = 4096, window 2048, H = 16, D = 256) that is about 103 GFLOP
-// per call against about 71 MB of device memory: compute-bound on the
-// tensor cores' 989 TFLOP/s. This first design is deliberately plain:
-// CUDA-core FMAs, no mma/wgmma, no TMA. What it does:
-//   - one block of 256 threads per (64 query rows, head, batch row); K and V
-//     come in tiles of 64 keys, and only the tiles that hold a live key for
-//     some row of the block are visited (the TPU kernel's pl.when skip);
-//   - Q, K, V and the probability tile P sit in shared memory as float32
-//     with a row pitch of D + 1, so the 16 lanes that read 16 different
-//     key rows hit 16 different banks; at D = 256 that is 214 KB, one block
-//     per SM;
-//   - thread (ty, tx) of a 16 x 16 grid owns query rows 4*ty..4*ty+3 and
-//     key columns tx + 16*j of the score tile, and the output columns
-//     tx + 16*c of the same rows, so the online-softmax row statistics are
-//     reduced with xor shuffles inside a half-warp and every thread
-//     rescales only its own accumulator;
-//   - blocks are issued last query block first: under a causal mask without
-//     a window those have the most tiles, and the short ones fill the tail.
-// mma.sync / wgmma, TMA loads into a ring of tiles and serving all the query
-// heads of one kv head from one K/V tile (MQA) are later changes.
+// Two kernels, chosen by the input type:
+//   - float32: the CUDA-core kernel below (`flash_fwd_kernel`), whose checks
+//     against the plain version are held at 2e-5; tensor cores reach that
+//     only from bf16/fp16 inputs (TF32 rounds the inputs to 10 mantissa
+//     bits, about 1e-3 off), so float32 stays on CUDA cores;
+//   - bfloat16, what serving runs: the tensor-core kernel
+//     (`tc::flash_fwd_bf16_kernel`).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,6 +86,31 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
   }
 }
 
+// The float32 route: the CUDA-core kernel.
+//
+// What bounds it: operations. Per (q, k) pair the kernel does 2*D flops for
+// the score and 2*D for the weighted sum, against 2*D elements of K and V
+// that are re-read from shared memory by every query row. At the full-width
+// prefill (S = 4096, window 2048, H = 16, D = 256) that is about 103 GFLOP
+// per call against about 71 MB of device memory: compute-bound on the
+// tensor cores' 989 TFLOP/s. This first design is deliberately plain:
+// CUDA-core FMAs, no mma/wgmma, no TMA. What it does:
+//   - one block of 256 threads per (64 query rows, head, batch row); K and V
+//     come in tiles of 64 keys, and only the tiles that hold a live key for
+//     some row of the block are visited (the TPU kernel's pl.when skip);
+//   - Q, K, V and the probability tile P sit in shared memory as float32
+//     with a row pitch of D + 1, so the 16 lanes that read 16 different
+//     key rows hit 16 different banks; at D = 256 that is 214 KB, one block
+//     per SM;
+//   - thread (ty, tx) of a 16 x 16 grid owns query rows 4*ty..4*ty+3 and
+//     key columns tx + 16*j of the score tile, and the output columns
+//     tx + 16*c of the same rows, so the online-softmax row statistics are
+//     reduced with xor shuffles inside a half-warp and every thread
+//     rescales only its own accumulator;
+//   - blocks are issued last query block first: under a causal mask without
+//     a window those have the most tiles, and the short ones fill the tail.
+// mma.sync / wgmma, TMA loads into a ring of tiles and serving all the query
+// heads of one kv head from one K/V tile (MQA) are later changes.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -270,12 +280,619 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
+// The bfloat16 route: the tensor-core kernel.
+//
+// What bounds it: operations, 4*D flops per live (q, k) pair against 2*D
+// bf16 elements of K and V that every query row of a block shares. At the
+// full-width prefill (B = 1, H = 16, KH = 1, S = 4096, window 2048, D = 256)
+// that is 103 GFLOP against 71 MB of device memory, about 0.10 ms at the
+// card's 989 TFLOP/s dense bf16 rate. The design is FlashAttention-2's
+// tiling on Hopper's warpgroup tensor-core instructions:
+//   - a block of two warpgroups (256 threads) takes 128 query rows of one
+//     (batch row, head), 64 rows a warpgroup; its O accumulator (64 x D
+//     float32, 128 registers a thread at D = 256) and row statistics live
+//     in registers;
+//   - S = Q K^T is wgmma m64n64k16 with Q and K both read from shared
+//     memory; O += P V is wgmma m64nDk16 with P taken from the S
+//     accumulators as the register A operand (the accumulator and the A
+//     fragment share their row/column ownership, so P never touches shared
+//     memory) and V read from shared memory as an MN-major B operand;
+//     bf16 in, float32 accumulate;
+//   - Q (once) and K, V in tiles of 64 keys come by TMA into a ring of two
+//     stages, each load completing on an mbarrier with its byte count; K
+//     and V of a tile have barriers of their own, so Q K^T of tile j starts
+//     before its V has landed, and tile j + 1 is in flight while tile j is
+//     computed. Keys past T arrive as zeros (TMA fills out-of-range rows);
+//   - operands stay bf16 in shared memory in the layout wgmma reads: column
+//     blocks of 64 elements (128-byte rows, the 128-byte swizzle) at D of 64
+//     and 256, 32-byte rows with the 32-byte swizzle at D = 16, written so
+//     by TMA itself. Q 64 KB and two stages of K and V 128 KB: 192 KB at
+//     D = 256, one block an SM;
+//   - dead tiles are skipped by the loop bounds (keys from
+//     max(0, q0 - window + 1) to min(T, q0 + 128)); the element-wise mask
+//     runs only on tiles that hold a masked pair for some row of the block
+//     (the diagonal, the window's edge and the ragged end), and a
+//     warpgroup skips a tile in which every pair of its 64 rows is masked;
+//   - the online softmax runs in float32 on the accumulator fragments:
+//     scale * log2(e) is folded into one exp2f, row statistics are reduced
+//     over the four lanes that share a row with two xor shuffles, masked
+//     pairs give p = 0, so a row with no live key ends with l = 0 and an
+//     output of 0 (l clamped to 1e-30) as in the float32 kernel; l sums the
+//     p that the PV product sees;
+//   - P enters the PV product as bf16: rounded once in a tile whose every
+//     pair is live, and as three bf16 terms (hi + mid + lo, float32
+//     precision, three products) in a tile with a masked pair. A row with
+//     fewer than 64 live keys meets only such tiles, and its output, the
+//     mean of a few v, can reach |out| >= 4, where one bf16 step is 3.1e-2:
+//     rounding its weights to bf16 moved such outputs one step away from
+//     the plain version's;
+//   - the output is divided by max(l, 1e-30), rounded to bf16 (to nearest
+//     even) and staged through the free K/V stages with rows padded by 16
+//     bytes, so that each row leaves in 16-byte stores;
+//   - blocks are issued last query block first, as in the float32 kernel.
+// One thread issues the TMA loads between the tiles; warp-specialised
+// producers, a deeper ring and overlapping one warpgroup's softmax with the
+// other's products are later changes.
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kBQ = 128;       // query rows per block
+constexpr int kBK = 64;        // keys per tile
+constexpr int kStages = 2;     // K/V tiles in the ring
+constexpr float kNegInf = -1e30f;
+
+// Shared memory of one block at head dim D, in column blocks of CB elements
+// (one swizzled row of RB bytes): Q (kBQ rows x D / CB blocks), kStages K
+// tiles, kStages V tiles (kBK rows x D / CB blocks each), five mbarriers.
+template <int D>
+struct Layout {
+  static constexpr int CB = D < 64 ? D : 64;
+  static constexpr int RB = 2 * CB;
+  static constexpr int kSwizzle = RB == 128 ? 1 : 3;  // wgmma: 128B, 32B
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kBytes = kBarOffset + 64 + 1024;  // + 1024-alignment
+  static_assert(RB == 128 || RB == 32, "swizzle rows of 128 or 32 bytes");
+  static_assert(kBQ * (D + 8) <= 2 * kStages * kBK * D,
+                "the output staging fits in the K/V stages");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+// one arrival that also expects `bytes` of TMA traffic
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// box (c0, c1, c2, c3) of a 4-d tensor map into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, swizzle mode; the swizzle atoms sit on 1024-byte (128B) or
+// 256-byte (32B) boundaries, so the base offset field stays 0
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int lbo,
+                                              int sbo, int swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) |
+         ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving a register's uses across a wgmma's issue
+// or wait
+__device__ __forceinline__ void pin(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t& x) {
+  asm volatile("" : "+r"(x)::"memory");
+}
+
+// d (64 x 64) (+)= a (64 x 16) b (16 x 64): a and b in shared memory,
+// both K-major, float32 accumulators; scale_d == 0 overwrites d instead
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 16) += a (64 x 16) b (16 x 16): a in registers (bf16 pairs),
+// b in shared memory, MN-major; float32 accumulators
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 64) += a (64 x 16) b (16 x 64): a in registers (bf16 pairs),
+// b in shared memory, MN-major; float32 accumulators
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 256) += a (64 x 16) b (16 x 256): a in registers (bf16 pairs),
+// b in shared memory, MN-major; float32 accumulators
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t desc_b);
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  wgmma_rs_n16(d, a, desc_b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t desc_b) {
+  wgmma_rs_n64(d, a, desc_b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
+                                              uint64_t desc_b) {
+  wgmma_rs_n256(d, a, desc_b);
+}
+
+// two floats as one bf16 pair (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          bf16* __restrict__ out, int heads, int kv_heads,
+                          int q_len, int k_len, int causal, int window,
+                          float scale_log2) {
+  using L = Layout<D>;
+  constexpr int CB = L::CB, RB = L::RB;
+  constexpr int kNT = kBK / 8;  // score n-tiles of 8 keys
+  constexpr int kDT = D / 8;    // output n-tiles of 8 columns
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sQ = base;
+  unsigned char* sK = sQ + L::kQBytes;
+  unsigned char* sV = sK + kStages * L::kTileBytes;
+  // barrier 0: Q; 1 + s: K of stage s; 1 + kStages + s: V of stage s
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kBarOffset);
+  const uint32_t bar_q = smem_addr(bars);
+
+  const int qb = gridDim.x - 1 - blockIdx.x;  // longest blocks first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (heads / kv_heads);
+  const int q0 = qb * kBQ;
+  const int warpgroup = threadIdx.x / 128;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g0 = q0 + 64 * warpgroup;  // the warpgroup's first query row
+  const int w0 = q0 + 16 * warp;       // the warp's first query row
+  const int r_lo = w0 + lane / 4;      // this thread's rows r_lo, r_lo + 8
+
+  // key tiles that hold a live key for some row of this block
+  const int q_hi = min(q0 + kBQ, q_len);
+  const int k_end = causal ? min(k_len, q_hi) : k_len;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+
+  // K and V of tile j into stage j % kStages (one thread)
+  auto load_tile = [&](int j) {
+    const int s = j % kStages;
+    const int k0 = k_begin + j * kBK;
+    const uint32_t bk = smem_addr(bars + 1 + s);
+    const uint32_t bv = smem_addr(bars + 1 + kStages + s);
+    mbar_expect_tx(bk, L::kTileBytes);
+    for (int c = 0; c < D / CB; ++c)
+      tma_load(smem_addr(sK + s * L::kTileBytes + c * kBK * RB), &tm_k, bk,
+               c * CB, kvh, k0, b);
+    mbar_expect_tx(bv, L::kTileBytes);
+    for (int c = 0; c < D / CB; ++c)
+      tma_load(smem_addr(sV + s * L::kTileBytes + c * kBK * RB), &tm_v, bv,
+               c * CB, kvh, k0, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + 2 * kStages; ++i) mbar_init(smem_addr(bars + i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, L::kQBytes);
+    for (int c = 0; c < D / CB; ++c)
+      tma_load(smem_addr(sQ + c * kBQ * RB), &tm_q, bar_q, c * CB, h, q0, b);
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_tile(j);
+  }
+
+  float o[4 * kDT];  // n-tile t: o[4 t + e], as the m64nDk16 accumulator
+  float sc[4 * kNT];
+#pragma unroll
+  for (int i = 0; i < 4 * kDT; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4 * kNT; ++i) sc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int parity = (j / kStages) & 1;
+    const int k0 = k_begin + j * kBK;
+    const unsigned char* tK = sK + s * L::kTileBytes;
+    const unsigned char* tV = sV + s * L::kTileBytes;
+    // every pair of the warpgroup's 64 rows with this tile's keys is masked
+    const bool dead = g0 >= q_len || (causal && k0 > g0 + 63) ||
+                      (window > 0 && g0 - (k0 + kBK - 1) >= window);
+    // every pair of the block's rows with this tile's keys is live
+    const bool full = k0 + kBK <= k_len &&
+                      (!causal || k0 + kBK - 1 <= q0) &&
+                      (window <= 0 || q0 + kBQ - 1 - k0 < window);
+
+    mbar_wait(smem_addr(bars + 1 + s), parity);  // K_j has landed
+    if (!dead) {
+      // S = Q K^T: 64 rows x 64 keys per warpgroup, D / 16 k-steps of 32
+      // bytes inside a swizzled row, CB / 16 of them per column block
+#pragma unroll
+      for (int i = 0; i < 4 * kNT; ++i) pin(sc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / (CB / 16);
+        const int off = (kk % (CB / 16)) * 32;
+        wgmma_ss_n64(
+            sc,
+            smem_desc(smem_addr(sQ + c * kBQ * RB + 64 * warpgroup * RB + off),
+                      16, 8 * RB, L::kSwizzle),
+            smem_desc(smem_addr(tK + c * kBK * RB + off), 16, 8 * RB,
+                      L::kSwizzle),
+            kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 4 * kNT; ++i) pin(sc[i]);
+
+      // online softmax in log2 units; sc[4 t + e] is row r_lo + 8 (e / 2),
+      // key k0 + 8 t + 2 (lane % 4) + e % 2
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * t + e] * scale_log2;
+          if (!full) {
+            const int row = r_lo + 8 * (e / 2);
+            const int key = k0 + 8 * t + 2 * (lane % 4) + e % 2;
+            const bool live = key < k_len && (!causal || key <= row) &&
+                              (window <= 0 || row - key < window);
+            x = live ? x : kNegInf;
+          }
+          sc[4 * t + e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        alpha[i] = exp2f(m[i] - mx[i]);
+        m[i] = mx[i];
+      }
+      // sc becomes p as the PV product will see it: rounded to bf16 in a
+      // full tile, float32 otherwise (see the PV product)
+#pragma unroll
+      for (int t = 0; t < kNT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = sc[4 * t + e];
+          const float pe = x == kNegInf ? 0.f : exp2f(x - m[e / 2]);
+          sc[4 * t + e] = full ? __bfloat162float(__float2bfloat16_rn(pe)) : pe;
+          sum[e / 2] += sc[4 * t + e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l[i] = l[i] * alpha[i] + sum[i];
+      }
+#pragma unroll
+      for (int t = 0; t < kDT; ++t) {
+        o[4 * t + 0] *= alpha[0];
+        o[4 * t + 1] *= alpha[0];
+        o[4 * t + 2] *= alpha[1];
+        o[4 * t + 3] *= alpha[1];
+      }
+    }
+    mbar_wait(smem_addr(bars + 1 + kStages + s), parity);  // V_j has landed
+    if (!dead) {
+      // O += P V: 64 rows x D per warpgroup; a k-step is 16 keys, two
+      // 8-row swizzle atoms (stride 8 RB), the D columns are D / CB column
+      // blocks kBK * RB bytes apart. P enters as bf16 terms: one in a full
+      // tile; three (hi + mid + lo, float32 precision) in a tile with a
+      // masked pair, which holds every key of a row with fewer than 64
+      // live keys, so that such rows, whose outputs are the largest, get
+      // the plain version's float32 weights
+      const int terms = full ? 1 : 3;
+      for (int term = 0; term < terms; ++term) {
+        // P as the A operand: k-step kk (keys 16 kk .. 16 kk + 15) is
+        // n-tiles 2 kk and 2 kk + 1 of S; sc keeps what is left of p
+        uint32_t p[kBK / 16][4];
+#pragma unroll
+        for (int t = 0; t < kNT; ++t)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const uint32_t packed =
+                pack_bf16(sc[4 * t + 2 * i], sc[4 * t + 2 * i + 1]);
+            const float2 part = unpack_bf16(packed);
+            sc[4 * t + 2 * i] -= part.x;
+            sc[4 * t + 2 * i + 1] -= part.y;
+            p[t / 2][2 * (t % 2) + i] = packed;
+          }
+#pragma unroll
+        for (int i = 0; i < 4 * kDT; ++i) pin(o[i]);
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pin(p[kk][i]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_rs<D>(o, p[kk],
+                      smem_desc(smem_addr(tV + 16 * kk * RB), kBK * RB,
+                                8 * RB, L::kSwizzle));
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int i = 0; i < 4 * kDT; ++i) pin(o[i]);
+      }
+    }
+    __syncthreads();  // stage s is no longer read
+    if (threadIdx.x == 0 && j + kStages < n_tiles) load_tile(j + kStages);
+  }
+
+  // out = O / max(l, 1e-30) in bf16, staged through the K/V stages (no
+  // longer read, and nothing is in flight) with rows padded by 16 bytes
+  constexpr int P = D + 8;
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  bf16* stage = reinterpret_cast<bf16*>(sK) + 16 * warp * P;
+#pragma unroll
+  for (int t = 0; t < kDT; ++t)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(stage + (lane / 4 + 8 * i) * P + 8 * t +
+                                   2 * (lane % 4)) =
+          pack_bf16(o[4 * t + 2 * i] * inv[i], o[4 * t + 2 * i + 1] * inv[i]);
+  __syncwarp();
+  const int q_stride = heads * D;  // between positions
+  bf16* oh = out + (long long)b * q_len * q_stride + (long long)h * D;
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    if (w0 + r < q_len)
+      *reinterpret_cast<uint4*>(oh + (w0 + r) * q_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * P + c * 8);
+  }
+}
+
+// cuTensorMapEncodeTiled, taken from the driver at run time (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a (batch, len, heads, D) bf16 tensor as a 4-d tensor map whose boxes are
+// CB columns x `rows` positions of one head, swizzled as wgmma reads them;
+// rows past `len` arrive as zeros
+template <int D>
+bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int len,
+                int heads, int rows) {
+  using L = Layout<D>;
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)len, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)len * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)L::CB, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                L::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int batch, int heads, int kv_heads, int q_len, int k_len,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map<D>(&tq, q, batch, q_len, heads, kBQ) ||
+      !tensor_map<D>(&tk, k, batch, k_len, kv_heads, kBK) ||
+      !tensor_map<D>(&tv, v, batch, k_len, kv_heads, kBK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Layout<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((q_len + kBQ - 1) / kBQ, heads, batch);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, Layout<D>::kBytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), heads, kv_heads, q_len, k_len,
+      causal, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t attributes(int* regs, int* local_bytes, int* static_smem,
+                       int* dynamic_smem) {
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, flash_fwd_bf16_kernel<D>);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *static_smem = (int)attr.sharedSizeBytes;
+  *dynamic_smem = Layout<D>::kBytes;
+  return cudaSuccess;
+}
+
+}  // namespace tc
+
 // Launches on `stream` and returns the launch's cudaError_t (0 = queued).
 // q, out (B, S, H, D) and k, v (B, T, KH, D): contiguous, 16-byte aligned,
-// of type float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); H % KH == 0;
-// D in {16, 64, 256} (the small test model, the kernel sweep, and
-// RecurrentGemma's 256); S*H*D and T*KH*D below 2^31; window <= 0 means no
-// window.
+// of type float32 (is_bf16 = 0: the CUDA-core kernel) or bfloat16
+// (is_bf16 = 1: the tensor-core kernel); H % KH == 0; D in {16, 64, 256}
+// (the small test model, the kernel sweep, and RecurrentGemma's 256);
+// S*H*D and T*KH*D below 2^31; window <= 0 means no window. A case that
+// the chosen kernel does not take returns cudaErrorInvalidValue: neither
+// kernel stands in for the other.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int batch,
                                    int heads, int kv_heads, int q_len,
@@ -288,12 +905,43 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       (long long)k_len * kv_heads * head_dim >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, out, batch, heads, kv_heads,
-                                        q_len, k_len, head_dim, causal,
-                                        window, scale, s);
-  return (int)dispatch<float>(q, k, v, out, batch, heads, kv_heads, q_len,
-                              k_len, head_dim, causal, window, scale, s);
+  if (!is_bf16)
+    return (int)dispatch<float>(q, k, v, out, batch, heads, kv_heads, q_len,
+                                k_len, head_dim, causal, window, scale, s);
+  switch (head_dim) {
+    case 16:
+      return (int)tc::launch<16>(q, k, v, out, batch, heads, kv_heads, q_len,
+                                 k_len, causal, window, scale, s);
+    case 64:
+      return (int)tc::launch<64>(q, k, v, out, batch, heads, kv_heads, q_len,
+                                 k_len, causal, window, scale, s);
+    case 256:
+      return (int)tc::launch<256>(q, k, v, out, batch, heads, kv_heads,
+                                  q_len, k_len, causal, window, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core kernel's resources at one head dim: registers a thread,
+// local (spilled) bytes a thread, static and dynamic shared memory a block.
+extern "C" int flash_attention_bf16_attributes(int head_dim, int* regs,
+                                               int* local_bytes,
+                                               int* static_smem,
+                                               int* dynamic_smem) {
+  switch (head_dim) {
+    case 16:
+      return (int)tc::attributes<16>(regs, local_bytes, static_smem,
+                                     dynamic_smem);
+    case 64:
+      return (int)tc::attributes<64>(regs, local_bytes, static_smem,
+                                     dynamic_smem);
+    case 256:
+      return (int)tc::attributes<256>(regs, local_bytes, static_smem,
+                                      dynamic_smem);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

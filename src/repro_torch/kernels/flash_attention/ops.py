@@ -2,16 +2,24 @@
 
 :func:`flash_attention` takes the model's layout, q ``(B, S, H, D)`` and
 k/v ``(B, T, KH, D)``, as the reference's ``ops`` does. For CUDA tensors
-it launches the hand-written kernel of ``csrc/flash_attention.cu`` on
-the current stream, which reads that layout in place; for CPU tensors
-it takes the plain version (``ref``, in the TPU kernel's layout
+it launches a hand-written kernel of ``csrc/flash_attention.cu`` on the
+current stream, which reads that layout in place; for CPU tensors it
+takes the plain version (``ref``, in the TPU kernel's layout
 ``(B, H, S, D)``). Nothing else picks the path: a CUDA tensor launches
-the kernel or raises. ``LAUNCHES`` counts the launches.
+a kernel or raises. ``LAUNCHES`` counts the launches.
 
-The kernel takes any S and T (the TPU kernel asks S % 512 == 0 past
-512), GQA/MQA with H % KH == 0, D in {16, 64, 256}, and one batch row
-of q or k below 2**31 elements. The forward is not differentiable on
-CUDA yet: a call that would need a gradient raises.
+:func:`route` names the kernel by the input type: bfloat16 (what
+serving runs) goes to the tensor-core kernel (``wgmma`` with float32
+accumulators, K/V by TMA into a ring of two shared-memory stages),
+float32 to the CUDA-core kernel, whose checks are held at 2e-5, closer
+than tensor cores reach from float32 inputs. Both take any S and T (the
+TPU kernel asks S % 512 == 0 past 512), GQA/MQA with H % KH == 0, D in
+{16, 64, 256}, and one batch row of q or k below 2**31 elements.
+Neither stands in for the other. A row with no live key (only when
+T < S with a window) gives 0 from both kernels; the plain version, as
+the reference's ``ref``, gives the mean of v over all keys there. The
+forward is not differentiable on CUDA yet: a call that would need a
+gradient raises.
 """
 
 from __future__ import annotations
@@ -33,6 +41,19 @@ DTYPES = (torch.float32, torch.bfloat16)
 _FN = None
 
 
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel a CUDA call with inputs of ``dtype`` and head dim ``D``
+    launches: ``"tensor_core"`` for bfloat16, ``"cuda_core"`` for
+    float32."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes D in {HEAD_DIMS}, got {D}")
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise TypeError(f"the kernel takes {DTYPES}, got {dtype}")
+
+
 def _kernel():
     global _FN
     if _FN is None:
@@ -44,8 +65,25 @@ def _kernel():
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.flash_attention_error_string)
+        attrs = lib.flash_attention_bf16_attributes
+        attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+        attrs.restype = ctypes.c_int
+        _FN = (fn, lib.flash_attention_error_string, attrs)
     return _FN
+
+
+def tensor_core_attributes(D: int) -> dict:
+    """Registers and local (spilled) bytes a thread, static and dynamic
+    shared memory a block, of the tensor-core kernel at head dim ``D``
+    (``cudaFuncGetAttributes``)."""
+    _, error_string, attrs = _kernel()
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = attrs(D, *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: "
+                           f"{error_string(rc).decode()} ({rc})")
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes"), (x.value for x in out)))
 
 
 def _check(q, k, v, window):
@@ -93,12 +131,13 @@ def _launch(q, k, v, causal, window, scale):
     out = torch.empty_like(q)
     if S == 0 or B == 0:  # nothing to launch
         return out
-    fn, error_string = _kernel()
+    fn, error_string, _ = _kernel()
+    tensor_core = route(q.dtype, D) == "tensor_core"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 B, H, KH, S, T, D, int(causal), int(window), float(scale),
-                int(q.dtype == torch.bfloat16), stream)
+                int(tensor_core), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{error_string(rc).decode()} ({rc})")

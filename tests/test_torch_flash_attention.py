@@ -2,6 +2,8 @@
 Pallas kernel (interpret mode) and its oracle, the wrapper's checks,
 and (on a card) the CUDA kernel against the plain version."""
 
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -102,6 +104,43 @@ def test_plain_version_non_square_causal():
                                rtol=TOL["float32"])
 
 
+def live_rows(S, T, window):
+    """Causal query rows with at least one live key: row i sees keys
+    max(0, i - window + 1) .. min(i, T - 1)."""
+    rows = np.arange(S)
+    return rows < T + window - 1 if window > 0 else np.ones(S, bool)
+
+
+def test_plain_version_rows_without_a_live_key_match_jax_oracle():
+    """With T < S and a window, rows i >= T + window - 1 have no live key.
+    The plain version, as the JAX oracle, gives there the mean of v over
+    all T keys (every score is -1e30); the CUDA kernels give 0 (see
+    test_cuda_kernel_matches_plain_version_on_tile_edges)."""
+    q, k, v = make_inputs(1, 4, 2, 40, 32, T=10)
+    out = run_port(q, k, v, "float32", True, 5)
+    expect = run_jax(_jax_ref, q, k, v, "float32", True, 5)
+    np.testing.assert_allclose(out, expect, atol=TOL["float32"],
+                               rtol=TOL["float32"])
+    dead = ~live_rows(40, 10, 5)
+    assert dead.sum() == 26
+    mean_v = np.repeat(v.mean(axis=1), 2, axis=1)  # (1, H, D): kv head h // 2
+    np.testing.assert_allclose(out[:, dead], np.broadcast_to(
+        mean_v[:, None], out[:, dead].shape), atol=TOL["float32"])
+
+
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+def test_route_sends_bf16_to_tensor_cores_and_f32_to_cuda_cores(D):
+    assert ops.route(torch.bfloat16, D) == "tensor_core"
+    assert ops.route(torch.float32, D) == "cuda_core"
+
+
+def test_route_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="D in"):
+        ops.route(torch.bfloat16, 128)
+    with pytest.raises(TypeError):
+        ops.route(torch.float16, 64)
+
+
 def test_wrapper_takes_plain_version_for_cpu_tensors_only():
     q, k, v = (torch.from_numpy(a) for a in make_inputs(1, 4, 2, 33, 16))
     before = ops.LAUNCHES
@@ -171,3 +210,35 @@ def test_cuda_kernel_matches_plain_version(B, H, KH, S, D, window, dtype):
     expect = ref.attention(qc, kc, vc, window=window).transpose(1, 2)
     np.testing.assert_allclose(out, expect.float().cpu().numpy(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# the tensor-core kernel's tile edges: 128 query rows a block, 64 keys a
+# tile, 64 rows a warpgroup; T != S included
+EDGE_LENGTHS = (15, 63, 64, 65, 127, 128, 129, 191)
+EDGE_WINDOWS = (0, 1, 64, 65)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("KH", [1, 4, 16])
+@pytest.mark.parametrize("D", ops.HEAD_DIMS)
+def test_cuda_kernel_matches_plain_version_on_tile_edges(KH, D):
+    """bf16, B = 1, H = 16: every (S, T, window) of the edges against the
+    plain version at 2e-2 on the rows with a live key; rows with none
+    give exactly 0 (the plain version's mean of v there is
+    test_plain_version_rows_without_a_live_key_match_jax_oracle)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for S, T, window in itertools.product(EDGE_LENGTHS, EDGE_LENGTHS,
+                                          EDGE_WINDOWS):
+        q, k, v = make_inputs(1, 16, KH, S, D, seed=3, T=T)
+        out = run_port(q, k, v, "bfloat16", True, window, device="cuda")
+        qc, kc, vc = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                      .transpose(1, 2) for a in (q, k, v))
+        expect = ref.attention(qc, kc, vc, window=window).transpose(1, 2)
+        expect = expect.float().cpu().numpy()
+        rows = live_rows(S, T, window)
+        label = f"S={S} T={T} window={window}"
+        np.testing.assert_allclose(out[:, rows], expect[:, rows],
+                                   atol=TOL["bfloat16"],
+                                   rtol=TOL["bfloat16"], err_msg=label)
+        assert not out[:, ~rows].any(), label
