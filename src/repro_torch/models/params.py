@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
 from repro_torch.core.params import load_npz, params_from_numpy, unflatten
 from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
 from repro_torch.models.transformer import compute_dtype
@@ -54,14 +55,16 @@ def cast_params(tree, cfg: ModelConfig, device="cpu", path: str = ""):
     return tree.to(device=device, dtype=dtype)
 
 
-def lm_params(source, cfg: ModelConfig, device="cpu") -> Dict[str, Any]:
+def lm_params(source, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
     """The port's parameters from the reference's: a nested tree of
     numpy arrays, or a mapping of slash-joined paths to arrays (a
-    ``step_<n>.npz`` as ``np.load`` gives it)."""
+    ``step_<n>.npz`` as ``np.load`` gives it). They go to the card
+    unless the caller asks for the CPU (``device="cpu"``)."""
+    dev = resolve_device(device)
     if isinstance(source, Mapping) and source and all(
             isinstance(k, str) and "/" in k for k in source):
         source = unflatten({k: np.asarray(v) for k, v in source.items()})
-    return cast_params(params_from_numpy(source), cfg, device)
+    return cast_params(params_from_numpy(source), cfg, dev)
 
 
 def config_from_json(text: str) -> ModelConfig:

@@ -49,7 +49,7 @@ def lm():
             c, jp, tokens, prompts if impl == "reference" else None)
     out["params"] = lm_params(jax.tree_util.tree_map(np.asarray, jp),
                               get_config("recurrentgemma-9b").scaled_down(
-                                  dtype="float32"))
+                                  dtype="float32"), device="cpu")
     return out
 
 
@@ -105,7 +105,7 @@ def test_lm_params_reads_nested_and_flat_forms(lm):
 
     flat = dict(tree_flatten_with_paths(
         jax.tree_util.tree_map(np.asarray, lm["jp"])))
-    from_flat = lm_params(flat, port_cfg())
+    from_flat = lm_params(flat, port_cfg(), device="cpu")
     a = dict(jax.tree_util.tree_flatten_with_path(from_flat)[0])
     b = dict(jax.tree_util.tree_flatten_with_path(lm["params"])[0])
     assert a.keys() == b.keys()
@@ -342,3 +342,13 @@ def test_entry_points_need_a_card_unless_told_cpu():
         serve.main(["--requests", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(port_cfg()).init(0)
+
+
+def test_lm_params_go_to_the_card_unless_told_cpu(lm):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    source = jax.tree_util.tree_map(np.asarray, lm["jp"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_params(source, port_cfg())
+    params = lm_params(source, port_cfg(), device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"

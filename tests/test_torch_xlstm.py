@@ -91,7 +91,7 @@ def lm():
     out["prompts"] = prompts
     out["served"] = [done[i] for i in range(len(prompts))]
     out["params"] = lm_params(jax.tree_util.tree_map(np.asarray, jp),
-                              port_cfg())
+                              port_cfg(), device="cpu")
     return out
 
 
@@ -139,7 +139,8 @@ def test_lm_params_reads_nested_and_flat_forms(lm):
 
     source = dict(tree_flatten_with_paths(
         jax.tree_util.tree_map(np.asarray, lm["jp"])))
-    a, b = flat(lm_params(source, port_cfg())), flat(lm["params"])
+    a = flat(lm_params(source, port_cfg(), device="cpu"))
+    b = flat(lm["params"])
     assert a.keys() == b.keys() == flat(lm["jp"]).keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
     for path, leaf in flat(lm["jp"]).items():
@@ -331,7 +332,8 @@ def float64_logits(lm):
     rng = np.random.default_rng(7)
     tokens = rng.integers(0, 256, (1, max(F64_S))).astype(np.int32)
     cfg64 = dataclasses.replace(port_cfg(), dtype="float64")
-    p64 = lm_params(jax.tree_util.tree_map(np.asarray, lm["jp"]), cfg64)
+    p64 = lm_params(jax.tree_util.tree_map(np.asarray, lm["jp"]), cfg64,
+                    device="cpu")
     fwd = jax.jit(lambda p, t: jtfm.forward(p, jax_config(), tokens=t)[0])
     out = {}
     for S_ in F64_S:
