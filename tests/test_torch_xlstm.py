@@ -5,6 +5,8 @@ on the same parameters, and decode after prefill against the port's own
 no-cache forward."""
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +27,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
-from repro_torch.models.params import lm_params  # noqa: E402
+from repro_torch.models.params import cast_params, lm_params  # noqa: E402
 
 ARCH = "xlstm-1.3b"
 # one block, float32 on both sides, summed in different orders
@@ -425,3 +427,107 @@ def test_xlstm_entry_points_need_a_card_unless_told_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", ARCH, "--requests", "1"])
+
+
+# ------------------------------------------- the full-width check's helpers
+@pytest.fixture(scope="module")
+def smoke():
+    """``chip_smoke.py``'s helpers: the script imports nothing of the
+    card at import time."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+CHECK_S = 300  # a whole chunk of 256 and a short one
+
+
+@pytest.fixture(scope="module")
+def check_prompt():
+    return np.random.default_rng(11).integers(0, port_cfg().vocab_size,
+                                              CHECK_S)
+
+
+def _small(lm, dtype):
+    cfg = dataclasses.replace(port_cfg(), dtype=dtype)
+    return build_model(cfg), cast_params(lm["params"], cfg, "cpu")
+
+
+@pytest.mark.parametrize("route", ["kernels", "plain"])
+def test_capture_records_one_call_per_mlstm_layer(lm, smoke, check_prompt,
+                                                  route):
+    model, params = _small(lm, "float32")
+    cfg = model.cfg
+    H = cfg.n_heads
+    hd = 2 * cfg.d_model // H
+    calls = []
+    wrapper = mlstm_ops.mlstm_chunkwise
+    with torch.no_grad():
+        smoke._prefill_logits(model, params, check_prompt, route,
+                              calls=calls)
+    assert mlstm_ops.mlstm_chunkwise is wrapper  # restored on exit
+    assert len(calls) == cfg.layer_kinds.count("mlstm")
+    for call in calls:
+        q, k, v, li, lf = call["inputs"]
+        assert q.shape == k.shape == v.shape == (1, CHECK_S, H, hd)
+        assert li.shape == lf.shape == (1, CHECK_S, H)
+        assert call["chunk"] == 256
+        assert call["h"].shape == q.shape
+    # the recorded layers are distinct: each one's input differs
+    assert len({float(c["inputs"][0].double().sum()) for c in calls}) == \
+        len(calls)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_replayed_mlstm_calls_reproduce_each_layer_bit_for_bit(
+        lm, smoke, check_prompt, dtype):
+    model, params = _small(lm, dtype)
+    calls = []
+    with torch.no_grad():
+        smoke._prefill_logits(model, params, check_prompt, "plain",
+                              calls=calls)
+        for call in calls:
+            h, state = mlstm_ops.mlstm_chunkwise(*call["inputs"],
+                                                 chunk=call["chunk"])
+            assert h.dtype == getattr(torch, dtype)
+            assert torch.equal(h, call["h"])
+            assert all(torch.equal(a, b) for a, b in zip(state,
+                                                          call["state"]))
+        # (a) of the full-width check passes with every h element equal
+        out = smoke._mlstm_layers_vs_plain(
+            calls, CHECK_S, expected=model.cfg.layer_kinds.count("mlstm"))
+    assert out["h_unequal"] == [0] * len(calls)
+    assert out["worst"]["h_rel_l2"] == 0.0
+
+
+def test_distance_to_float32_is_equal_for_two_plain_routes(lm, smoke,
+                                                           check_prompt):
+    """On the CPU the kernels route is the plain versions, so (b) reads
+    e_k == e_p, and passes its gate; a float64 mLSTM lands elsewhere."""
+    model, params = _small(lm, "bfloat16")
+    model32, params32 = _small(lm, "float32")
+    with torch.no_grad():
+        bf16 = {route: smoke._prefill_logits(model, params, check_prompt,
+                                             route)
+                for route in ("kernels", "plain", "plain_f64_mlstm")}
+        reference = smoke._prefill_logits(model32, params32, check_prompt,
+                                          "plain")
+    dist = smoke._distances_to_f32(bf16, reference)
+    assert dist["kernels"] == dist["plain"] > 0.0
+    assert dist["plain_f64_mlstm"] != dist["plain"]
+    gate = smoke._f32_gate(dist, CHECK_S)
+    assert gate["limit"] == max(smoke.FULL_BF16_REL_TOL,
+                                smoke.XLSTM_F32_MARGIN * dist["plain"])
+
+
+def test_f32_gate_refuses_a_kernel_past_the_margin(smoke):
+    e_p = 0.3
+    ok = {"kernels": 1.25 * e_p, "plain": e_p, "plain_f64_mlstm": e_p}
+    assert smoke._f32_gate(ok, CHECK_S)["limit"] == 1.25 * e_p
+    with pytest.raises(RuntimeError, match="check failed"):
+        smoke._f32_gate(dict(ok, kernels=1.26 * e_p), CHECK_S)
+    # below FULL_BF16_REL_TOL the floor holds, however close e_p is
+    small = {"kernels": 0.09, "plain": 1e-3, "plain_f64_mlstm": 1e-3}
+    assert smoke._f32_gate(small, CHECK_S)["limit"] == 0.1
