@@ -43,13 +43,20 @@ Phases, each printing on lines of its own:
    the bf16 tensor-core kernel with its TFLOP/s, registers and shared
    memory, and the float32 route's CUDA-core kernel at the same shape);
 9. the chunkwise mLSTM kernel against its plain version on the card
-   (f32 and bf16; h, C, n, m): the reference's test shapes (BH, S, hd,
-   chunk) = (2, 128, 64, 64), (4, 64, 32, 32), (1, 256, 128, 64), and
-   hd 32 and 1024 at S 1, 100, 256, 257, 1000, 3000, 4096 with chunk
-   256 (ragged last chunks);
-10. a small xLSTM (float32) against the JAX package's prefill and decode
+   (f32: the CUDA-core route, bf16: the tensor-core route; h, C, n, m):
+   the reference's test shapes (BH, S, hd, chunk) = (2, 128, 64, 64),
+   (4, 64, 32, 32), (1, 256, 128, 64), and hd 32 and 1024 at S 1, 100,
+   256, 257, 1000, 3000, 4096 with chunk 256 (ragged last chunks); then
+   the bf16 route's 384 tile edges (S 1..513 around multiples of 16, 64
+   and 128, hd 32/96/160/288, chunk 256/100/64, two (B, H));
+10. timing: the mLSTM kernel at B=1 H=4 S=4096 hd=1024 chunk 256 bf16
+   (the tensor-core route: TFLOP/s, each pass's time from the profiler,
+   registers, shared memory, scratch), its plain version, its bound (no
+   single PyTorch call computes it) and the float32 route at the same
+   shape;
+11. a small xLSTM (float32) against the JAX package's prefill and decode
    logits and served tokens (golden file, a 512-token prompt among them);
-11. xlstm-1.3b at full width (bf16, seed-0 weights drawn on the card,
+12. xlstm-1.3b at full width (bf16, seed-0 weights drawn on the card,
    1,918,085,120 parameters) serving 8 requests of 128..4096 prompt
    tokens through ``SlotServer``: completion, mLSTM launches per
    prefill, TTFT from arrival and prefill latency, prefill and decode
@@ -63,9 +70,7 @@ Phases, each printing on lines of its own:
    bf16 kernels vs plain logits and a control with the mLSTM in float64,
    measured; decode after the prefill vs a no-cache forward over 3001
    tokens (the state handed from the ragged-tail kernel to
-   ``mlstm_step``), in bf16 and f32; f32 logits, kernels vs plain;
-12. timing: the mLSTM kernel at B=1 H=4 S=4096 hd=1024 chunk 256 bf16,
-   its plain version and its bound (no single PyTorch call computes it).
+   ``mlstm_step``), in bf16 and f32; f32 logits, kernels vs plain.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -1183,8 +1188,86 @@ def _mlstm_inputs(g, B, S, H, hd, dtype):
     return q.to(dtype), k.to(dtype), v.to(dtype), li, lf
 
 
+def _mlstm_vs_plain(q, k, v, li, lf, chunk):
+    """The mLSTM kernel and its plain version on the same inputs, held at
+    the kernel phase's limits; returns (ok, errors of h, C, n, m, the
+    rule, bf16 h err / max(1, |h|) or None)."""
+    import torch
+
+    from repro_torch.kernels.mlstm import ops
+
+    h, state = ops.mlstm_chunkwise(q, k, v, li, lf, chunk=chunk)
+    he, state_e = ops._plain(q, k, v, li, lf, chunk)
+    torch.cuda.synchronize()
+    check(h.shape == he.shape and h.dtype == q.dtype,
+          "mlstm h shape and type")
+    errs = {label: _rel(a, e) for label, a, e in
+            zip("hCnm", (h,) + state, (he,) + state_e)}
+    scaled = None
+    if q.dtype == torch.bfloat16:
+        # h is rounded to bf16 on both sides: one rounding step apart is
+        # 2^-8 |h|, over 2e-2 where |h| > 5, so the bound is 2e-2 at unit
+        # scale and relative above it
+        scaled = float(((h.float() - he.float()).abs()
+                        / he.float().abs().clamp_min(1)).max())
+        ok = (scaled <= TOL["bfloat16"]
+              and all(errs[x][2] <= MLSTM_REL_TOL for x in "Cnm"))
+        rule = (f"h err / max(1, |h|) {scaled:.2e} <= {TOL['bfloat16']:g}, "
+                f"state rel L2 {MLSTM_REL_TOL:g}")
+    elif q.shape[-1] == 1024:
+        ok = all(e[2] <= MLSTM_REL_TOL for e in errs.values())
+        rule = f"rel L2 {MLSTM_REL_TOL:g}"
+    else:
+        ok = all(e[0] <= TOL["float32"] for e in errs.values())
+        rule = f"abs {TOL['float32']:g}"
+    return ok, errs, rule, scaled
+
+
+# the bf16 route's tile edges: 128 rows a score or output tile, 64 keys a
+# W v step, 16 rows a states step, chunks of 256, 100 and 64 rows with a
+# short last one, 64 head-dim columns a TMA box, 128 (d, e) a states tile,
+# 256 value columns an output tile
+MLSTM_EDGE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 256,
+                      257, 383, 511, 513)
+MLSTM_EDGE_HEAD_DIMS = (32, 96, 160, 288)
+MLSTM_EDGE_CHUNKS = (256, 100, 64)
+MLSTM_EDGE_BATCH_HEADS = ((1, 1), (2, 3))
+
+
+def _mlstm_tile_edges(g):
+    """The bf16 route against the plain version at every S, hd, chunk and
+    (B, H) of the edge lists, at the bf16 limits."""
+    import torch
+
+    worst = {"h_scaled": 0.0, "h_rel_l2": 0.0, "state_rel_l2": 0.0}
+    n = 0
+    for S, hd, chunk, (B, H) in itertools.product(
+            MLSTM_EDGE_LENGTHS, MLSTM_EDGE_HEAD_DIMS, MLSTM_EDGE_CHUNKS,
+            MLSTM_EDGE_BATCH_HEADS):
+        q, k, v, li, lf = _mlstm_inputs(g, B, S, H, hd, torch.bfloat16)
+        ok, errs, rule, scaled = _mlstm_vs_plain(q, k, v, li, lf, chunk)
+        label = f"B={B} S={S} H={H} hd={hd} chunk={chunk} bfloat16"
+        check(ok, f"mlstm tensor-core route vs plain, {label}: {rule}; "
+                  f"{errs}")
+        worst["h_scaled"] = max(worst["h_scaled"], scaled)
+        worst["h_rel_l2"] = max(worst["h_rel_l2"], errs["h"][2])
+        worst["state_rel_l2"] = max(worst["state_rel_l2"],
+                                    *(errs[x][2] for x in "Cnm"))
+        n += 1
+    print(f"  mlstm bfloat16 tile edges: {n} cases (S "
+          f"{'/'.join(map(str, MLSTM_EDGE_LENGTHS))}, hd "
+          f"{'/'.join(map(str, MLSTM_EDGE_HEAD_DIMS))}, chunk "
+          f"{'/'.join(map(str, MLSTM_EDGE_CHUNKS))}, (B, H) "
+          f"{'/'.join(map(str, MLSTM_EDGE_BATCH_HEADS))}): largest h err / "
+          f"max(1, |h|) {worst['h_scaled']:.3e} ({TOL['bfloat16']:g}), h rel "
+          f"L2 {worst['h_rel_l2']:.3e}, state rel L2 "
+          f"{worst['state_rel_l2']:.3e} ({MLSTM_REL_TOL:g}) ok")
+    return dict(worst, cases=n)
+
+
 def phase_mlstm_kernel():
-    """(a) the mLSTM kernel against its plain version on the card."""
+    """(a) the mLSTM kernel against its plain version on the card, both
+    routes, then the bf16 route's tile edges."""
     import torch
 
     from repro_torch.kernels.mlstm import ops
@@ -1196,36 +1279,16 @@ def phase_mlstm_kernel():
     cases = [(2, 128, 1, 64, 64), (4, 64, 1, 32, 32), (1, 256, 1, 128, 64)]
     cases += [(1, S, 4, hd, MLSTM_CHUNK) for hd in (32, 1024)
               for S in (1, 100, 256, 257, 1000, 3000, 4096)]
-    worst = {"float32": 0.0, "bfloat16": 0.0, "main": 0.0}
+    worst = {"float32": 0.0, "bfloat16": 0.0, "main": 0.0,
+             "design": {str(d).split(".")[-1]: ops.route(d)
+                        for d in (torch.float32, torch.bfloat16)}}
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             for B, S, H, hd, chunk in cases:
                 q, k, v, li, lf = _mlstm_inputs(g, B, S, H, hd, dtype)
-                h, state = ops.mlstm_chunkwise(q, k, v, li, lf, chunk=chunk)
-                he, state_e = ops._plain(q, k, v, li, lf, chunk)
-                torch.cuda.synchronize()
-                check(h.shape == he.shape and h.dtype == q.dtype,
-                      "mlstm h shape and type")
-                errs = {label: _rel(a, e) for label, a, e in
-                        zip("hCnm", (h,) + state, (he,) + state_e)}
+                ok, errs, rule, _ = _mlstm_vs_plain(q, k, v, li, lf, chunk)
                 label = f"B={B} S={S} H={H} hd={hd} chunk={chunk} {name}"
-                if name == "bfloat16":
-                    # h is rounded to bf16 on both sides: one rounding step
-                    # apart is 2^-8 |h|, over 2e-2 where |h| > 5, so the
-                    # bound is 2e-2 at unit scale and relative above it
-                    scaled = float(((h.float() - he.float()).abs()
-                                    / he.float().abs().clamp_min(1)).max())
-                    ok = (scaled <= TOL[name]
-                          and all(errs[x][2] <= MLSTM_REL_TOL for x in "Cnm"))
-                    rule = (f"h err / max(1, |h|) {scaled:.2e} <= "
-                            f"{TOL[name]:g}, state rel L2 {MLSTM_REL_TOL:g}")
-                elif hd == 1024:
-                    ok = all(e[2] <= MLSTM_REL_TOL for e in errs.values())
-                    rule = f"rel L2 {MLSTM_REL_TOL:g}"
-                else:
-                    ok = all(e[0] <= TOL[name] for e in errs.values())
-                    rule = f"abs {TOL[name]:g}"
                 print(f"  {label:40s} max err h {errs['h'][0]:.2e} C "
                       f"{errs['C'][0]:.2e} n {errs['n'][0]:.2e} m "
                       f"{errs['m'][0]:.2e}; rel L2 h {errs['h'][2]:.2e} C "
@@ -1234,7 +1297,10 @@ def phase_mlstm_kernel():
                 worst[name] = max(worst[name], errs["h"][0])
                 if (S, hd) == (4096, 1024) and name == "bfloat16":
                     worst["main"] = errs["h"][0]
-                del q, k, v, h, he, state, state_e
+                del q, k, v
+        print(f"  {len(cases)} cases per type, routes "
+              f"{worst['design']}")
+        worst["edges"] = _mlstm_tile_edges(g)
     torch.cuda.empty_cache()
     return worst
 
@@ -1256,7 +1322,7 @@ def phase_xlstm_full():
     from repro_torch.models.model_zoo import build_model
 
     cfg = get_config("xlstm-1.3b")
-    print(f"[11] {cfg.name} at full width on the card: {cfg.n_layers} "
+    print(f"[12] {cfg.name} at full width on the card: {cfg.n_layers} "
           f"layers ({cfg.layer_kinds.count('mlstm')} mLSTM, "
           f"{cfg.layer_kinds.count('slstm')} sLSTM), d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads, vocab {cfg.vocab_size}, {cfg.dtype}; "
@@ -1463,21 +1529,55 @@ def _f32_gate(dist, S):
     return dict(dist, limit=limit)
 
 
+def _pass_ms(fn, calls=3):
+    """Device time per launch of each kernel that ``fn`` launches, by the
+    profiler, keyed by the name between ``mlstm_`` and ``_kernel``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    _, top = _top_device(prof, n=None)
+    out = {}
+    for us, count, key in top:
+        found = re.search(r"mlstm_(\w+?)_kernel", key)
+        if found:
+            out[found.group(1)] = us / count / 1e3
+    if not out:
+        print(f"  the profiler recorded {len(top)} device entries, none of "
+              f"them an mLSTM pass: {[k[:60] for _, _, k in top[:4]]}")
+    return out
+
+
 def time_mlstm():
-    """(e) the mLSTM kernel at the full-width prefill shape, its plain
-    version and its bound."""
+    """(e) the mLSTM kernel at the full-width prefill shape: the bf16
+    route with its passes, resources and scratch, its plain version and
+    its bound, and the float32 route at the same shape."""
     import torch
 
     from repro_torch.kernels.mlstm import ops
 
-    print("[12] timing the mLSTM kernel (CUDA events after warm-up)")
+    print("[10] timing the mLSTM kernel (CUDA events after warm-up; passes "
+          "by the profiler)")
     B, S, H, hd, L = 1, 4096, 4, 1024, MLSTM_CHUNK
     g = torch.Generator(device="cuda").manual_seed(5)
     q, k, v, li, lf = _mlstm_inputs(g, B, S, H, hd, torch.bfloat16)
+    qf, kf, vf = (t.float() for t in (q, k, v))
     with torch.no_grad():
         ms = cuda_ms(lambda: ops.mlstm_chunkwise(q, k, v, li, lf, chunk=L),
-                     10)
+                     20)
         plain = cuda_ms(lambda: ops._plain(q, k, v, li, lf, L), 3)
+        f32_ms = cuda_ms(lambda: ops.mlstm_chunkwise(qf, kf, vf, li, lf,
+                                                     chunk=L), 5)
+        passes = _pass_ms(lambda: ops.mlstm_chunkwise(q, k, v, li, lf,
+                                                      chunk=L))
+        f32_passes = _pass_ms(lambda: ops.mlstm_chunkwise(qf, kf, vf, li, lf,
+                                                          chunk=L))
     # what this call's data needs: the causal (q, k) pairs of every chunk,
     # a short last one included, for q k^T and W v; q C and the update of
     # C at 2 hd^2 flops a row each; every input read once, every output
@@ -1489,16 +1589,39 @@ def time_mlstm():
               + B * H * (hd * hd + hd + 1) * 4)  # C, n, m out
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    attrs = {kind: ops.tensor_core_attributes(kind)
+             for kind in ops.TENSOR_CORE_KERNELS}
+    scratch = {name: ops.scratch_bytes(B, H, S, hd, L, dt) for name, dt in
+               (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
     row = {"shape": f"B={B} H={H} S={S} hd={hd} chunk={L} bfloat16",
            "ms": ms, "plain_ms": plain, "library_ms": None,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes, "pairs_per_head": pairs}
-    print(f"  mlstm {row['shape']}: kernel {ms:.4f} ms, plain {plain:.4f} "
-          f"ms, no library call, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}: {flops / 1e9:.1f} GFLOP at 989 TFLOP/s; "
-          f"{nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s")
+           "flops": flops, "bytes": nbytes, "pairs_per_head": pairs,
+           "tflop_per_s": flops / ms / 1e9, "design": ops.route(q.dtype),
+           "passes_ms": passes, "attributes": attrs,
+           "scratch_bytes": scratch, "f32_ms": f32_ms,
+           "f32_tflop_per_s": flops / f32_ms / 1e9,
+           "f32_passes_ms": f32_passes}
+    print(f"  mlstm {row['shape']}: kernel ({row['design']}) {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, no library call, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+          f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s; {nbytes / 1e6:.1f} MB = "
+          f"{t_bytes:.4f} ms); {row['tflop_per_s']:.1f} TFLOP/s")
+    print("  mlstm bf16 passes (profiler, per launch): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in passes.items()))
+    for kind, a in attrs.items():
+        print(f"  mlstm bf16 {kind} kernel: {a['registers']} registers a "
+              f"thread, {a['local_bytes']} local bytes, "
+              f"{a['static_smem_bytes'] + a['dynamic_smem_bytes']} bytes of "
+              f"shared memory a block")
+    print(f"  mlstm scratch a call: bf16 route {scratch['bfloat16'] / 1e6:.1f}"
+          f" MB, float32 route {scratch['float32'] / 1e6:.1f} MB")
+    print(f"  mlstm float32 route ({ops.route(qf.dtype)}) at the same shape: "
+          f"{f32_ms:.4f} ms, {row['f32_tflop_per_s']:.1f} TFLOP/s; passes "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in f32_passes.items()))
+    check(all(a["local_bytes"] == 0 for a in attrs.values()),
+          f"the tensor-core mLSTM kernels do not spill: {attrs}")
     return row
 
 
@@ -1557,11 +1680,13 @@ def main() -> int:
     from repro_torch.models.params import XLSTM_GOLDEN_PATH
 
     mlstm_err = timed("mLSTM kernel", seconds, phase_mlstm_kernel)
+    # before the xLSTM's profiled prefill of some 10^5 launches, after
+    # which the profiler's next short session recorded no kernel
+    mlstm = timed("mLSTM timing", seconds, time_mlstm)
     xlstm_golden = timed("xLSTM golden", seconds, phase_lm_golden,
-                         XLSTM_GOLDEN_PATH, "[10] small xLSTM")
+                         XLSTM_GOLDEN_PATH, "[11] small xLSTM")
     xlstm_full, mlstm_launches = timed("xLSTM full width", seconds,
                                        phase_xlstm_full)
-    mlstm = timed("mLSTM timing", seconds, time_mlstm)
     big = timing["262144"]
     flash, lru = lm_timing["flash"], lm_timing["rg_lru"]
     kernels = [{
@@ -1619,6 +1744,8 @@ def main() -> int:
         "bound_by": mlstm["bound_by"],
         "library_ms": mlstm["library_ms"],
         "shape": mlstm["shape"],
+        "design": mlstm["design"],
+        "f32_ms": mlstm["f32_ms"],
     }]
     card = card_line()
     REPORT.parent.mkdir(parents=True, exist_ok=True)

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;
@@ -335,6 +337,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 // other's products are later changes.
 namespace tc {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;  // two warpgroups
@@ -359,74 +362,6 @@ struct Layout {
   static_assert(kBQ * (D + 8) <= 2 * kStages * kBK * D,
                 "the output staging fits in the K/V stages");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-// one arrival that also expects `bytes` of TMA traffic
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// box (c0, c1, c2, c3) of a 4-d tensor map into shared memory at dst
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets, swizzle mode; the swizzle atoms sit on 1024-byte (128B) or
-// 256-byte (32B) boundaries, so the base offset field stays 0
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int lbo,
-                                              int sbo, int swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) |
-         ((uint64_t)swizzle << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving a register's uses across a wgmma's issue
-// or wait
-__device__ __forceinline__ void pin(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t& x) {
-  asm volatile("" : "+r"(x)::"memory");
-}
 
 // d (64 x 64) (+)= a (64 x 16) b (16 x 64): a and b in shared memory,
 // both K-major, float32 accumulators; scale_d == 0 overwrites d instead
@@ -553,15 +488,6 @@ template <>
 __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
                                               uint64_t desc_b) {
   wgmma_rs_n256(d, a, desc_b);
-}
-
-// two floats as one bf16 pair (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-__device__ __forceinline__ float2 unpack_bf16(uint32_t x) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
 }
 
 template <int D>
@@ -801,27 +727,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       *reinterpret_cast<uint4*>(oh + (w0 + r) * q_stride + c * 8) =
           *reinterpret_cast<const uint4*>(stage + r * P + c * 8);
   }
-}
-
-// cuTensorMapEncodeTiled, taken from the driver at run time (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // a (batch, len, heads, D) bf16 tensor as a 4-d tensor map whose boxes are

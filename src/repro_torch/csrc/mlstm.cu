@@ -34,9 +34,15 @@
 // memory, compute-bound on the tensor cores' 989 TFLOP/s. The TPU kernel
 // runs the chunks of one bh in order on one core with the whole 4 MB C in
 // VMEM. On Hopper a block has 227 KB of shared memory and a grid of BH
-// sequential programs would be 4 blocks on 132 SMs. This first design
-// (CUDA-core float32 FMAs, no mma/wgmma, no TMA) splits the work so that
-// what does not depend on the value column is done once:
+// sequential programs would be 4 blocks on 132 SMs. Two routes, chosen by
+// the input type:
+//   - bfloat16, what serving runs: the tensor-core kernels of namespace tc
+//     below (wgmma + TMA), whose design is described there;
+//   - float32: the CUDA-core kernels right below, whose checks against the
+//     plain version are held at 2e-5 / 1e-4; tensor cores reach that only
+//     from bf16 inputs, so float32 stays on CUDA cores.
+// The float32 route (CUDA-core float32 FMAs, no mma/wgmma, no TMA) splits
+// the work so that what does not depend on the value column is done once:
 //   1. gates: one block per bh walks the chunks in order and computes the
 //      scalars of every row and chunk (b, m_new, the carry's decay
 //      exp(b + m - m_new), the key decay, the chunk decay) and the final m;
@@ -57,12 +63,14 @@
 // registers while it multiplies the current one, and thread (ty, tx) owns
 // 8 rows x 4 columns of each product. The four launches go on the caller's
 // stream in order; the scratch (rows, chunk decays, n per chunk, W) is the
-// caller's. Tensor-core tiles for the products, and fewer passes over q and
-// k per value tile, are later changes.
+// caller's.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -75,20 +83,6 @@ constexpr int kRowTile = 64;    // rows (and columns) of a score tile, pass 3
 constexpr float kMInit = -1e30f;
 constexpr float kNegInf = -3.402823466e38f;  // below every finite float
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Offsets of one head's rows in the model's layout: row s of head bh % H of
 // batch row bh / H is at base + s * stride.
@@ -203,9 +197,8 @@ __global__ void __launch_bounds__(kThreads)
 // order: n before every chunk, and the final n.
 constexpr int kNGroups = kThreads / 32;
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    mlstm_n_kernel(const T* __restrict__ k, Layout lay, int BH,
+    mlstm_n_kernel(const float* __restrict__ k, Layout lay, int BH,
                    const float* __restrict__ rows,
                    const float* __restrict__ decay,
                    float* __restrict__ n_prev, float* __restrict__ n_out) {
@@ -223,7 +216,7 @@ __global__ void __launch_bounds__(kThreads)
     float acc = 0.f;
 #pragma unroll 4
     for (int j = grp; j < Lc; j += kNGroups)
-      acc += to_f32(k[hr.at(r0 + j) + d]) * r_kd[r0 + j];
+      acc += k[hr.at(r0 + j) + d] * r_kd[r0 + j];
     part[grp][lane] = acc;
     __syncthreads();
     if (grp == 0) {
@@ -240,9 +233,9 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------- pass 3
 // One block per (64 rows, chunk, bh): W for those rows over every column
 // tile up to the diagonal, and the normaliser of each row.
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    mlstm_weights_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    mlstm_weights_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
                          const float* __restrict__ log_i, Layout lay, int BH,
                          float* __restrict__ rows,
                          const float* __restrict__ n_prev,
@@ -287,8 +280,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int idx = t; idx < kRowTile * kSlice; idx += kThreads) {
         const int r = idx / kSlice, dd = idx % kSlice;
         const int i = i0 + r, j = j0 + r;
-        qs[r][dd] = i < Lc ? to_f32(q[hr.at(r0 + i) + d0 + dd]) : 0.f;
-        ks[r][dd] = j < Lc ? to_f32(k[hr.at(r0 + j) + d0 + dd]) : 0.f;
+        qs[r][dd] = i < Lc ? q[hr.at(r0 + i) + d0 + dd] : 0.f;
+        ks[r][dd] = j < Lc ? k[hr.at(r0 + j) + d0 + dd] : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -328,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float qn = 0.f;
     if (i < Lc) {
       const long long base = hr.at(r0 + i);
-      for (int d = tx; d < lay.hd; d += 16) qn += to_f32(q[base + d]) * n_c[d];
+      for (int d = tx; d < lay.hd; d += 16) qn += q[base + d] * n_c[d];
     }
     qn = warp_sum16(qn);
     const float den = warp_sum16(rowsum[r]) + qn * r_inter[i < Lc ? i : 0];
@@ -357,19 +350,6 @@ __device__ __forceinline__ void load32(const float* p, float* o) {
     o[4 * u + 1] = x.y;
     o[4 * u + 2] = x.z;
     o[4 * u + 3] = x.w;
-  }
-}
-__device__ __forceinline__ void load32(const __nv_bfloat16* p, float* o) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const uint4 x = *reinterpret_cast<const uint4*>(p + 8 * u);
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
-      o[8 * u + 2 * e] = __low2float(b2);
-      o[8 * u + 2 * e + 1] = __high2float(b2);
-    }
   }
 }
 
@@ -402,13 +382,13 @@ __device__ __forceinline__ void stage(float* at, const float* pre, int t) {
   for (int u = 0; u < kSlice; ++u) at[u * kThreads + t] = pre[u];
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    mlstm_values_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, Layout lay, int BH,
+    mlstm_values_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, Layout lay, int BH,
                         const float* __restrict__ rows,
                         const float* __restrict__ decay,
-                        const float* __restrict__ W, T* __restrict__ h,
+                        const float* __restrict__ W, float* __restrict__ h,
                         float* __restrict__ C_out) {
   extern __shared__ float smem[];
   float* Cs = smem;                                   // [hd][kTileE]
@@ -435,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // rows past Lc are zeros: the last slice reads them against zero weights
     for (int idx = t; idx < Wp * kTileE; idx += kThreads) {
       const int j = idx / kTileE, e = idx % kTileE;
-      vs[idx] = j < Lc ? to_f32(v[hr.at(r0 + j) + e0 + e]) : 0.f;
+      vs[idx] = j < Lc ? v[hr.at(r0 + j) + e0 + e] : 0.f;
     }
     for (int i = t; i < kMaxChunk; i += kThreads) {
       inter_s[i] = i < Lc ? r_inter[r0 + i] : 0.f;
@@ -486,8 +466,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const long long base = hr.at(r0 + i) + e0 + tx * 4;
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc)
-        h[base + cc] = from_f32<T>((intra[r][cc] + qc[r][cc] * inter_s[i]) /
-                                   denom_s[i]);
+        h[base + cc] = (intra[r][cc] + qc[r][cc] * inter_s[i]) / denom_s[i];
     }
 
     // C <- decay C + sum_j (kdecay_j k_j) v_j^T, 256 key channels at a
@@ -499,7 +478,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int u = 0; u < kSlice; ++u)
           pre[u] = (j0 + u < Lc && d < lay.hd)
-                       ? to_f32(k[hr.at(r0 + j0 + u) + d])
+                       ? k[hr.at(r0 + j0 + u) + d]
                        : 0.f;
       };
       float upd[8][4] = {};
@@ -530,56 +509,792 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const float* log_i, const float* log_f, void* h,
-                     float* C, float* n, float* m, float* rows, float* decay,
-                     float* n_prev, float* W, int BH, Layout lay,
-                     cudaStream_t s) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
+// The float32 route: the four CUDA-core passes above.
+cudaError_t dispatch_f32(const float* q, const float* k, const float* v,
+                         const float* log_i, const float* log_f, float* h,
+                         float* C, float* n, float* m, float* scratch, int BH,
+                         Layout lay, cudaStream_t s) {
+  float* rows = scratch;
+  float* decay = rows + kRowKinds * (long long)BH * lay.S;
+  float* n_prev = decay + (long long)BH * lay.nc;
+  float* W = n_prev + (long long)BH * lay.nc * lay.hd;
   mlstm_gates_kernel<<<BH, kThreads, 0, s>>>(log_i, log_f, lay, BH, rows,
                                              decay, m);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mlstm_n_kernel<T><<<dim3(lay.hd / 32, BH), kThreads, 0, s>>>(
-      kt, lay, BH, rows, decay, n_prev, n);
+  mlstm_n_kernel<<<dim3(lay.hd / 32, BH), kThreads, 0, s>>>(
+      k, lay, BH, rows, decay, n_prev, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mlstm_weights_kernel<T>
+  mlstm_weights_kernel
       <<<dim3((lay.L + kRowTile - 1) / kRowTile, lay.nc, BH), kThreads, 0, s>>>(
-          qt, kt, log_i, lay, BH, rows, n_prev, W);
+          q, k, log_i, lay, BH, rows, n_prev, W);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem = values_smem(lay.hd, lay.L);
-  err = cudaFuncSetAttribute(mlstm_values_kernel<T>,
+  err = cudaFuncSetAttribute(mlstm_values_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  mlstm_values_kernel<T><<<dim3(lay.hd / kTileE, BH), kThreads, smem, s>>>(
-      qt, kt, vt, lay, BH, rows, decay, W, static_cast<T*>(h), C);
+  mlstm_values_kernel<<<dim3(lay.hd / kTileE, BH), kThreads, smem, s>>>(
+      q, k, v, lay, BH, rows, decay, W, h, C);
   return cudaGetLastError();
+}
+
+// Bytes of the float32 route's scratch: rows (5 * B*H * S), decay
+// (B*H * nc), n per chunk (B*H * nc * hd) and W (B*H * nc * L * padded(L))
+// in float32.
+long long f32_scratch_bytes(long long BH, int S, int hd, int L, int nc) {
+  return 4 * BH *
+         (kRowKinds * (long long)S + nc + (long long)nc * hd +
+          (long long)nc * L * padded(L));
 }
 
 }  // namespace
 
-// Size of the float32 scratch the caller passes, in floats: rows
-// (5 * B*H * S), decay (B*H * nc), n per chunk (B*H * nc * hd) and W
-// (B*H * nc * L * padded(L)), with L = min(chunk, S), nc = ceil(S / L).
-extern "C" long long mlstm_scratch_floats(int batch, int heads, int seq,
-                                          int head_dim, int chunk) {
-  const long long BH = (long long)batch * heads;
-  const int L = chunk < seq ? chunk : seq;
-  const long long nc = (seq + L - 1) / L;
-  return BH * (kRowKinds * (long long)seq + nc + nc * head_dim +
-               nc * (long long)L * padded(L));
+// ======================================================================
+// The bfloat16 route: the tensor-core kernels.
+//
+// What bounds it: operations (above). The float32 route spends its time in
+// pass 4, which re-reads q and the decayed keys for every 32 value columns
+// and walks the chunks in order; here the products run on the tensor cores
+// (wgmma from shared memory, bf16 in, float32 accumulate, operands brought
+// by TMA into 128-byte-swizzled column blocks of 64 elements, the layout
+// rule of flash_attention.cu, see hopper.cuh) and the chunk-parallel work is
+// parallel. A float32 operand (kd * k, W, the carried C) enters a product
+// as three bf16 planes hi + mid + lo, float32's precision. Four launches on
+// the caller's stream:
+//   1. gates, as the float32 route (pass 1): b in float64, m, the decays;
+//   2. states, one block per (128 key channels d, 128 value columns e, bh):
+//      walks the chunks in order, 128 rows a step, with C's tile in
+//      float32 accumulators; k and v of a step come by TMA into a ring of
+//      two stages, k is turned in shared memory into kd * k as three
+//      planes, and C <- decay C + (kd k)^T v is wgmma m64n128 with both
+//      operands MN-major (their rows are the contraction). Before each
+//      chunk c >= 1 it writes C entering c as three bf16 planes for pass 4,
+//      and at the end C in float32 (decode reads it). The blocks of a d
+//      tile share out its channels to carry n = decay n + sum_j kd_j k_j
+//      from k as it came, and write n before every chunk;
+//   3. scores, one block per (128 rows, chunk, bh): S = q k^T over hd in
+//      steps of 64 columns (two TMA stages), m64n128 tiles up to the
+//      diagonal, then W = S * exp(D - m) in float32 in registers, masked to
+//      j <= i < Lc, written to scratch as three bf16 planes, and the
+//      normaliser max(|sum_j W_ij + inter_s_i <q_i, n>|, exp(-m_i)) from
+//      the float32 W, as the plain version sums it;
+//   4. outputs, one block per (128 rows, 256 value columns, chunk, bh):
+//      h = (inter_s * q C + W v) / normaliser as m64n256 accumulators over
+//      hd (q C, skipped in chunk 0 where C = 0) and over the key tiles up to
+//      the diagonal (W v), two TMA stages; rows past Lc are computed from
+//      zero weights and not written.
+// Rows past S are never read (TMA fills them with zeros) or written; rows
+// of the next chunk that a box reaches meet zero weights. Scratch, after the
+// rows, decays and n per chunk in float32: W planes (B*H * nc * 3 * Lp^2
+// bf16, Lp = L rounded up to 128) and the entering states (B*H * (nc - 1) *
+// 3 * hd^2 bf16), 403.2 MB at B=1 H=4 S=4096 hd=1024 L=256. One thread
+// issues the TMA loads between the steps; warp specialisation and deeper
+// rings are later changes.
+namespace tc {
+
+using namespace hopper;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kTile = 128;     // rows of a score or output tile, d and e
+                               // of a state tile
+constexpr int kCB = 64;        // bf16 elements of a column block
+constexpr int kRB = 2 * kCB;   // bytes of its (swizzled) row
+constexpr int kSwizzle = 1;    // descriptor code of the 128-byte swizzle
+constexpr int kOutCols = 256;  // value columns of an output tile
+constexpr int kSbo = 8 * kRB;  // descriptor stride of an 8-row swizzle atom
+
+__host__ __device__ constexpr int wpitch(int L) {
+  return (L + kTile - 1) / kTile * kTile;
 }
 
-// Launches the four passes on `stream` and returns the first launch's
-// cudaError_t that is not 0 (0 = all queued). q/k/v/h (B, S, H, hd) in
-// float32 (is_bf16 = 0) or bfloat16, log_i/log_f (B, S, H) float32,
-// C (B, H, hd, hd), n (B, H, hd), m (B, H) and scratch float32, all
-// contiguous, q/k/v/h 16-byte aligned; 1 <= chunk <= 256, hd a multiple of
-// 32 up to 1024.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+__device__ __forceinline__ uint64_t kmajor(const unsigned char* p) {
+  return smem_desc(smem_addr(p), 16, kSbo, kSwizzle);
+}
+// an MN-major operand whose column blocks are `block` bytes apart
+__device__ __forceinline__ uint64_t mnmajor(const unsigned char* p,
+                                            int block) {
+  return smem_desc(smem_addr(p), block, kSbo, kSwizzle);
+}
+// A float32 operand enters the products as three bf16 planes hi + mid +
+// lo (24 significant bits: float32's precision); two planes keep 16 bits,
+// about 2^-18 relative, which moved the full-width xLSTM prefill's bf16 h
+// to 1.06e-4 relative L2 from the plain version's on an H100, past the
+// 1e-4 check.
+constexpr int kPlanes = 3;
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t* terms) {
+#pragma unroll
+  for (int pl = 0; pl < kPlanes; ++pl) {
+    terms[pl] = pack_bf16(x0, x1);
+    const float2 part = unpack_bf16(terms[pl]);
+    x0 -= part.x;
+    x1 -= part.y;
+  }
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* bars, int n) {
+  for (int i = 0; i < n; ++i) mbar_init(smem_addr(bars + i));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  fence_proxy_async();
+}
+
+// Scratch of this route, in bytes from its start.
+struct Scratch {
+  long long rows, decay, n_prev, w, c, bytes;
+};
+__host__ __device__ inline long long align_up(long long x) {
+  return (x + 1023) / 1024 * 1024;
+}
+__host__ __device__ inline Scratch scratch_of(long long BH, int S, int hd,
+                                              int L, int nc) {
+  Scratch sc;
+  sc.rows = 0;
+  sc.decay = sc.rows + 4 * kRowKinds * BH * S;
+  sc.n_prev = sc.decay + 4 * BH * nc;
+  sc.w = align_up(sc.n_prev + 4 * BH * nc * hd);
+  const long long lp = wpitch(L);
+  sc.c = align_up(sc.w + 2 * BH * nc * kPlanes * lp * lp);
+  sc.bytes = sc.c + 2 * BH * (nc - 1) * kPlanes * (long long)hd * hd;
+  return sc;
+}
+
+// ------------------------------------------------------------- 3. scores
+constexpr int kQTile = kTile * kRB;        // 128 rows of one column block
+constexpr int kScoreStage = 3 * kQTile;    // q, then k in two halves
+constexpr int kScoreSmem = 2 * kScoreStage + 64 + 1024;
+
+__global__ void __launch_bounds__(kThreads, 1)
+    mlstm_scores_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const bf16* __restrict__ q,
+                        const float* __restrict__ log_i, Layout lay, int BH,
+                        float* __restrict__ rows,
+                        const float* __restrict__ n_prev,
+                        bf16* __restrict__ W) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + 2 * kScoreStage);
+  __shared__ float bj_s[2 * kTile];
+  __shared__ float lij_s[2 * kTile];
+  __shared__ float qn_s[kTile];
+  const int rt = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
+  const int r0 = c * lay.L;
+  const int Lc = min(lay.L, lay.S - r0);
+  const int i0 = rt * kTile;
+  if (i0 >= Lc) return;  // the whole block: no barrier is skipped
+  const int b = bh / lay.H, head = bh % lay.H;
+  const int t = threadIdx.x, wg = t / 128, warp = t / 32, lane = t % 32;
+  const int halves = (min(i0 + kTile, Lc) + kTile - 1) / kTile;  // 1 or 2
+  const int nd = (lay.hd + kCB - 1) / kCB;
+  const long long plane = (long long)BH * lay.S;
+  const float* r_b = rows + kB * plane + (long long)bh * lay.S + r0;
+  const float* r_m = rows + kMNew * plane + (long long)bh * lay.S + r0;
+  const float* r_inter = rows + kInterS * plane + (long long)bh * lay.S + r0;
+  float* r_den = rows + kDenom * plane + (long long)bh * lay.S + r0;
+
+  // step s: columns 64 s .. 64 s + 63 of q's 128 rows and k's rows
+  auto load = [&](int s) {
+    unsigned char* stage = base + (s & 1) * kScoreStage;
+    const uint32_t bar = smem_addr(bars + (s & 1));
+    mbar_expect_tx(bar, (1 + halves) * kQTile);
+    tma_load(smem_addr(stage), &tm_q, bar, s * kCB, head, r0 + i0, b);
+    for (int hf = 0; hf < halves; ++hf)
+      tma_load(smem_addr(stage + (1 + hf) * kQTile), &tm_k, bar, s * kCB,
+               head, r0 + hf * kTile, b);
+  };
+  if (t == 0) init_barriers(bars, 2);
+  __syncthreads();
+  if (t == 0) {
+    load(0);
+    if (nd > 1) load(1);
+  }
+  // while the first tiles land: the gates of the chunk's columns and
+  // <q_i, n> with n before this chunk, a warp per 16 rows
+  const Rows gr = lay.gates(bh), hr = lay.rows(bh);
+  for (int j = t; j < 2 * kTile; j += kThreads) {
+    bj_s[j] = j < Lc ? r_b[j] : 0.f;
+    lij_s[j] = j < Lc ? log_i[gr.at(r0 + j)] : 0.f;
+  }
+  const float* n_c = n_prev + ((long long)bh * lay.nc + c) * lay.hd;
+  for (int r = 0; r < 16; ++r) {
+    const int il = warp * 16 + r, i = i0 + il;
+    float qn = 0.f;
+    if (i < Lc) {
+      const long long at = hr.at(r0 + i);
+      for (int d = lane; d < lay.hd; d += 32)
+        qn += __bfloat162float(q[at + d]) * n_c[d];
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      qn += __shfl_xor_sync(0xffffffffu, qn, off);
+    if (lane == 0) qn_s[il] = qn;
+  }
+  __syncthreads();
+
+  float acc[2][64];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[hf][x] = 0.f;
+  for (int s = 0; s < nd; ++s) {
+    const unsigned char* stage = base + (s & 1) * kScoreStage;
+    mbar_wait(smem_addr(bars + (s & 1)), (s >> 1) & 1);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int x = 0; x < 64; ++x) pin(acc[hf][x]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCB / 16; ++kk) {
+      const uint64_t da = kmajor(stage + 64 * wg * kRB + 32 * kk);
+      wgmma_ss_n128<0, 0>(acc[0], da, kmajor(stage + kQTile + 32 * kk), 1);
+      if (halves > 1)
+        wgmma_ss_n128<0, 0>(acc[1], da,
+                            kmajor(stage + 2 * kQTile + 32 * kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int x = 0; x < 64; ++x) pin(acc[hf][x]);
+    __syncthreads();  // stage s & 1 is no longer read
+    if (t == 0 && s + 2 < nd) load(s + 2);
+  }
+
+  // W_ij = S_ij exp(D_ij - m_i) for j <= i < Lc, else 0; acc[hf][4 t8 + e]
+  // is row rA + 8 (e / 2), column 128 hf + 8 t8 + 2 (lane % 4) + e % 2
+  const int rA = i0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  float b_i[2], m_i[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    const int i = rA + 8 * pr;
+    b_i[pr] = i < Lc ? r_b[i] : 0.f;
+    m_i[pr] = i < Lc ? r_m[i] : 0.f;
+  }
+  const long long lp = wpitch(lay.L);
+  bf16* w_c = W + ((long long)bh * lay.nc + c) * kPlanes * lp * lp;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (hf >= halves) break;
+#pragma unroll
+    for (int t8 = 0; t8 < 16; ++t8)
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const int i = rA + 8 * pr;
+        const int j = hf * kTile + 8 * t8 + 2 * (lane % 4);
+        float w[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int jj = j + e;
+          w[e] = (i < Lc && jj <= i)
+                     ? acc[hf][4 * t8 + 2 * pr + e] *
+                           expf(((b_i[pr] - bj_s[jj]) + lij_s[jj]) - m_i[pr])
+                     : 0.f;
+          rowsum[pr] += w[e];
+        }
+        uint32_t terms[kPlanes];
+        split3(w[0], w[1], terms);
+#pragma unroll
+        for (int pl = 0; pl < kPlanes; ++pl)
+          *reinterpret_cast<uint32_t*>(w_c + pl * lp * lp + i * lp + j) =
+              terms[pl];
+      }
+  }
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    float sum = rowsum[pr];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int i = rA + 8 * pr;
+    if (lane % 4 == 0 && i < Lc)
+      r_den[i] = fmaxf(fabsf(sum + qn_s[i - i0] * r_inter[i]),
+                       expf(-m_i[pr]));
+  }
+}
+
+// ------------------------------------------------------------- 4. states
+// A step is up to 128 rows of a chunk: k and v of those rows come by TMA
+// into a ring of two stages (the next step's load is in flight while this
+// one is computed), and k is turned into kd * k as three bf16 planes in
+// shared memory beside the ring.
+constexpr int kHalf = 128;                     // rows of a chunk a step
+constexpr int kHalfBlock = kHalf * kRB;        // one column block of them
+constexpr int kStateStage = 4 * kHalfBlock;    // k, then v: two blocks each
+constexpr int kStateSmem =
+    2 * kStateStage + 2 * kPlanes * kHalfBlock + 64 + 1024;
+static_assert(kThreads == kMaxChunk, "a thread stages one row's key decay");
+
+__global__ void __launch_bounds__(kThreads, 1)
+    mlstm_states_kernel(const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_c, Layout lay,
+                        int BH, const float* __restrict__ rows,
+                        const float* __restrict__ decay,
+                        float* __restrict__ C_out,
+                        float* __restrict__ n_prev,
+                        float* __restrict__ n_out) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* planes = base + 2 * kStateStage;  // hi, mid, lo of kd * k
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(planes + 2 * kPlanes * kHalfBlock);
+  // n's partial sums, written before the step's planes
+  float* part = reinterpret_cast<float*>(planes);
+  __shared__ float kd_s[kMaxChunk];
+  const int et = blockIdx.x, e0 = et * kTile, d0 = blockIdx.y * kTile;
+  const int bh = blockIdx.z;
+  const int b = bh / lay.H, head = bh % lay.H;
+  const int t = threadIdx.x, wg = t / 128, warp = t / 32, lane = t % 32;
+  const float* r_kd =
+      rows + kKDecay * (long long)BH * lay.S + (long long)bh * lay.S;
+  // n = decay n + sum_j kd_j k_j, carried here too: the blocks of one d
+  // tile share its 128 channels out, `share` each; thread (grp, dd) sums
+  // channel dd of the share over every groups-th row of a step
+  const int share = (kTile + gridDim.x - 1) / gridDim.x;
+  const int groups = kThreads / share;
+  const int dd = t % share, grp = t / share;
+  const int n_col = et * share + dd;  // of the tile's 128
+  const int dn = d0 + n_col;
+  const bool n_mine = n_col < kTile && dn < lay.hd;
+  float n_run = 0.f, n_sum = 0.f;  // kept by the threads with grp == 0
+  // acc[4 t8 + e] is C[d, e'] with d = dA + 8 (e / 2) and
+  // e' = e0 + 8 t8 + 2 (lane % 4) + e % 2
+  const int dA = d0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int per_chunk = (lay.L + kHalf - 1) / kHalf;  // steps a chunk
+  const int last_rows = lay.S - (lay.nc - 1) * lay.L;
+  const int steps = (lay.nc - 1) * per_chunk + (last_rows + kHalf - 1) / kHalf;
+
+  auto load = [&](int s) {
+    const int r = (s / per_chunk) * lay.L + (s % per_chunk) * kHalf;
+    unsigned char* stage = base + (s & 1) * kStateStage;
+    const uint32_t bar = smem_addr(bars + (s & 1));
+    mbar_expect_tx(bar, kStateStage);
+    for (int cb = 0; cb < 2; ++cb) {
+      tma_load(smem_addr(stage + cb * kHalfBlock), &tm_k, bar, d0 + cb * kCB,
+               head, r, b);
+      tma_load(smem_addr(stage + (2 + cb) * kHalfBlock), &tm_v, bar,
+               e0 + cb * kCB, head, r, b);
+    }
+  };
+  if (t == 0) init_barriers(bars, 2);
+  __syncthreads();
+  if (t == 0) {
+    load(0);
+    if (steps > 1) load(1);
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    const int c = s / per_chunk, j0 = (s % per_chunk) * kHalf;
+    const int r0 = c * lay.L;
+    const int Lc = min(lay.L, lay.S - r0);
+    const int rows_s = min(kHalf, Lc - j0);
+    const float dc = decay[(long long)bh * lay.nc + c];
+    if (j0 == 0) kd_s[t] = t < Lc ? r_kd[r0 + t] : 0.f;
+    if (t == 0) bulk_wait_read();  // the last state's planes have left
+    __syncthreads();  // kd_s, and the planes buffer is free
+    const unsigned char* stage = base + (s & 1) * kStateStage;
+    mbar_wait(smem_addr(bars + (s & 1)), (s >> 1) & 1);
+    // n's partial sums from k as it came (the swizzle moves 16-byte pieces
+    // inside a 128-byte row: piece p of row j sits at p ^ (j % 8))
+    float sum = 0.f;
+    if (grp < groups && n_mine) {
+      const int cb = n_col / kCB, c64 = n_col % kCB;
+      const unsigned char* col = stage + cb * kHalfBlock + 2 * (c64 % 8);
+      for (int j = grp; j < rows_s; j += groups)
+        sum += kd_s[j0 + j] *
+               __bfloat162float(*reinterpret_cast<const bf16*>(
+                   col + j * kRB + (((c64 / 8) ^ (j % 8)) << 4)));
+    }
+    part[t] = sum;
+    __syncthreads();
+    if (grp == 0 && n_mine)
+      for (int g = 0; g < groups; ++g) n_sum += part[g * share + dd];
+    __syncthreads();  // part is overwritten by the planes
+    // kd * k in float32 as three bf16 planes; a piece's row is its offset
+    // / 128 in its column block
+    for (int p = t; p < 2 * kHalfBlock / 16; p += kThreads) {
+      const int off = 16 * p;
+      const float kd = kd_s[j0 + (off % kHalfBlock) / kRB];
+      const uint4 x = *reinterpret_cast<const uint4*>(stage + off);
+      const uint32_t in[4] = {x.x, x.y, x.z, x.w};
+      uint32_t out[kPlanes][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 f = unpack_bf16(in[u]);
+        uint32_t terms[kPlanes];
+        split3(f.x * kd, f.y * kd, terms);
+#pragma unroll
+        for (int pl = 0; pl < kPlanes; ++pl) out[pl][u] = terms[pl];
+      }
+#pragma unroll
+      for (int pl = 0; pl < kPlanes; ++pl)
+        *reinterpret_cast<uint4*>(planes + pl * 2 * kHalfBlock + off) =
+            make_uint4(out[pl][0], out[pl][1], out[pl][2], out[pl][3]);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (j0 == 0 && c > 0) {
+#pragma unroll
+      for (int x = 0; x < 64; ++x) acc[x] *= dc;
+    }
+    // C += (kd k)^T v: d is A's row (MN-major), the rows of the step are
+    // the contraction, 16 a k-step; the warpgroup's 64 d are one column
+    // block. Rows past the chunk have zero planes (kd = 0), so every step
+    // runs all 8 k-steps: a trip count known to the compiler keeps the
+    // wgmmas in one pipeline stage.
+#pragma unroll
+    for (int x = 0; x < 64; ++x) pin(acc[x]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHalf / 16; ++kk) {
+      const int row = 16 * kk * kRB;
+      const uint64_t dv = mnmajor(stage + 2 * kHalfBlock + row, kHalfBlock);
+#pragma unroll
+      for (int pl = 0; pl < kPlanes; ++pl)
+        wgmma_ss_n128<1, 1>(
+            acc,
+            mnmajor(planes + pl * 2 * kHalfBlock + wg * kHalfBlock + row,
+                    kHalfBlock),
+            dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int x = 0; x < 64; ++x) pin(acc[x]);
+    const bool chunk_done = j0 + kHalf >= Lc;
+    if (chunk_done && grp == 0 && n_mine) {
+      n_prev[((long long)bh * lay.nc + c) * lay.hd + dn] = n_run;
+      n_run = dc * n_run + n_sum;
+      n_sum = 0.f;
+    }
+    if (chunk_done && c + 1 < lay.nc) {
+      // C entering chunk c + 1, as three bf16 planes, for the outputs:
+      // staged in the planes buffer (no longer read) with the 128-byte
+      // swizzle, so that the fragments' writes fall in distinct banks,
+      // and written by TMA, rows of 128 bytes
+      __syncthreads();  // every warpgroup's wgmmas have read the planes
+#pragma unroll
+      for (int t8 = 0; t8 < 16; ++t8)
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr) {
+          const int r = dA - d0 + 8 * pr;  // row of the tile
+          const int col = 8 * t8 + 2 * (lane % 4);
+          uint32_t terms[kPlanes];
+          split3(acc[4 * t8 + 2 * pr], acc[4 * t8 + 2 * pr + 1], terms);
+          const int off = (col / kCB) * kHalfBlock + r * kRB +
+                          ((((col % kCB) / 8) ^ (r % 8)) << 4) +
+                          2 * (col % 8);
+#pragma unroll
+          for (int pl = 0; pl < kPlanes; ++pl)
+            *reinterpret_cast<uint32_t*>(planes + pl * 2 * kHalfBlock +
+                                         off) = terms[pl];
+        }
+      fence_proxy_async();
+      __syncthreads();
+      if (t == 0) {
+        const int first = (bh * (lay.nc - 1) + c) * kPlanes;
+        for (int pl = 0; pl < kPlanes; ++pl)
+          for (int cb = 0; cb < 2; ++cb)
+            tma_store3(&tm_c,
+                       smem_addr(planes + (2 * pl + cb) * kHalfBlock),
+                       e0 + cb * kCB, d0, first + pl);
+        bulk_commit();
+      }
+    }
+    __syncthreads();  // stage s & 1 and the planes are no longer read
+    if (t == 0 && s + 2 < steps) load(s + 2);
+  }
+#pragma unroll
+  for (int t8 = 0; t8 < 16; ++t8)
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      const int d = dA + 8 * pr;
+      const int e = e0 + 8 * t8 + 2 * (lane % 4);
+      if (d >= lay.hd || e >= lay.hd) continue;
+      *reinterpret_cast<float2*>(C_out + ((long long)bh * lay.hd + d) *
+                                             lay.hd + e) =
+          make_float2(acc[4 * t8 + 2 * pr], acc[4 * t8 + 2 * pr + 1]);
+    }
+  if (grp == 0 && n_mine) n_out[(long long)bh * lay.hd + dn] = n_run;
+  if (t == 0) bulk_wait_read();  // shared memory outlives its reads
+}
+
+// ------------------------------------------------------------ 5. outputs
+// A stage: the A tile (q or W_hi: 128 rows, one column block), then B1,
+// B2, B3 (C's three planes: 64 rows, four column blocks each); a W v step
+// puts v in B1 and W_mid, W_lo at the starts of B2, B3.
+constexpr int kOutB = kCB * kRB;  // one column block of 64 rows
+constexpr int kOutStage = kQTile + 4 * kPlanes * kOutB;
+constexpr int kOutSmem = 2 * kOutStage + 64 + 1024;
+
+__global__ void __launch_bounds__(kThreads, 1)
+    mlstm_outputs_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_c,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         Layout lay, int BH, int row_tiles,
+                         const float* __restrict__ rows,
+                         bf16* __restrict__ h) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + 2 * kOutStage);
+  const int rt = blockIdx.x % row_tiles, et = blockIdx.x / row_tiles;
+  const int c = blockIdx.y, bh = blockIdx.z;
+  const int r0 = c * lay.L;
+  const int Lc = min(lay.L, lay.S - r0);
+  const int i0 = rt * kTile, e0 = et * kOutCols;
+  if (i0 >= Lc) return;  // the whole block: no barrier is skipped
+  const int b = bh / lay.H, head = bh % lay.H;
+  const int t = threadIdx.x, wg = t / 128, warp = t / 32, lane = t % 32;
+  const int nq = c > 0 ? (lay.hd + kCB - 1) / kCB : 0;  // q C steps
+  const int nj = (min(i0 + kTile, Lc) + kCB - 1) / kCB;  // W v steps
+  const int steps = nq + nj;
+  const int c_plane = (bh * (lay.nc - 1) + c - 1) * kPlanes;
+  const int w_plane = (bh * lay.nc + c) * kPlanes;
+
+  auto load = [&](int s) {
+    unsigned char* stage = base + (s & 1) * kOutStage;
+    unsigned char* b1 = stage + kQTile;
+    const uint32_t bar = smem_addr(bars + (s & 1));
+    if (s < nq) {
+      mbar_expect_tx(bar, kOutStage);
+      tma_load(smem_addr(stage), &tm_q, bar, s * kCB, head, r0 + i0, b);
+      for (int pl = 0; pl < kPlanes; ++pl)
+        for (int cb = 0; cb < 4; ++cb)
+          tma_load3(smem_addr(b1 + (4 * pl + cb) * kOutB), &tm_c, bar,
+                    e0 + cb * kCB, s * kCB, c_plane + pl);
+    } else {
+      const int j0 = (s - nq) * kCB;
+      mbar_expect_tx(bar, kPlanes * kQTile + 4 * kOutB);
+      tma_load3(smem_addr(stage), &tm_w, bar, j0, i0, w_plane);
+      for (int pl = 1; pl < kPlanes; ++pl)
+        tma_load3(smem_addr(b1 + 4 * pl * kOutB), &tm_w, bar, j0, i0,
+                  w_plane + pl);
+      for (int cb = 0; cb < 4; ++cb)
+        tma_load(smem_addr(b1 + cb * kOutB), &tm_v, bar, e0 + cb * kCB, head,
+                 r0 + j0, b);
+    }
+  };
+  if (t == 0) init_barriers(bars, 2);
+  __syncthreads();
+  if (t == 0) {
+    load(0);
+    if (steps > 1) load(1);
+  }
+  const long long plane = (long long)BH * lay.S;
+  const float* r_inter = rows + kInterS * plane + (long long)bh * lay.S + r0;
+  const float* r_den = rows + kDenom * plane + (long long)bh * lay.S + r0;
+  // acc[4 t8 + e] is row rA + 8 (e / 2), column e0 + 8 t8 + 2 (lane % 4) +
+  // e % 2
+  const int rA = i0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+
+  float acc[128];
+#pragma unroll
+  for (int x = 0; x < 128; ++x) acc[x] = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    const unsigned char* stage = base + (s & 1) * kOutStage;
+    const unsigned char* b1 = stage + kQTile;
+    mbar_wait(smem_addr(bars + (s & 1)), (s >> 1) & 1);
+    // W v: skipped by a warpgroup whose rows all lie above the key tile
+    const bool live = s < nq || (s - nq) * kCB <= i0 + 64 * wg + 63;
+    if (live) {
+#pragma unroll
+      for (int x = 0; x < 128; ++x) pin(acc[x]);
+      wgmma_fence();
+#pragma unroll
+      // q C_pl (A = q, B = plane pl) or W_pl v (A = plane pl, B = v)
+      const bool qc = s < nq;
+#pragma unroll
+      for (int kk = 0; kk < kCB / 16; ++kk)
+#pragma unroll
+        for (int pl = 0; pl < kPlanes; ++pl) {
+          const unsigned char* plane = b1 + 4 * pl * kOutB;
+          const unsigned char* a = qc || pl == 0 ? stage : plane;
+          const unsigned char* bt = qc ? plane : b1;
+          wgmma_ss_n256<0, 1>(acc, kmajor(a + 64 * wg * kRB + 32 * kk),
+                              mnmajor(bt + 16 * kk * kRB, kOutB), 1);
+        }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int x = 0; x < 128; ++x) pin(acc[x]);
+    }
+    if (s == nq - 1) {  // q C is complete: scale by the carry's decay
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const int i = rA + 8 * pr;
+        const float is = i < Lc ? r_inter[i] : 0.f;
+#pragma unroll
+        for (int t8 = 0; t8 < 32; ++t8) {
+          acc[4 * t8 + 2 * pr] *= is;
+          acc[4 * t8 + 2 * pr + 1] *= is;
+        }
+      }
+    }
+    __syncthreads();  // stage s & 1 is no longer read
+    if (t == 0 && s + 2 < steps) load(s + 2);
+  }
+  const int q_stride = lay.H * lay.hd;
+  bf16* hb = h + ((long long)b * lay.S + r0) * q_stride +
+             (long long)head * lay.hd;
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    const int i = rA + 8 * pr;
+    if (i >= Lc) continue;
+    const float den = r_den[i];
+#pragma unroll
+    for (int t8 = 0; t8 < 32; ++t8) {
+      const int e = e0 + 8 * t8 + 2 * (lane % 4);
+      if (e < lay.hd)
+        *reinterpret_cast<uint32_t*>(hb + (long long)i * q_stride + e) =
+            pack_bf16(acc[4 * t8 + 2 * pr] / den,
+                      acc[4 * t8 + 2 * pr + 1] / den);
+    }
+  }
+}
+
+// A (batch, seq, heads, hd) bf16 tensor as a 4-d tensor map whose boxes are
+// 64 columns x `rows` positions of one head, 128-byte swizzled; positions
+// past seq (and columns past hd) arrive as zeros
+bool head_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+              int heads, int hd, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)seq * heads * hd * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)kCB, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// `planes` row-major (rows x cols) bf16 matrices as a 3-d tensor map whose
+// boxes are 64 columns x `rows_box` rows of one matrix, 128-byte swizzled
+bool plane_map(CUtensorMap* map, const void* ptr, int cols, int rows,
+               int planes, int rows_box) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
+                                 (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kCB, (cuuint32_t)rows_box, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
+                   const float* log_i, const float* log_f, bf16* h, float* C,
+                   float* n, float* m, unsigned char* scratch, int batch,
+                   int BH, Layout lay, cudaStream_t s) {
+  const Scratch sc = scratch_of(BH, lay.S, lay.hd, lay.L, lay.nc);
+  float* rows = reinterpret_cast<float*>(scratch + sc.rows);
+  float* decay = reinterpret_cast<float*>(scratch + sc.decay);
+  float* n_prev = reinterpret_cast<float*>(scratch + sc.n_prev);
+  bf16* W = reinterpret_cast<bf16*>(scratch + sc.w);
+  bf16* C_planes = reinterpret_cast<bf16*>(scratch + sc.c);
+  const int lp = wpitch(lay.L);
+  CUtensorMap tq, tk, tv, tv64, tc_, tc_store, tw;
+  if (!head_map(&tq, q, batch, lay.S, lay.H, lay.hd, kTile) ||
+      !head_map(&tk, k, batch, lay.S, lay.H, lay.hd, kTile) ||
+      !head_map(&tv, v, batch, lay.S, lay.H, lay.hd, kHalf) ||
+      !head_map(&tv64, v, batch, lay.S, lay.H, lay.hd, kCB) ||
+      !plane_map(&tw, W, lp, lp, kPlanes * BH * lay.nc, kTile))
+    return cudaErrorInvalidValue;
+  // the entering states exist from chunk 1 on; with one chunk the map is
+  // never read and keeps W's
+  tc_ = tc_store = tw;
+  if (lay.nc > 1 && (!plane_map(&tc_, C_planes, lay.hd, lay.hd,
+                                kPlanes * BH * (lay.nc - 1), kCB) ||
+                     !plane_map(&tc_store, C_planes, lay.hd, lay.hd,
+                                kPlanes * BH * (lay.nc - 1), kTile)))
+    return cudaErrorInvalidValue;
+
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(mlstm_scores_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kScoreSmem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(mlstm_states_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kStateSmem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(mlstm_outputs_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  kOutSmem)) != cudaSuccess)
+    return err;
+  mlstm_gates_kernel<<<BH, kThreads, 0, s>>>(log_i, log_f, lay, BH, rows,
+                                             decay, m);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int dt = (lay.hd + kTile - 1) / kTile;
+  mlstm_states_kernel<<<dim3(dt, dt, BH), kThreads, kStateSmem, s>>>(
+      tk, tv, tc_store, lay, BH, rows, decay, C, n_prev, n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_scores_kernel<<<dim3(lp / kTile, lay.nc, BH), kThreads, kScoreSmem,
+                        s>>>(tq, tk, q, log_i, lay, BH, rows, n_prev, W);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int et = (lay.hd + kOutCols - 1) / kOutCols;
+  mlstm_outputs_kernel<<<dim3(lp / kTile * et, lay.nc, BH), kThreads,
+                         kOutSmem, s>>>(tq, tv64, tc_, tw, lay, BH,
+                                        lp / kTile, rows, h);
+  return cudaGetLastError();
+}
+
+cudaError_t attributes(int which, int* regs, int* local_bytes,
+                       int* static_smem, int* dynamic_smem) {
+  const void* fns[3] = {(const void*)mlstm_scores_kernel,
+                        (const void*)mlstm_states_kernel,
+                        (const void*)mlstm_outputs_kernel};
+  const int dyn[3] = {kScoreSmem, kStateSmem, kOutSmem};
+  if (which < 0 || which > 2) return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *static_smem = (int)attr.sharedSizeBytes;
+  *dynamic_smem = dyn[which];
+  return cudaSuccess;
+}
+
+}  // namespace tc
+
+// Size of the scratch the caller passes, in bytes (L = min(chunk, S),
+// nc = ceil(S / L)): the float32 route's rows, decays, n per chunk and W;
+// the bf16 route's rows, decays, n per chunk, W planes and entering states.
+extern "C" long long mlstm_scratch_bytes(int batch, int heads, int seq,
+                                         int head_dim, int chunk,
+                                         int is_bf16) {
+  const long long BH = (long long)batch * heads;
+  const int L = chunk < seq ? chunk : seq;
+  const int nc = (seq + L - 1) / L;
+  return is_bf16 ? tc::scratch_of(BH, seq, head_dim, L, nc).bytes
+                 : f32_scratch_bytes(BH, seq, head_dim, L, nc);
+}
+
+// Launches the passes on `stream` and returns the first launch's
+// cudaError_t that is not 0 (0 = all queued): float32 (is_bf16 = 0) takes
+// the four CUDA-core passes, bfloat16 the tensor-core route. q/k/v/h
+// (B, S, H, hd), log_i/log_f (B, S, H) float32, C (B, H, hd, hd), n
+// (B, H, hd), m (B, H) float32, all contiguous, q/k/v/h 16-byte aligned,
+// scratch of mlstm_scratch_bytes; 1 <= chunk <= 256, hd a multiple of 32
+// up to 1024.
 extern "C" int mlstm_chunkwise_fwd(const void* q, const void* k,
                                    const void* v, const void* log_i,
                                    const void* log_f, void* h, void* C,
@@ -598,10 +1313,6 @@ extern "C" int mlstm_chunkwise_fwd(const void* q, const void* k,
   lay.L = chunk < seq ? chunk : seq;
   lay.nc = (seq + lay.L - 1) / lay.L;
   if (lay.nc > 65535) return (int)cudaErrorInvalidValue;
-  float* rows = static_cast<float*>(scratch);
-  float* decay = rows + kRowKinds * BH * seq;
-  float* n_prev = decay + BH * lay.nc;
-  float* W = n_prev + BH * lay.nc * head_dim;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* li = static_cast<const float*>(log_i);
   const float* lf = static_cast<const float*>(log_f);
@@ -609,10 +1320,25 @@ extern "C" int mlstm_chunkwise_fwd(const void* q, const void* k,
   float* nf = static_cast<float*>(n);
   float* mf = static_cast<float*>(m);
   if (is_bf16)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, li, lf, h, Cf, nf, mf, rows,
-                                        decay, n_prev, W, (int)BH, lay, s);
-  return (int)dispatch<float>(q, k, v, li, lf, h, Cf, nf, mf, rows, decay,
-                              n_prev, W, (int)BH, lay, s);
+    return (int)tc::launch(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), li, lf,
+        static_cast<__nv_bfloat16*>(h), Cf, nf, mf,
+        static_cast<unsigned char*>(scratch), batch, (int)BH, lay, s);
+  return (int)dispatch_f32(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), li, lf, static_cast<float*>(h), Cf, nf,
+      mf, static_cast<float*>(scratch), (int)BH, lay, s);
+}
+
+// The tensor-core kernels' resources (which: 0 scores, 1 states, 2
+// outputs): registers a thread, local (spilled) bytes a thread, static and
+// dynamic shared memory a block.
+extern "C" int mlstm_bf16_attributes(int which, int* regs, int* local_bytes,
+                                     int* static_smem, int* dynamic_smem) {
+  return (int)tc::attributes(which, regs, local_bytes, static_smem,
+                             dynamic_smem);
 }
 
 extern "C" const char* mlstm_error_string(int code) {

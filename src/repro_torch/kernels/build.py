@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
 compiled on first use, on the machine with the card, into
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout
-(``.gitignore`` lists ``build/``). The digest covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+(``.gitignore`` lists ``build/``). The digest covers the source, the
+headers of ``csrc/`` (``*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 Nothing here runs at import: this module is imported on machines with
 no ``nvcc``.
 """
@@ -51,6 +52,9 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # every header of csrc/ too: a kernel that includes one is rebuilt when
+    # it changes
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -7,7 +7,13 @@ on the current stream, which reads that layout in place; for CPU
 tensors it takes the plain version (``ref``, in the kernel's layout
 ``(B*H, S, hd)``). Nothing else picks the path: a CUDA tensor launches
 the kernel or raises. ``LAUNCHES`` counts the wrapper's launches (one
-call, four passes of the kernel).
+call, four passes of either route).
+
+:func:`route` names the kernel by the input type: bfloat16 (what
+serving runs) goes to the tensor-core route (``wgmma`` with float32
+accumulators, operands by TMA), float32 to the CUDA-core route, whose
+checks are held at 2e-5, closer than tensor cores reach from float32
+inputs. Neither stands in for the other.
 
 Both take any S >= 1 in chunks of ``min(chunk, S)`` rows with a short
 last chunk (the reference's Pallas kernel asks ``S % chunk == 0``); the
@@ -45,12 +51,53 @@ def _kernel():
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.mlstm_scratch_floats.argtypes = [ctypes.c_int] * 5
-        lib.mlstm_scratch_floats.restype = ctypes.c_longlong
+        lib.mlstm_scratch_bytes.argtypes = [ctypes.c_int] * 6
+        lib.mlstm_scratch_bytes.restype = ctypes.c_longlong
         lib.mlstm_error_string.argtypes = [ctypes.c_int]
         lib.mlstm_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.mlstm_scratch_floats, lib.mlstm_error_string)
+        attrs = lib.mlstm_bf16_attributes
+        attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+        attrs.restype = ctypes.c_int
+        _FN = (fn, lib.mlstm_scratch_bytes, lib.mlstm_error_string, attrs)
     return _FN
+
+
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call with inputs of ``dtype`` launches:
+    ``"tensor_core"`` for bfloat16, ``"cuda_core"`` for float32."""
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise TypeError(f"the kernel takes {DTYPES}, got {dtype}")
+
+
+#: The tensor-core route's kernels, in the order of
+#: :func:`tensor_core_attributes`' argument.
+TENSOR_CORE_KERNELS = ("scores", "states", "outputs")
+
+
+def tensor_core_attributes(kernel: str) -> dict:
+    """Registers and local (spilled) bytes a thread, static and dynamic
+    shared memory a block, of one of the tensor-core route's kernels
+    (``cudaFuncGetAttributes``)."""
+    _, _, error_string, attrs = _kernel()
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = attrs(TENSOR_CORE_KERNELS.index(kernel),
+               *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: "
+                           f"{error_string(rc).decode()} ({rc})")
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes"), (x.value for x in out)))
+
+
+def scratch_bytes(B: int, H: int, S: int, hd: int, chunk: int,
+                  dtype: torch.dtype) -> int:
+    """Bytes of device scratch one call of the kernel at these shapes
+    allocates."""
+    _, size, _, _ = _kernel()
+    return size(B, H, S, hd, chunk, int(dtype == torch.bfloat16))
 
 
 def _check(q, k, v, log_i, log_f, chunk):
@@ -96,14 +143,14 @@ def _launch(q, k, v, log_i, log_f, chunk):
     global LAUNCHES
     _check(q, k, v, log_i, log_f, chunk)
     B, S, H, hd = q.shape
-    fn, scratch_floats, error_string = _kernel()
+    fn, _, error_string, _ = _kernel()
     dev = q.device
     h = torch.empty_like(q)
     C = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
     n = torch.empty((B, H, hd), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
-    scratch = torch.empty(scratch_floats(B, H, S, hd, chunk),
-                          dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_bytes(B, H, S, hd, chunk, q.dtype),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), log_i.data_ptr(),

@@ -3,6 +3,8 @@ Pallas kernel (interpret mode) and its oracle, ragged lengths against the
 reference model's plain route, the wrapper's checks, and (on a card) the
 CUDA kernel against the plain version."""
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -202,6 +204,18 @@ def test_wrapper_takes_plain_version_for_cpu_tensors_only():
         ops.mlstm_chunkwise(q, k, v, li, lf, state=(C, n, m))
 
 
+def test_route_sends_bf16_to_tensor_cores_and_f32_to_cuda_cores():
+    assert ops.route(torch.bfloat16) == "tensor_core"
+    assert ops.route(torch.float32) == "cuda_core"
+    assert ops.TENSOR_CORE_KERNELS == ("scores", "states", "outputs")
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_route_refuses_what_no_kernel_takes(dtype):
+    with pytest.raises(TypeError, match="the kernel takes"):
+        ops.route(dtype)
+
+
 def _good(B=1, S=10, H=4, hd=64):
     return (torch.zeros(B, S, H, hd), torch.zeros(B, S, H, hd),
             torch.zeros(B, S, H, hd), torch.zeros(B, S, H),
@@ -276,3 +290,34 @@ def test_cuda_kernel_matches_plain_version(B, S, H, hd, chunk, dtype):
         rel = float(torch.linalg.vector_norm(a - e)
                     / torch.linalg.vector_norm(e))
         assert rel <= 1e-4
+
+
+# the tensor-core route's tile edges (as chip_smoke.py's phase 9): 128 rows
+# a score or output tile, 64 keys a W v step, 16 rows a states step, 64
+# head-dim columns a TMA box, 128 (d, e) a states tile, 256 value columns
+# an output tile
+EDGE_LENGTHS = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                383, 511, 513)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 96, 160, 288])
+def test_cuda_tensor_core_route_matches_plain_version_on_tile_edges(hd):
+    """bf16: every S of the edges and chunks of 256, 100 and 64 rows, at
+    B = 2, H = 3, against the plain version at the kernel's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for S, chunk in itertools.product(EDGE_LENGTHS, (256, 100, 64)):
+        arrays = [torch.from_numpy(model_layout(x, 2, 3)).cuda()
+                  for x in make_inputs(6, S, hd, seed=7)]
+        q, k, v = (x.bfloat16() for x in arrays[:3])
+        li, lf = arrays[3:]
+        with torch.no_grad():
+            h, state = ops.mlstm_chunkwise(q, k, v, li, lf, chunk=chunk)
+            he, state_e = ops._plain(q, k, v, li, lf, chunk)
+        err = (h.float() - he.float()).abs() / he.float().abs().clamp_min(1)
+        assert float(err.max()) <= 2e-2, (S, chunk)
+        for a, e in zip(state, state_e):
+            rel = float(torch.linalg.vector_norm(a - e)
+                        / torch.linalg.vector_norm(e))
+            assert rel <= 1e-4, (S, chunk)
