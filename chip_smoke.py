@@ -24,7 +24,11 @@ Phases, each printing on lines of its own:
    on the card (f32 and bf16; B 1/2, KH 1/16, D 64/256, S up to 4096,
    window 0/2048; then the bf16 kernel's tile edges: S, T in 15..191
    around multiples of 64 and 128, window 0/1/64/65, KH 1/4/16, D
-   16/64/256; the scan at C=4096, S 1/257/4096, with and without h0);
+   16/64/256; the scan at C=4096, S 1/257/4096, with and without h0;
+   then the scan's tile edges, S 1/31/32/33/65/4097 by C
+   1/33/127/128/129/4096, B 1/3, with and without h0; 20 launches at
+   B=4 S=4096 C=4096, equal bit for bit; and a long-memory case held
+   against the plain version in float64, e_k <= 1.5 e_p);
 6. a small RecurrentGemma (float32) against the JAX package's prefill
    and decode logits and served tokens (golden file);
 7. recurrentgemma-9b at full width (bf16, seed-0 weights drawn on the
@@ -35,13 +39,17 @@ Phases, each printing on lines of its own:
    logits through the kernels vs the plain versions and decode after a
    3000-token prefill vs a no-cache forward (the ring check), in bf16
    and with the same weights in f32, where the reference's ring layout
-   must fail the check (a control); the profiler's top device entries;
+   must fail the check (a control); the profiler's top device entries
+   and the port's kernels among them by name;
 8. timing: the edge-softmax kernel (kernel, in a CUDA graph, plain
    version, the library call and the byte bound) and the scoring call
    per bucket; the flash and RG-LRU kernels at the full-width prefill
    shapes with their plain versions, library call and bounds (flash:
    the bf16 tensor-core kernel with its TFLOP/s, registers and shared
-   memory, and the float32 route's CUDA-core kernel at the same shape);
+   memory, and the float32 route's CUDA-core kernel at the same shape;
+   RG-LRU: also at B=1 S 128/1000 and B=4 S=4096, back to back and in a
+   CUDA graph, beside one torch.add that moves the same bytes, with its
+   registers and scratch);
 9. the chunkwise mLSTM kernel against its plain version on the card
    (f32: the CUDA-core route, bf16: the tensor-core route; h, C, n, m):
    the reference's test shapes (BH, S, hd, chunk) = (2, 128, 64, 64),
@@ -616,6 +624,108 @@ def _lru_inputs(g, B, S, C):
     return a, b, h0
 
 
+def _lru_tile_edges(g):
+    """The scan against the plain version at S and C around the kernel's
+    tile (L steps by Ct channels) and past it, B 1/3, with and without
+    h0, at the float32 tolerance; h_last is y's last step."""
+    import torch
+
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    L, Ct = lru_ops.tile()
+    check((L, Ct) == (lru_ops.TILE_STEPS, lru_ops.TILE_CHANNELS),
+          f"the built kernel's tile {(L, Ct)} is the wrapper's")
+    lengths = (1, L - 1, L, L + 1, 2 * L + 1, 4097)
+    widths = (1, 33, Ct - 1, Ct, Ct + 1, 4096)
+    n, largest = 0, 0.0
+    for S, C, B, with_h0 in itertools.product(lengths, widths, (1, 3),
+                                              (True, False)):
+        a, b, h0 = _lru_inputs(g, B, S, C)
+        h0 = h0 if with_h0 else None
+        y, h = lru_ops.linear_scan(a, b, h0)
+        ye, he = lru_ref.linear_scan(a, b, h0)
+        err = max(float((y - ye).abs().max()), float((h - he).abs().max()))
+        label = f"B={B} S={S} C={C} h0={'yes' if with_h0 else 'no'}"
+        check(err <= TOL["float32"], f"rg_lru kernel vs plain, {label}: "
+                                     f"{err}")
+        check(torch.equal(h, y[:, -1]), f"rg_lru h_last is y[:, -1], {label}")
+        largest = max(largest, err)
+        n += 1
+    print(f"  rg_lru tile edges: {n} cases (S {'/'.join(map(str, lengths))}, "
+          f"C {'/'.join(map(str, widths))}, B 1/3, h0 or not), largest "
+          f"error {largest:.3e} (tol {TOL['float32']:g}) ok")
+    return largest, n
+
+
+LRU_REPEATS = 20
+
+
+def _lru_repeats(g):
+    """LRU_REPEATS launches at B=4 S=4096 C=4096 give the first launch's
+    y and h_last bit for bit: the look-back's order fixes the bits."""
+    import torch
+
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+
+    a, b, _ = _lru_inputs(g, 4, 4096, 4096)
+    y0, h0 = lru_ops.linear_scan(a, b)
+    for i in range(1, LRU_REPEATS):
+        y, h = lru_ops.linear_scan(a, b)
+        check(torch.equal(y, y0) and torch.equal(h, h0),
+              f"rg_lru launch {i} equals launch 0 bit for bit")
+    print(f"  rg_lru determinism: {LRU_REPEATS} launches at B=4 S=4096 "
+          f"C=4096 equal bit for bit ok")
+    return LRU_REPEATS
+
+
+# The long-memory case: two float32 orders of the scan each sit some 5e-7
+# (relative L2) from float64 and as far from each other, so the kernel is
+# held against the plain version in float64: its relative L2 distance e_k
+# at most LRU_F64_MARGIN times the float32 plain version's e_p (CPU tests'
+# margin, tests/test_torch_rg_lru.py, which measured e_k / e_p up to 1.26
+# in the kernel's order).
+LRU_F64_MARGIN = 1.5
+
+
+def _lru_long_memory(g):
+    """B=1 S=4096 C=4096: a fixed per channel in (0.9, 0.9999) raised to
+    sigmoid of a normal draw per step, b normal and not scaled."""
+    import torch
+
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    B, S, C = 1, 4096, 4096
+    base = torch.rand(1, 1, C, generator=g, device="cuda") * 0.0999 + 0.9
+    z = torch.randn(B, S, C, generator=g, device="cuda")
+    a = base ** torch.sigmoid(z)
+    b = torch.randn(B, S, C, generator=g, device="cuda")
+    y, _ = lru_ops.linear_scan(a, b)
+    yp, _ = lru_ref.linear_scan(a, b)
+    y64, _ = lru_ref.linear_scan(a, b, dtype=torch.float64)
+    yc, _ = lru_ref.linear_scan_chunked(a, b, chunk=lru_ops.TILE_STEPS)
+    norm = float(y64.norm())
+    out = {"e_k": float((y.double() - y64).norm()) / norm,
+           "e_p": float((yp.double() - y64).norm()) / norm,
+           "max_k": float((y.double() - y64).abs().max()),
+           "max_p": float((yp.double() - y64).abs().max()),
+           "max_y": float(y64.abs().max()),
+           "kernel_vs_plain": float((y - yp).abs().max()),
+           "kernel_vs_chunked_order": float((y - yc).abs().max())}
+    limit = LRU_F64_MARGIN * out["e_p"]
+    print(f"  rg_lru long memory (B=1 S=4096 C=4096, |y| up to "
+          f"{out['max_y']:.1f}): vs float64 e_k {out['e_k']:.3e} (max "
+          f"{out['max_k']:.3e}), e_p {out['e_p']:.3e} (max "
+          f"{out['max_p']:.3e}), e_k / e_p {out['e_k'] / out['e_p']:.3f}, "
+          f"limit {limit:.3e}; kernel vs plain {out['kernel_vs_plain']:.3e} "
+          f"and vs its order in plain PyTorch "
+          f"{out['kernel_vs_chunked_order']:.3e} (measured)")
+    check(out["e_k"] <= limit, f"rg_lru long memory: e_k {out['e_k']} <= "
+                               f"{LRU_F64_MARGIN} e_p {out['e_p']}")
+    return out
+
+
 # the bf16 kernel's tile edges: 128 query rows a block, 64 keys a tile,
 # 64 rows a warpgroup; T != S included
 EDGE_LENGTHS = (15, 63, 64, 65, 127, 128, 129, 191)
@@ -721,6 +831,11 @@ def phase_lm_kernels():
             worst["rg_lru"] = max(worst["rg_lru"], err)
             if (B, S, with_h0) == (1, 4096, False):
                 worst["rg_lru_main"] = err
+        torch.cuda.empty_cache()
+        worst["rg_lru_edges"], worst["rg_lru_edge_cases"] = \
+            _lru_tile_edges(g)
+        worst["rg_lru_repeats"] = _lru_repeats(g)
+        worst["rg_lru_long_memory"] = _lru_long_memory(g)
     torch.cuda.empty_cache()
     return worst
 
@@ -1041,6 +1156,27 @@ def _top_device(prof, n=10):
     return sum(us for us, _, _ in kernels), kernels[:n]
 
 
+# the port's kernels, as the profiler names them (csrc/*.cu)
+PORT_KERNELS = ("rg_lru_scan_kernel", "flash_fwd", "mlstm_", "edge_softmax")
+
+
+def _port_device(prof):
+    """Device time (us) and launches of each of PORT_KERNELS' entries,
+    whatever their rank."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for name in PORT_KERNELS:
+            if name in evt.key:
+                us, count = out.get(name, (0.0, 0))
+                out[name] = (us + evt.self_device_time_total,
+                             count + evt.count)
+    return out
+
+
 def profile_lm(model, params, server, req, host_ops=True):
     """The profiler's top device entries for one 4096-token prefill and
     for four decode steps of all slots. ``host_ops=False`` records the
@@ -1074,13 +1210,20 @@ def profile_lm(model, params, server, req, host_ops=True):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             device_us, top = _top_device(prof)
+            port = _port_device(prof)
             out[name] = {"wall_s": wall, "device_s": device_us / 1e6,
                          "device_idle_share": 1.0 - device_us / 1e6 / wall,
                          "top": [{"name": k[:90], "us": us, "count": c}
-                                 for us, c, k in top]}
+                                 for us, c, k in top],
+                         "port_kernels": {k: {"us": us, "count": c}
+                                          for k, (us, c) in port.items()}}
             print(f"  profiled {name}: {wall * 1e3:.1f} ms wall, "
                   f"{device_us / 1e3:.1f} ms of device activity, idle share "
-                  f"{out[name]['device_idle_share']:.4f}; top device entries:")
+                  f"{out[name]['device_idle_share']:.4f}; the port's kernels: "
+                  + (", ".join(f"{k} {us / 1e3:.3f} ms x{c} "
+                               f"({us / device_us:.2%})"
+                               for k, (us, c) in port.items()) or "none")
+                  + "; top device entries:")
             for us, c, k in top:
                 print(f"    {us:10.1f} us x{c:4d}  {k[:90]}")
     return out
@@ -1093,8 +1236,6 @@ def time_lm_kernels():
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.rg_lru import ops as lru_ops
-    from repro_torch.kernels.rg_lru import ref as lru_ref
 
     g = torch.Generator(device="cuda").manual_seed(3)
     B, H, KH, S, D, W = 1, 16, 1, 4096, 256, 2048
@@ -1151,25 +1292,68 @@ def time_lm_kernels():
           f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} "
           f"bytes of shared memory a block")
     del q, k, v, qt, ke, ve
-    Bl, Sl, C = 1, 4096, 4096
-    a, b, _ = _lru_inputs(g, Bl, Sl, C)
-    with torch.no_grad():
-        ms = cuda_ms(lambda: lru_ops.linear_scan(a, b), 50)
-        plain = cuda_ms(lambda: lru_ref.linear_scan(a, b), 2)
-    nbytes = 3 * a.nbytes + Bl * C * 4  # a, b in; y, h_last out
-    flops = 2 * Bl * Sl * C
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    lru = {"shape": f"B={Bl} S={Sl} C={C} float32, no h0", "ms": ms,
-           "plain_ms": plain, "library_ms": None,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "flops": flops, "bytes": nbytes}
-    print(f"  rg_lru {lru['shape']}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, no library call, bound {lru['bound_ms']:.4f} ms "
-          f"({lru['bound_by']}: {nbytes / 1e6:.1f} MB); "
-          f"{nbytes / ms / 1e9:.2f} TB/s")
-    return {"flash": flash, "rg_lru": lru}
+    torch.cuda.empty_cache()
+    return {"flash": flash, "rg_lru": time_lru(g)}
+
+
+# the RG-LRU scan's timed shapes (B, S) at C = 4096: the main shape (a
+# 4096-token prefill) first, then a short and a ragged prompt and 4 rows
+LRU_TIMED = ((1, 4096), (1, 128), (1, 1000), (4, 4096))
+
+
+def time_lru(g):
+    """The scan at each of LRU_TIMED with its plain version, bound, TB/s
+    and scratch; the kernel's registers and local bytes."""
+    import torch
+
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    C = 4096
+    L, Ct = lru_ops.tile()
+    attrs = lru_ops.attributes()
+    rows = []
+    for B, S in LRU_TIMED:
+        a, b, _ = _lru_inputs(g, B, S, C)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: lru_ops.linear_scan(a, b), 50)
+            # without the wrapper's host time between launches
+            in_graph = graph_ms(lambda: lru_ops.linear_scan(a, b))
+            # a yardstick, not the same function: one PyTorch elementwise
+            # call that moves the same bytes (a, b in, y out)
+            y = torch.empty_like(a)
+            stream = graph_ms(lambda: torch.add(b, a, alpha=0.5, out=y))
+            plain = cuda_ms(lambda: lru_ref.linear_scan(a, b), 2)
+        nbytes = 3 * a.nbytes + B * C * 4  # a, b in; y, h_last out
+        flops = 2 * B * S * C
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        row = {"shape": f"B={B} S={S} C={C} float32, no h0", "ms": ms,
+               "graph_ms": in_graph, "stream_ms": stream, "plain_ms": plain,
+               "library_ms": None,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "flops": flops, "bytes": nbytes,
+               "tb_per_s": nbytes / ms / 1e9,
+               "scratch_bytes": lru_ops.scratch_bytes(B, S, C)}
+        print(f"  rg_lru {row['shape']}: kernel {ms:.4f} ms ({in_graph:.4f} "
+              f"in a CUDA graph; the same bytes through torch.add "
+              f"{stream:.4f}), plain {plain:.4f} ms, no library call, "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB); {row['tb_per_s']:.2f} TB/s, "
+              f"{row['bound_ms'] / ms:.0%} of the bound; scratch "
+              f"{row['scratch_bytes'] / 1e6:.2f} MB")
+        rows.append(row)
+        del a, b, y
+    print(f"  rg_lru kernel: tile {L} steps x {Ct} channels, "
+          f"{attrs['registers']} registers a thread, {attrs['local_bytes']} "
+          f"local bytes, {attrs['static_smem_bytes']} bytes of shared "
+          f"memory a block")
+    check(attrs["local_bytes"] == 0, f"the RG-LRU kernel does not spill: "
+                                     f"{attrs}")
+    return dict(rows[0], design=f"single-pass chunked scan, decoupled "
+                f"look-back, tiles of {L} steps x {Ct} channels",
+                attributes=attrs, by_shape=rows)
 
 
 # ---------------------------------------------------------- the xLSTM slice
@@ -1731,6 +1915,7 @@ def main() -> int:
         "bound_by": lru["bound_by"],
         "library_ms": lru["library_ms"],
         "shape": lru["shape"],
+        "design": lru["design"],
     }, {
         "name": "mlstm_chunkwise",
         "route": "cuda",

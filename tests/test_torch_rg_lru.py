@@ -1,7 +1,12 @@
 """RG-LRU linear scan: the port's plain version against the JAX
 package's Pallas kernel (interpret mode) and its oracle, with and
 without h0, the wrapper's checks, and (on a card) the CUDA kernel
-against the plain version."""
+against the plain version. The kernel's order (chunk aggregates, a
+forward recursion over them, a rescan; ``ref.linear_scan_chunked``) is
+held against the JAX package too, and against float64 on inputs with
+long memory, where two float32 orders round apart."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -155,3 +160,162 @@ def test_cuda_kernel_matches_plain_version(B, S, C, with_h0):
     ye, he = run_port(a, b, h0)
     np.testing.assert_allclose(y, ye, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(h, he, atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------- the kernel's order
+L, CT = ops.TILE_STEPS, ops.TILE_CHANNELS
+# chunk lengths: one step, the kernel's, the whole sequence, and one that
+# leaves a short last chunk at every S below
+CHUNKS = {"one": lambda S: 1, "kernel": lambda S: L, "whole": lambda S: S,
+          "ragged": lambda S: L + 7}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_outputs(B, S, C, b_dtype, with_h0):
+    """The JAX Pallas kernel's (interpret mode) and oracle's (y, h_last)
+    on make_inputs(B, S, C), as numpy."""
+    a, b, h0 = make_inputs(B, S, C, b_dtype=b_dtype)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    if with_h0:
+        outs = {"interpret": _jax_interpret(ja, jb, jnp.asarray(h0)),
+                "ref": _jax_ref(ja, jb, jnp.asarray(h0))}
+    else:
+        outs = {"interpret": _jax_interpret_no_h0(ja, jb),
+                "ref": _jax_ref_no_h0(ja, jb)}
+    return {k: tuple(np.asarray(x) for x in v) for k, v in outs.items()}
+
+
+@pytest.mark.parametrize("B,S,C", [(2, 64, 128), (1, 256, 512),
+                                   (3, 128, 256), (1, 512, 128)])
+@pytest.mark.parametrize("b_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("chunk", sorted(CHUNKS))
+def test_chunked_order_matches_jax_kernel_and_oracle(B, S, C, b_dtype,
+                                                     with_h0, chunk):
+    a, b, h0 = make_inputs(B, S, C, b_dtype=b_dtype)
+    args = [torch.from_numpy(a), torch.from_numpy(b),
+            torch.from_numpy(h0) if with_h0 else None]
+    y, h = ref.linear_scan_chunked(*args, chunk=CHUNKS[chunk](S))
+    for name, (ye, he) in _jax_outputs(B, S, C, b_dtype, with_h0).items():
+        np.testing.assert_allclose(y.numpy(), ye, atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(h.numpy(), he, atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,S,C", [(1, 1, 64), (2, 257, 96), (4, 100, 33),
+                                   (1, 700, 8)])
+@pytest.mark.parametrize("with_h0", [True, False])
+@pytest.mark.parametrize("chunk", ["kernel", "ragged"])
+def test_chunked_order_matches_jax_oracle_any_length(B, S, C, with_h0,
+                                                     chunk):
+    a, b, h0 = make_inputs(B, S, C, seed=1)
+    h0 = h0 if with_h0 else None
+    y, h = ref.linear_scan_chunked(
+        *(None if x is None else torch.from_numpy(x) for x in (a, b, h0)),
+        chunk=CHUNKS[chunk](S))
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    ye, he = (_jax_ref_no_h0(ja, jb) if h0 is None
+              else _jax_ref(ja, jb, jnp.asarray(h0)))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ye), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(he), atol=ATOL,
+                               rtol=RTOL)
+    assert torch.equal(h, y[:, -1])
+
+
+def test_float64_plain_version_matches_numpy():
+    a, b, h0 = make_inputs(2, 40, 24, seed=3)
+    y, h = ref.linear_scan(torch.from_numpy(a), torch.from_numpy(b),
+                           torch.from_numpy(h0), dtype=torch.float64)
+    assert y.dtype == h.dtype == torch.float64
+    expect = h0.astype(np.float64)
+    for t in range(a.shape[1]):
+        expect = a[:, t].astype(np.float64) * expect + b[:, t]
+        np.testing.assert_array_equal(y[:, t].numpy(), expect)
+    np.testing.assert_array_equal(h.numpy(), expect)
+
+
+# Long memory: a fixed per channel in (0.9, 0.9999) raised to sigmoid of
+# a normal draw per step (as the RG-LRU's a^(c r_t)), b normal and not
+# scaled by sqrt(1 - a^2): |y| reaches about 100, and the sequential and
+# chunked float32 orders each sit some 5e-7 (relative L2) from float64,
+# apart from each other by as much. So the kernel's order is held against
+# float64: its relative L2 distance e_k at most LONG_MEMORY_MARGIN times
+# the sequential float32 order's e_p. Measured at C = 512, S = 4096,
+# chunks of 32: e_k / e_p from 0.45 to 1.26 over seeds 0-11 (1.20 at seed
+# 2 below); at C = 4096, 0.78 to 1.04 over seeds 0-2. chip_smoke.py holds
+# the CUDA kernel to the same rule.
+LONG_MEMORY_MARGIN = 1.5
+
+
+def long_memory_inputs(B, S, C, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.9, 0.9999, (1, 1, C))
+    z = rng.standard_normal((B, S, C))
+    a = (base ** (1 / (1 + np.exp(-z)))).astype(np.float32)
+    b = rng.standard_normal((B, S, C)).astype(np.float32)
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+def rel_l2(x, ref64):
+    return float((x.double() - ref64).norm() / ref64.norm())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_chunked_order_long_memory_vs_float64(seed):
+    a, b = long_memory_inputs(1, 4096, 512, seed)
+    y64, h64 = ref.linear_scan(a, b, dtype=torch.float64)
+    y32, _ = ref.linear_scan(a, b)
+    yk, hk = ref.linear_scan_chunked(a, b, chunk=L)
+    assert float(y64.abs().max()) > 50  # the memory is long
+    e_p, e_k = rel_l2(y32, y64), rel_l2(yk, y64)
+    assert e_k <= LONG_MEMORY_MARGIN * e_p, (e_k, e_p)
+    # an elementwise comparison of the two float32 orders is no gate here
+    assert float((yk - y32).abs().max()) > 3e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, L - 1, L, L + 1, 2 * L + 1, 4097])
+@pytest.mark.parametrize("C", [1, 33, CT - 1, CT, CT + 1, 4096])
+def test_cuda_kernel_tile_edges(S, C):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for B, with_h0 in ((1, True), (1, False), (3, True), (3, False)):
+        a, b, h0 = make_inputs(B, S, C, seed=4)
+        h0 = h0 if with_h0 else None
+        y, h = run_port(a, b, h0, device="cuda")
+        ye, he = run_port(a, b, h0)
+        np.testing.assert_allclose(y, ye, atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(h, he, atol=2e-5, rtol=2e-5)
+        np.testing.assert_array_equal(h, y[:, -1])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_is_bit_identical_from_launch_to_launch():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.rand(4, 4096, 4096, generator=g, device="cuda") * 0.5 + 0.5
+    b = torch.randn(4, 4096, 4096, generator=g, device="cuda")
+    with torch.no_grad():
+        y0, h0 = ops.linear_scan(a, b)
+        for _ in range(19):
+            y, h = ops.linear_scan(a, b)
+            assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_runs_in_the_chunked_order():
+    """The kernel against its order in plain PyTorch, on the card: equal
+    but for fmaf ties that the plain version's float64 rounds twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert ops.tile() == (L, CT)
+    a, b = (x.cuda() for x in long_memory_inputs(2, 1000, 300, 6))
+    h0 = torch.randn(2, 300, device="cuda")
+    with torch.no_grad():
+        y, h = ops.linear_scan(a, b, h0)
+    ye, he = ref.linear_scan_chunked(a, b, h0, chunk=L)
+    torch.testing.assert_close(y, ye, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(h, he, atol=1e-6, rtol=1e-6)
