@@ -1,19 +1,27 @@
 """Perona model: autoencoder + graph aggregation + heads (paper §III-C).
 
-The PyTorch counterpart of ``repro/core/model.py``, forward in eval
-mode. enc/dec follow the Bellamy-style MLP design with a sigmoid
-decoder head; ``agg`` averages two graph transforms — a
-TransformerConv-style edge attention (the edge-softmax CUDA kernel on
-the card) and a TAGConv-style hop propagation — followed by SELU and a
-final linear transform with a root skip. The anomaly head scores
-sigma(f1(v_agg - v)); a linear probe predicts the benchmark type.
+The PyTorch counterpart of ``repro/core/model.py``. enc/dec follow the
+Bellamy-style MLP design with a sigmoid decoder head; ``agg`` averages
+two graph transforms — a TransformerConv-style edge attention (the
+edge-softmax CUDA kernels on the card, forward and backward) and a
+TAGConv-style hop propagation — preceded by edge dropout and followed
+by SELU, alpha dropout and a final linear transform with a root skip.
+The anomaly head scores sigma(f1(v_agg - v)); a linear probe predicts
+the benchmark type. :meth:`PeronaModel.loss` adds the five objectives
+of ``core.losses``.
 
 Parameters keep the reference tree's names and shapes (``enc``,
 ``dec``, ``wq``/``wk``/``wv``, ``we_k``/``we_v``, ``tag[i]``, ``root``,
 ``out``, ``f1``, ``cls``; each linear ``{"w": (d_in, d_out), "b"}``),
 so ``state_dict`` keys are the reference's slash-joined paths with dots
-(``core.params`` carries a reference tree across). Dropout belongs to
-training and is not part of this forward.
+(``core.params`` carries a reference tree across).
+
+Training mode is the ``train`` argument of :meth:`PeronaModel.forward`,
+as in the reference (``nn.Module.training`` is not read). Its three
+dropouts draw from an explicit ``torch.Generator`` in the reference's
+order: feature dropout on x, edge dropout on the mask, alpha dropout
+after the first SELU. Training with no generator applies none, as the
+reference's ``rng=None`` does. The draws are not ``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import losses as L
 from repro_torch.kernels.edge_softmax import ops as edge_softmax
 from repro_torch.models.nn import Linear
 
@@ -32,8 +41,7 @@ from repro_torch.models.nn import Linear
 @dataclasses.dataclass(frozen=True)
 class PeronaConfig:
     """The fields and defaults of ``repro.core.model.PeronaConfig``, so a
-    configuration crosses between the packages unchanged. The dropout
-    rates and loss fields serve training. ``gnn_impl`` selects the JAX
+    configuration crosses between the packages unchanged. ``gnn_impl`` selects the JAX
     package's aggregation; the port always goes through the kernel
     wrapper, which launches the CUDA kernel for tensors on the card and
     takes the plain version for tensors on the CPU."""
@@ -71,6 +79,38 @@ def _run_mlp(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
         if i + 1 < len(layers):
             x = F.selu(x)
     return x
+
+
+#: SELU's negative saturation, the value alpha dropout drops to
+ALPHA_P = -1.7580993408473766
+
+
+def _keep(shape, rate, generator, device):
+    """Bernoulli(1 - rate) keep mask, as ``jax.random.bernoulli``: a
+    uniform draw below the keep probability."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u < 1.0 - rate
+
+
+def drop_features(x, rate, generator):
+    """Inverted dropout: ``x * keep / (1 - rate)``."""
+    return x * _keep(x.shape, rate, generator, x.device) / (1.0 - rate)
+
+
+def drop_edges(mask, rate, generator):
+    """Drops each edge of the (N, P) validity mask with ``rate``."""
+    return mask & _keep(mask.shape, rate, generator, mask.device)
+
+
+def alpha_dropout(x, rate: float, generator):
+    """SELU-preserving alpha dropout: a dropped unit takes SELU's
+    saturation ``ALPHA_P``, then an affine map restores a zero-mean,
+    unit-variance input's moments."""
+    keep = _keep(x.shape, rate, generator, x.device)
+    q = 1.0 - rate
+    a = (q + ALPHA_P ** 2 * q * (1 - q)) ** -0.5
+    b = -a * ALPHA_P * (1 - q)
+    return a * torch.where(keep, x, ALPHA_P) + b
 
 
 def _gather_neighbors(codes, nbr):
@@ -131,33 +171,96 @@ class PeronaModel(nn.Module):
             out = out + self.tag[hop](x)
         return out
 
-    def aggregate(self, codes, nbr, mask, edge):
-        """The paper's agg in eval mode: mean(TransformerConv, TAGConv)
-        -> SELU -> linear (+root skip) -> SELU."""
+    def aggregate(self, codes, nbr, mask, edge, *, generator=None,
+                  train: bool = False, edge_dropout=None):
+        """The paper's agg: edge dropout -> mean(TransformerConv,
+        TAGConv) -> SELU -> alpha dropout -> linear (+root skip) -> SELU.
+
+        ``edge_dropout`` optionally overrides ``cfg.edge_dropout`` (a
+        float or a 0-d tensor); when given, dropout is always applied.
+        """
+        cfg = self.cfg
+        drop = train and generator is not None
+        if drop and (edge_dropout is not None or cfg.edge_dropout > 0):
+            rate = cfg.edge_dropout if edge_dropout is None else edge_dropout
+            mask = drop_edges(mask, rate, generator)
         t_out = self._transformer_conv(codes, nbr, mask, edge)
         g_out = self._tag_conv(codes, nbr, mask)
         out = F.selu(0.5 * (t_out + g_out))
+        if drop and cfg.alpha_dropout > 0:
+            out = alpha_dropout(out, cfg.alpha_dropout, generator)
         out = self.out(out)
         if self.cfg.use_root_weight:
             out = out + self.root(codes)
         return F.selu(out)
 
     # ------------------------------------------------------------ model
-    def forward(self, batch: Dict[str, torch.Tensor]
+    def forward(self, batch: Dict[str, torch.Tensor], *,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False, hypers: Optional[Dict] = None
                 ) -> Dict[str, torch.Tensor]:
         """batch: dict with x (N,F'), nbr (N,P) int, nbr_mask (N,P) bool,
         edge (N,P,A). Returns dict(codes, recon, agg, anom_logit,
-        type_logits)."""
-        if self.training:
-            raise NotImplementedError(
-                "PeronaModel has an eval-mode forward only (no dropout); "
-                "call .eval() first")
+        type_logits).
+
+        With ``train`` and a ``generator`` the dropouts are drawn from
+        it. ``hypers`` optionally carries scalar hyperparameters
+        (``feature_dropout``, ``edge_dropout``; floats or 0-d tensors)
+        overriding the config's; a dropout named there is always
+        applied, so the draws follow the static path for positive
+        static rates (``repro/core/model.py:178-205``).
+        """
+        hypers = hypers or {}
+        cfg = self.cfg
         x = batch["x"]
+        if train and generator is not None and (
+                "feature_dropout" in hypers or cfg.feature_dropout > 0):
+            x = drop_features(
+                x, hypers.get("feature_dropout", cfg.feature_dropout),
+                generator)
         codes = _run_mlp(self.enc, x)
         recon = torch.sigmoid(_run_mlp(self.dec, codes))
         agg = self.aggregate(codes, batch["nbr"], batch["nbr_mask"],
-                             batch["edge"])
+                             batch["edge"], generator=generator,
+                             train=train,
+                             edge_dropout=hypers.get("edge_dropout"))
         anom_logit = _run_mlp(self.f1, agg - codes)[:, 0]
         type_logits = self.cls(codes)
         return {"codes": codes, "recon": recon, "agg": agg,
                 "anom_logit": anom_logit, "type_logits": type_logits}
+
+    def loss(self, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             hypers: Optional[Dict] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total, {mse, cbfl, cel, tml, mrl}) of the training-mode
+        forward. batch adds type_id, anomaly and norm_gt (N,) and an
+        optional ``valid`` (N,) float weight (ones when absent);
+        ``hypers`` may also carry ``cbfl_gamma`` and ``cbfl_beta``."""
+        hypers = hypers or {}
+        cfg = self.cfg
+        out = self.forward(batch, generator=generator, train=True,
+                           hypers=hypers)
+        x = batch["x"]
+        valid = batch.get("valid")
+        if valid is None:
+            valid = torch.ones(x.shape[0], dtype=torch.float32,
+                               device=x.device)
+        w = cfg.loss_weights
+        mse = L.mse_loss(out["recon"], x, valid)
+        cbfl = L.class_balanced_focal_loss(
+            out["anom_logit"], batch["anomaly"], valid,
+            gamma=hypers.get("cbfl_gamma", cfg.cbfl_gamma),
+            beta=hypers.get("cbfl_beta", cfg.cbfl_beta))
+        cel = L.cross_entropy_loss(out["type_logits"], batch["type_id"],
+                                   valid)
+        tml = L.triplet_margin_loss(out["codes"], batch["type_id"], valid,
+                                    margin=cfg.tml_margin)
+        mrl = L.margin_ranking_loss(
+            out["codes"], batch["norm_gt"], batch["type_id"],
+            batch["anomaly"], valid, p=cfg.p_norm, margin=cfg.mrl_margin,
+            anom_margin=cfg.anom_margin)
+        total = (w[0] * mse + w[1] * cbfl + w[2] * cel + w[3] * tml
+                 + w[4] * mrl)
+        return total, {"mse": mse, "cbfl": cbfl, "cel": cel, "tml": tml,
+                       "mrl": mrl}

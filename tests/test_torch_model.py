@@ -77,10 +77,29 @@ def test_state_dict_names_are_the_reference_paths():
         params_from_numpy(params)).items()} == jpaths
 
 
-def test_training_forward_is_not_part_of_this_model():
-    model = PeronaModel(PeronaConfig(feature_dim=20, edge_dim=7))
-    with pytest.raises(NotImplementedError, match="eval"):
-        model({k: torch.from_numpy(v) for k, v in small_batch().items()})
+@pytest.mark.parametrize("heads", [1, 4])
+def test_training_forward_matches_jax_at_dropout_0(heads):
+    """The training-mode forward (which took the place of the eval-only
+    model's refusal) against the reference's ``forward(train=True)`` at
+    dropout 0, with a generator and a key given."""
+    N, F, A = 40, 20, 7
+    jcfg = jmodel.PeronaConfig(feature_dim=F, edge_dim=A, heads=heads,
+                               feature_dropout=0.0, edge_dropout=0.0,
+                               alpha_dropout=0.0)
+    jm = jmodel.PeronaModel(jcfg)
+    params = jm.init(jax.random.PRNGKey(1))
+    batch = small_batch(N, F, A)
+    ref = jm.forward(params, {k: jax.numpy.asarray(v)
+                              for k, v in batch.items()},
+                     rng=jax.random.PRNGKey(2), train=True)
+    model = PeronaModel(PeronaConfig(**dataclasses.asdict(jcfg)))
+    model.load_state_dict(flat_params(params_from_numpy(jax_tree(params))))
+    with torch.no_grad():
+        out = model({k: torch.from_numpy(v) for k, v in batch.items()},
+                    train=True, generator=torch.Generator().manual_seed(2))
+    for key in OUT_KEYS:
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]),
+                                   atol=2e-5, err_msg=key)
 
 
 def test_load_npz_reads_reference_checkpoints(tmp_path):
