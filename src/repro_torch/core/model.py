@@ -41,10 +41,10 @@ from repro_torch.models.nn import Linear
 @dataclasses.dataclass(frozen=True)
 class PeronaConfig:
     """The fields and defaults of ``repro.core.model.PeronaConfig``, so a
-    configuration crosses between the packages unchanged. ``gnn_impl`` selects the JAX
-    package's aggregation; the port always goes through the kernel
-    wrapper, which launches the CUDA kernel for tensors on the card and
-    takes the plain version for tensors on the CPU."""
+    configuration crosses between the packages unchanged. ``gnn_impl``
+    selects the JAX package's aggregation; the port always goes through
+    the kernel wrapper, which launches the CUDA kernels for tensors on
+    the card and takes the plain versions for tensors on the CPU."""
 
     feature_dim: int  # F' (selected metrics + one-hot types)
     edge_dim: int  # A
