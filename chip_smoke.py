@@ -2169,7 +2169,11 @@ def phase_train_runs(golden, tb, vb):
           + " ".join(f"{x:.1e}" for x in errs["block_rel"])
           + f" (limits {' '.join(f'{x:g}' for x in TRAIN_LOSS_RTOL)}); val "
           f"F1 {errs['f1_abs']:.3e} (atol {TRAIN_F1_ATOL:g}); best epoch "
-          f"{errs['best_epoch']}, its key's F1 and loss "
+          f"{errs['best_epoch']}"
+          + ("" if errs["best_epoch"][0] == errs["best_epoch"][1] else
+             " (they differ: a near tie, so the two candidates' keys are "
+             "compared and the parameters are not)")
+          + f", its key's F1 and loss "
           f"{errs['key_diff'][0]:.2e} / {errs['key_diff'][1]:.2e}; selected "
           f"parameters rel L2 {errs.get('params_rel', float('nan')):.2e} "
           f"(tol {TRAIN_PARAMS_RTOL:g}; largest leaf "
