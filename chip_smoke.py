@@ -195,7 +195,7 @@ TRAIN_STEP_ATOL = 1e-5
 # reference trainer's history (golden). Rounding differences grow about
 # 2-3x every 10 epochs, so the losses are held per block of 10 epochs, at
 # about three times the largest relative error measured in that block
-# over eight CPU runs of the port and JAX's own scanned trainer (PERF.md
+# over sixteen CPU runs of the port and JAX's own scanned trainer (PERF.md
 # §6: tools/train_tolerance.py), rounded up to 1, 2 or 5 and never
 # below 1e-4 (the first epochs' bar); validation F1 and the selected
 # parameters (relative L2 over all leaves but the key biases) the same
