@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Four paths are driven: Perona's scoring
+outputs, and time its kernels. Five paths are driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
-width (chunkwise mLSTM kernel) and Perona's training (the edge-softmax
-forward and backward kernels).
+width (chunkwise mLSTM kernel), Perona's host-loop training and its
+device-resident training with the HPO and the train-then-rank entry
+points (the edge-softmax forward and backward kernels).
 
     python3 chip_smoke.py
 
@@ -15,8 +16,8 @@ Phases, each printing on lines of its own:
 1. build: the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, one
    process per source, all started together;
 2. the edge-softmax kernel against its plain PyTorch version on the
-   card, at the main path's shapes, ragged N, single heads and fully
-   masked rows;
+   card, at the main path's shapes ((H, hd) (4, 8), and the HPO's (2, 16)
+   and (8, 4)), ragged N, single heads and fully masked rows;
 3. the scoring engine on the §IV-C acquisition (1800 rows, bucket 2048)
    against the JAX engine's outputs stored in the golden file;
 4. the watchdog at fleet size (512 nodes, 196,608 rows of history,
@@ -47,8 +48,9 @@ Phases, each printing on lines of its own:
    per bucket; the flash and RG-LRU kernels at the full-width prefill
    shapes with their plain versions, library call and bounds (flash:
    the bf16 tensor-core kernel with its TFLOP/s, registers and shared
-   memory, and the float32 route's CUDA-core kernel at the same shape;
-   RG-LRU: also at B=1 S 128/1000 and B=4 S=4096, back to back and in a
+   memory, and the float32 route's CUDA-core kernel at the same shape
+   with its own bound at the float32 rate and SDPA on the float32
+   problem; RG-LRU: also at B=1 S 128/1000 and B=4 S=4096, back to back and in a
    CUDA graph, beside one torch.add that moves the same bytes, with its
    registers and scratch);
 9. the chunkwise mLSTM kernel against its plain version on the card
@@ -62,7 +64,7 @@ Phases, each printing on lines of its own:
    (the tensor-core route: TFLOP/s, each pass's time from the profiler,
    registers, shared memory, scratch), its plain version, its bound (no
    single PyTorch call computes it) and the float32 route at the same
-   shape;
+   shape with its own bound at the float32 rate;
 11. a small xLSTM (float32) against the JAX package's prefill and decode
    logits and served tokens (golden file, a 512-token prompt among them);
 12. xlstm-1.3b at full width (bf16, seed-0 weights drawn on the card,
@@ -84,7 +86,8 @@ Phases, each printing on lines of its own:
 14. Perona training on the §IV-C batch (1080 train and 360 validation
    nodes, F'=95, P=3, A=12; the paper's width): (a) the edge-softmax
    backward kernel against its plain version, N 1/7/130/2048/262144, P
-   1/3/8, (H, hd) (1, 32)/(4, 8)/(2, 64)/(1, 128), float32 and bf16,
+   1/3/8, (H, hd) (1, 32)/(2, 16)/(4, 8)/(8, 4)/(2, 64)/(1, 128), float32
+   and bf16,
    with and without an att cotangent; fully masked rows give 0, N=0 no
    launch, 5 launches bit for bit; (b) at the training golden file's
    initial parameters and dropout 0: the five loss terms and the total,
@@ -100,6 +103,26 @@ Phases, each printing on lines of its own:
    and SDPA's backward on the forward's library problem, and the
    profiler's view of 10 training epochs (epoch time, busy and idle
    share).
+15. Perona's device-resident trainer (``train_perona``: the epoch
+   captured once as a CUDA graph and replayed): (a) the forward and
+   backward kernels against their plain versions at the HPO's (H, hd)
+   (1, 32)/(2, 16)/(4, 8)/(8, 4), N 360/1080/262144, P=3, float32 and
+   bf16; (b) at dropout 0 over the golden's 80 epochs against the JAX
+   scanned trainer's history (losses per block and parameters at [14c]'s
+   limits, F1 at its own measured limit), replays under
+   ``set_sync_debug_mode("error")``, the second run on the cached graph
+   bit for bit, and whether it equals the host loop bit for bit
+   (printed); (c) the default-dropout recipe, 80 epochs: losses finite
+   and falling, two runs of one seed identical and two seeds apart, F1
+   and type accuracy beside the golden's, the epoch's time beside the
+   host loop's, and the graph's nodes, replay time and profiled busy
+   and idle share; (d) the HPO: the dropout-0 space at 8 trials x 60
+   epochs against the host-loop search (trial F1 and validation loss,
+   the best trial's history), one capture a bucket, then the default
+   space at the reference's 100 trials x 60 epochs (wall time,
+   buckets, captures, the best trial); (e) ``fingerprint_cluster`` on 4
+   n2-standard-4 hosts and ``fingerprint_machine_scores`` on the 9
+   scout machine types at 10 runs a type: times and rankings.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -176,7 +199,7 @@ REPORT = ROOT / "build" / "chip_smoke_report.json"
 # launch-to-launch check.
 BWD_N = (1, 7, 130, 2048, 262144)
 BWD_P = (1, 3, 8)
-BWD_HEADS = ((1, 32), (4, 8), (2, 64), (1, 128))
+BWD_HEADS = ((1, 32), (2, 16), (4, 8), (8, 4), (2, 64), (1, 128))
 BWD_MAIN = (262144, 4, 8, 3)
 BWD_REPEATS = 5
 # At fixed parameters (the training golden file's, dropout 0), card vs
@@ -205,11 +228,41 @@ TRAIN_EPOCH_BLOCK = 10
 TRAIN_LOSS_RTOL = (1e-4, 1e-4, 1e-4, 5e-4, 2e-3, 5e-3, 2e-2, 5e-2)
 TRAIN_F1_ATOL = 5e-2
 TRAIN_PARAMS_RTOL = 1e-2
+# The graphed train_perona against the JAX scanned trainer's history
+# ([15b]) keeps the limits above for the losses and the parameters: over
+# sixteen CPU runs of the port's train_perona (tools/train_tolerance.py
+# --trainer scan) they reached 0.32 and 0.27 of them. Validation F1 moved
+# by up to 2.49e-2 there (two flipped predictions of 360), half of
+# TRAIN_F1_ATOL, so its limit is set anew at about three times that.
+TRAIN_SCAN_F1_ATOL = 1e-1
+
+# Perona's graphed trainer, the HPO and the ranking (phase [15]). The
+# HPO's head counts (repro/tuning/hpo.py:38) at code width 32 give the
+# edge-softmax kernels these (H, hd); they run at the training batch's N
+# (1080 and 360) and at the fleet bucket's.
+HPO_HEADS = ((1, 32), (2, 16), (4, 8), (8, 4))
+HPO_N = (360, 1080, 262144)
+HPO_CHECK_TRIALS, HPO_CHECK_EPOCHS = 8, 60  # the dropout-0 space
+# the reference's defaults (repro/tuning/hpo.py:153-155)
+HPO_TRIALS, HPO_EPOCHS = 100, 60
+# repro/launch/train.py:91: the LM training entry point's cluster
+CLUSTER = {f"host-{i}": "n2-standard-4" for i in range(4)}
+# benchmarks/bench_tuning.py's machine types (repro/tuning/scout.py:37-42)
+SCOUT_VM_TYPES = ("m4.large", "m4.xlarge", "m4.2xlarge", "c4.large",
+                  "c4.xlarge", "c4.2xlarge", "r4.large", "r4.xlarge",
+                  "r4.2xlarge")
+MACHINE_RUNS, MACHINE_EPOCHS = 10, 60
 
 FLEET_NODES = 512
 FLEET_HISTORY = 64  # runs per (node x benchmark type) chain
 FLEET_ROUNDS = 3
 DEGRADED = ("node-007", "node-100", "node-256", "node-511")
+
+def f32_bound_ms(flops, nbytes):
+    """The least time of a float32 route: its operations at the float32
+    rate outside the tensor cores, or its bytes, whichever is longer."""
+    return max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -320,8 +373,11 @@ def phase_kernels():
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for N in (2048, 262144, 0, 1, 129, 513, 1800):
-            cases.append((f"N={N} H=4 hd=8 P=3", N, 4, 8, 3, dtype, False))
+        for (H, hd), N in itertools.product(
+                ((4, 8), (2, 16), (8, 4)),
+                (2048, 262144, 0, 1, 129, 513, 1800)):
+            cases.append((f"N={N} H={H} hd={hd} P=3", N, H, hd, 3, dtype,
+                          False))
         for hd in (8, 16, 32, 128):
             for P in (3, 5):
                 cases.append((f"single head N=2048 hd={hd} P={P}", 2048, 1,
@@ -1304,16 +1360,24 @@ def time_lm_kernels():
         qf, kf, vf = (t.float() for t in (q, k, v))
         f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf,
                                                         window=W), 5)
-        del qf, kf, vf
         # one library call of the same function: SDPA with a boolean
         # causal + window mask, in its own layout (B, H, S, D), with k/v
         # expanded to the 16 query heads; the copies are not timed
         pos = torch.arange(S, device="cuda")
         rel = pos[:, None] - pos[None, :]
         mask = (rel >= 0) & (rel < W)
-        qt = q.transpose(1, 2).contiguous()
-        ke, ve = (t.transpose(1, 2).contiguous().expand(B, H, S, D)
-                  for t in (k, v))
+
+        def sdpa_args(q, k, v):
+            return (q.transpose(1, 2).contiguous(),
+                    *(t.transpose(1, 2).contiguous().expand(B, H, S, D)
+                      for t in (k, v)))
+
+        # the same on the float32 route's problem
+        f32_args = sdpa_args(qf, kf, vf)
+        f32_library = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *f32_args, attn_mask=mask), 5)
+        del qf, kf, vf, f32_args
+        qt, ke, ve = sdpa_args(q, k, v)
         library = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, ke, ve, attn_mask=mask), 5)
         lib_err = float((F.scaled_dot_product_attention(
@@ -1326,6 +1390,7 @@ def time_lm_kernels():
     nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    f32_bound = f32_bound_ms(flops, 2 * nbytes)
     attrs = fa_ops.tensor_core_attributes(D)
     flash = {"shape": f"B={B} H={H} KH={KH} S={S} D={D} window={W} "
                       f"bfloat16", "ms": ms, "plain_ms": plain,
@@ -1334,6 +1399,7 @@ def time_lm_kernels():
              "flops": flops, "bytes": nbytes, "pairs_per_head": pairs,
              "tflop_per_s": flops / ms / 1e9, "f32_ms": f32_ms,
              "f32_tflop_per_s": flops / f32_ms / 1e9,
+             "f32_bound_ms": f32_bound, "f32_library_ms": f32_library,
              "design": fa_ops.route(q.dtype, D), "attributes": attrs,
              "library_vs_kernel": lib_err}
     print(f"  flash {flash['shape']}: kernel ({flash['design']}) {ms:.4f} "
@@ -1343,7 +1409,10 @@ def time_lm_kernels():
           f"{flash['tflop_per_s']:.1f} TFLOP/s; SDPA vs kernel "
           f"{lib_err:.2e}")
     print(f"  flash float32 route (cuda_core) at the same shape: "
-          f"{f32_ms:.4f} ms, {flash['f32_tflop_per_s']:.1f} TFLOP/s")
+          f"{f32_ms:.4f} ms, {flash['f32_tflop_per_s']:.1f} TFLOP/s; its "
+          f"own bound {f32_bound:.4f} ms (operations at the float32 rate, "
+          f"{F32_FLOP_PER_S / 1e12:g} TFLOP/s); SDPA on the float32 problem "
+          f"{f32_library:.4f} ms")
     print(f"  flash bfloat16 kernel at D={D}: {attrs['registers']} registers "
           f"a thread, {attrs['local_bytes']} local bytes, "
           f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} "
@@ -1830,6 +1899,8 @@ def time_mlstm():
               + B * H * (hd * hd + hd + 1) * 4)  # C, n, m out
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    # the float32 route: q, k, v and h at four bytes a value
+    f32_bound = f32_bound_ms(flops, nbytes + 4 * q.nbytes)
     attrs = {kind: ops.tensor_core_attributes(kind)
              for kind in ops.TENSOR_CORE_KERNELS}
     scratch = {name: ops.scratch_bytes(B, H, S, hd, L, dt) for name, dt in
@@ -1843,7 +1914,7 @@ def time_mlstm():
            "passes_ms": passes, "attributes": attrs,
            "scratch_bytes": scratch, "f32_ms": f32_ms,
            "f32_tflop_per_s": flops / f32_ms / 1e9,
-           "f32_passes_ms": f32_passes}
+           "f32_bound_ms": f32_bound, "f32_passes_ms": f32_passes}
     print(f"  mlstm {row['shape']}: kernel ({row['design']}) {ms:.4f} ms, "
           f"plain {plain:.4f} ms, no library call, bound "
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
@@ -1859,7 +1930,9 @@ def time_mlstm():
     print(f"  mlstm scratch a call: bf16 route {scratch['bfloat16'] / 1e6:.1f}"
           f" MB, float32 route {scratch['float32'] / 1e6:.1f} MB")
     print(f"  mlstm float32 route ({ops.route(qf.dtype)}) at the same shape: "
-          f"{f32_ms:.4f} ms, {row['f32_tflop_per_s']:.1f} TFLOP/s; passes "
+          f"{f32_ms:.4f} ms, {row['f32_tflop_per_s']:.1f} TFLOP/s, its own "
+          f"bound {f32_bound:.4f} ms (operations at the float32 rate, "
+          f"{F32_FLOP_PER_S / 1e12:g} TFLOP/s); passes "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in f32_passes.items()))
     check(all(a["local_bytes"] == 0 for a in attrs.values()),
           f"the tensor-core mLSTM kernels do not spill: {attrs}")
@@ -2007,13 +2080,13 @@ def run_errors(run, ref):
     return out
 
 
-def check_run(errs, label):
+def check_run(errs, label, f1_atol=TRAIN_F1_ATOL):
     check(errs["epochs"][0] == errs["epochs"][1], f"{label} epochs run")
     check(errs["loss_share"] <= 1.0, f"{label} losses")
-    check(errs["f1_abs"] <= TRAIN_F1_ATOL, f"{label} validation F1")
+    check(errs["f1_abs"] <= f1_atol, f"{label} validation F1")
     # a best epoch may move through a near tie: then the two candidates'
     # (f1, -val loss) keys are compared, not the epochs
-    check(errs["key_diff"][0] <= TRAIN_F1_ATOL, f"{label} best key's F1")
+    check(errs["key_diff"][0] <= f1_atol, f"{label} best key's F1")
     check(errs["key_diff"][1] <= loss_rtol(errs["best_epoch"][1]),
           f"{label} best key's loss")
     if "params_rel" in errs:
@@ -2161,6 +2234,7 @@ def phase_train_runs(golden, tb, vb):
     errs = run_errors(run_of(res), golden.ref)
     scan = run_errors(golden.scan, golden.ref)
     out["dropout0"] = {"port_vs_ref": errs, "jax_scan_vs_ref": scan}
+    out["dropout0_run"] = run_of(res)  # for [15b]; not in the report
     print(f"  c. train_perona_reference at dropout 0, {m['epochs']} epochs "
           f"on the card in {out['dropout0_s']:.2f} s, vs the JAX reference "
           f"trainer (golden): epochs {errs['epochs']}; losses' max rel "
@@ -2314,6 +2388,389 @@ def phase_train_timing(golden, tb, vb):
     return bwd, profile_training(golden, tb, vb)
 
 
+# ------------------------------------- Perona's device-resident trainer
+def phase_graph_kernels():
+    """[15a] the forward and backward kernels against their plain
+    versions at the HPO's head shapes."""
+    import torch
+
+    from repro_torch.kernels.edge_softmax import ops, ref
+
+    print("[15] Perona's device-resident trainer (a CUDA graph of the "
+          "epoch), the HPO and train-then-rank")
+    print("  a. edge_softmax forward and backward at the HPO's (H, hd), "
+          "P=3, kernel vs plain version (forward: max abs error; backward: "
+          "max |k - p| / (1 + |p|))")
+    g = torch.Generator(device="cuda").manual_seed(15)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = TOL[name]
+        for (H, hd), N in itertools.product(HPO_HEADS, HPO_N):
+            args, blank, mask = _bwd_inputs(g, N, H, hd, 3, dtype, False)
+            q, k, v = args[:3]
+            scale = 1.0 / hd ** 0.5
+            with torch.no_grad():
+                out, att = ops._launch(q, k, v, mask, scale)
+                oe, ae = ref.edge_softmax_aggregate(q, k, v, mask, scale)
+            got = ops._launch_bwd(*args, scale)
+            want = ref.edge_softmax_backward(*args, scale)
+            torch.cuda.synchronize()
+            fwd = max(float((out.float() - oe.float()).abs().max()),
+                      float((att - ae).abs().max()))
+            bwd = max(float(((a.float() - b.float()).abs()
+                             / (1 + b.float().abs())).max())
+                      for a, b in zip(got, want))
+            zero = all(float(t[blank].float().abs().max()) == 0.0
+                       for t in (out, att, *got))
+            label = f"N={N} H={H} hd={hd} P=3 {name}"
+            check(fwd <= tol, f"forward kernel vs plain, {label}: {fwd}")
+            check(bwd <= tol, f"backward kernel vs plain, {label}: {bwd}")
+            check(zero, f"fully masked rows give 0, {label}")
+            key = f"H={H} hd={hd} {name}"
+            w = worst.get(key, (0.0, 0.0))
+            worst[key] = (max(w[0], fwd), max(w[1], bwd))
+        print(f"  {name} (tol {tol:g}), worst over N {HPO_N}: " + "; ".join(
+            f"{k.rsplit(' ', 1)[0]} forward {f:.3e} backward {b:.3e}"
+            for k, (f, b) in worst.items() if k.endswith(name)))
+    return worst
+
+
+def _same_run(a, b):
+    """Two runs (the golden layout) equal bit for bit."""
+    import torch
+
+    return (a["train_loss"] == b["train_loss"]
+            and a["val_loss"] == b["val_loss"]
+            and a["val_f1"] == b["val_f1"]
+            and a["best_epoch"] == b["best_epoch"]
+            and all(torch.equal(a["params"][k], b["params"][k])
+                    for k in b["params"]))
+
+
+def phase_graph_train(golden, tb, vb, host_run):
+    """[15b] ``train_perona`` at dropout 0 over the golden's epochs
+    against the JAX scanned trainer's history, twice (the second run
+    replays the cached graph)."""
+    import torch
+
+    from repro_torch.core.trainer import train_perona
+
+    m = golden.meta
+    kw = dict(epochs=m["epochs"], patience=m["patience"], lr=m["lr"],
+              weight_decay=m["weight_decay"], seed=m["seed"])
+    runs, seconds, stats = [], [], []
+    for _ in range(2):
+        model = golden_model(golden, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_perona(model, tb, vb, device="cuda", **kw)
+        seconds.append(time.perf_counter() - t0)
+        runs.append(run_of(res))
+        stats.append(res.stats)
+    check(torch.cuda.get_sync_debug_mode() == 0,
+          "the sync debug mode is restored after the replays")
+    check([s["captured"] for s in stats] == [1, 0],
+          f"one capture, then the cached graph: {stats}")
+    errs = run_errors(runs[0], golden.scan)
+    repeat = _same_run(runs[1], runs[0])
+    host = _same_run(runs[0], host_run)
+    host_errs = run_errors(runs[0], host_run)
+    out = {"errors_vs_jax_scan": errs, "seconds": seconds,
+           "repeat_bit_identical": repeat,
+           "host_loop_bit_identical": host, "vs_host_loop": host_errs}
+    print(f"  b. train_perona at dropout 0, {m['epochs']} epochs, replays "
+          f"under set_sync_debug_mode('error'): {seconds[0]:.2f} s with the "
+          f"capture, {seconds[1]:.2f} s on the cached graph; vs the JAX "
+          f"scanned trainer (golden scan/*): epochs {errs['epochs']}; "
+          f"losses' max rel error by {TRAIN_EPOCH_BLOCK} epochs "
+          + " ".join(f"{x:.1e}" for x in errs["block_rel"])
+          + f" ({errs['loss_share']:.2f} of the limits); val F1 "
+          f"{errs['f1_abs']:.3e} (atol {TRAIN_SCAN_F1_ATOL:g}); best epoch "
+          f"{errs['best_epoch']}"
+          + ("" if errs["best_epoch"][0] == errs["best_epoch"][1] else
+             " (they differ: a near tie, so the keys are compared)")
+          + f", key {errs['key_diff'][0]:.2e} / {errs['key_diff'][1]:.2e}; "
+          f"selected parameters rel L2 "
+          f"{errs.get('params_rel', float('nan')):.2e} (tol "
+          f"{TRAIN_PARAMS_RTOL:g}); second run bit for bit: {repeat}; equal "
+          f"to the host loop train_perona_reference bit for bit: {host} "
+          f"(losses by {TRAIN_EPOCH_BLOCK} epochs "
+          + " ".join(f"{x:.1e}" for x in host_errs.get("block_rel", []))
+          + ")")
+    check_run(errs, "graphed train_perona vs JAX scanned trainer",
+              f1_atol=TRAIN_SCAN_F1_ATOL)
+    return out
+
+
+def graph_nodes(graph) -> int:
+    """The node count of a CUDA graph captured with ``keep_graph``, from
+    ``cuGraphGetNodes`` of ``libcuda``."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    check(rc == 0, f"cuGraphGetNodes returned {rc}")
+    return n.value
+
+
+def profile_graph(golden, tb, vb, epochs=20):
+    """The default-dropout epoch as its own program: the graph's nodes,
+    ``epochs`` replays timed with CUDA events, and the profiler's view of
+    them (device activity only): busy and idle share over the host's
+    clock, the edge-softmax kernels per replay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import trainer as T
+    from repro_torch.kernels.edge_softmax import ops
+
+    cfg = golden.config
+    dev = torch.device("cuda")
+    prog = T.EpochProgram(T.canonical_config(cfg), epochs, 25, True, dev)
+    params0 = {k: v.to(dev) for k, v in golden.init.items()}
+    tbt, vbt = T.batch_to_torch(tb, dev), T.batch_to_torch(vb, dev)
+    hypers = {k: float(v) for k, v in
+              T.model_hypers(cfg, 3e-3, 1e-4, "cpu").items()}
+    before = ops.LAUNCHES, ops.BWD_LAUNCHES
+    t0 = time.perf_counter()
+    prog.run(params0, tbt, vbt, hypers, 0)  # warm-up, capture, a run
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    eager_epochs = T.WARMUP_EPOCHS + 1  # the warm-up and the capture
+    captured = [(b - a) / eager_epochs for a, b in zip(
+        before, (ops.LAUNCHES, ops.BWD_LAUNCHES))]
+    nodes = graph_nodes(prog.graph)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    prog.run(params0, tbt, vbt, hypers, 0)
+    end.record()
+    end.synchronize()
+    event_ms = start.elapsed_time(end) / epochs
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog.run(params0, tbt, vbt, hypers, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us, top = _top_device(prof, n=None)
+    port = _port_device(prof)
+    entries = sum(c for _, c, _ in top)
+    per_replay = {k: c / epochs for k, (_, c) in port.items()}
+    row = {"epochs": epochs, "graph_nodes": nodes,
+           "first_run_s": first, "replay_ms": event_ms,
+           "wall_s": wall, "epoch_ms": wall / epochs * 1e3,
+           "device_s": device_us / 1e6,
+           "device_idle_share": 1.0 - device_us / 1e6 / wall,
+           "device_entries_per_replay": entries / epochs,
+           "launches_captured_per_epoch": {"forward": captured[0],
+                                           "backward": captured[1]},
+           "launches_per_replay": per_replay,
+           "top": [{"name": k[:90], "us": us, "count": c}
+                   for us, c, k in top[:10]]}
+    resolved = device_us > 0
+    print(f"  profiled the default-dropout epoch as a graph of {nodes} "
+          f"nodes: {epochs} replays {event_ms:.3f} ms an epoch (CUDA "
+          f"events), {wall * 1e3:.1f} ms wall under the profiler "
+          f"({row['epoch_ms']:.3f} ms an epoch); "
+          + (f"{device_us / 1e3:.2f} ms of device activity in "
+             f"{entries / epochs:.0f} kernels and copies a replay, busy "
+             f"share {1 - row['device_idle_share']:.4f}, idle share "
+             f"{row['device_idle_share']:.4f}; edge_softmax kernels a "
+             f"replay: " + ", ".join(f"{k} {v:g}"
+                                     for k, v in per_replay.items())
+             if resolved else
+             "the profiler resolved no kernel inside the graph's launches")
+          + f"; captured an epoch: {captured[0]:g} forward, "
+          f"{captured[1]:g} backward launches")
+    check(captured == [3.0, 1.0],
+          f"an epoch launches 3 forward and 1 backward kernels: {captured}")
+    if resolved:
+        check(per_replay == {"edge_softmax_fwd": 3.0,
+                             "edge_softmax_bwd": 1.0},
+              f"each replay runs the edge-softmax kernels: {per_replay}")
+        for us, c, k in top[:10]:
+            print(f"    {us:10.1f} us x{c:5d}  {k[:90]}")
+    return row
+
+
+def phase_graph_dropout(golden, tb, vb, host_seconds):
+    """[15c] the default-dropout recipe over 80 epochs: finite falling
+    losses, two runs of one seed identical and two seeds apart, F1 and
+    type accuracy beside the golden's, the epoch's time."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.trainer import evaluate, train_perona
+
+    res, seconds = {}, {}
+    for key, seed in (("a", 0), ("b", 0), ("c", 1)):
+        model = golden_model(golden, "cuda", dropout=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[key] = (train_perona(model, tb, vb, device="cuda", epochs=80,
+                                 seed=seed), model)
+        seconds[key] = time.perf_counter() - t0
+    runs = {k: run_of(r) for k, (r, _) in res.items()}
+    same = _same_run(runs["b"], runs["a"])
+    apart = runs["c"]["train_loss"] != runs["a"]["train_loss"]
+    first, model = res["a"]
+    tl = np.asarray(runs["a"]["train_loss"])
+    ev = evaluate(model, first.params, vb)
+    epoch_ms = seconds["b"] / 80 * 1e3
+    row = {"epochs": len(tl), "best_epoch": first.best_epoch,
+           "train_loss_first": float(tl[0]), "train_loss_last": float(tl[-1]),
+           **{k: ev[k] for k in ("f1_outlier", "type_accuracy", "mse")},
+           "golden": golden.eval, "seconds": seconds,
+           "same_seed_identical": same, "seeds_differ": apart,
+           "epoch_ms": epoch_ms, "host_loop_epoch_ms": host_seconds / 80 * 1e3}
+    print(f"  c. default dropouts, 80 epochs: {seconds['a']:.2f} s with the "
+          f"capture, {seconds['b']:.2f} s on the cached graph "
+          f"({epoch_ms:.3f} ms an epoch, readback included; the host loop "
+          f"{row['host_loop_epoch_ms']:.2f} ms in [14d] of this run); train "
+          f"loss {tl[0]:.4f} -> {tl[-1]:.4f}, best epoch {first.best_epoch}; "
+          f"validation F1 (outlier) {ev['f1_outlier']:.4f}, type accuracy "
+          f"{ev['type_accuracy']:.4f} (JAX-trained golden: "
+          f"{golden.eval['f1_outlier']:.4f}, "
+          f"{golden.eval['type_accuracy']:.4f}; measured, not gated); seed "
+          f"0 twice bit for bit: {same}; seeds 0 and 1 differ: {apart}")
+    check(np.isfinite(tl).all(), "finite training losses")
+    check(tl[-10:].mean() < tl[:10].mean(), "training losses fall")
+    check(same, "two runs of one seed are identical")
+    check(apart, "two seeds draw different masks")
+    row["profile"] = profile_graph(golden, tb, vb)
+    return row
+
+
+def phase_graph_hpo(golden, tb, vb):
+    """[15d] the dropout-0 search against the host-loop search, then the
+    default search at the reference's size."""
+    import numpy as np
+
+    from repro_torch.core.trainer import train_perona_reference
+    from repro_torch.tuning import hpo
+
+    base = dropout_free(golden.config)
+    n, epochs = HPO_CHECK_TRIALS, HPO_CHECK_EPOCHS
+    space = hpo.SPACE
+    hpo.SPACE = {**space, "feature_dropout": (0.0, 0.0),
+                 "edge_dropout": (0.0, 0.0)}
+    try:
+        t0 = time.perf_counter()
+        best, trials, stats = hpo.search(base, tb, vb, n_trials=n,
+                                         epochs=epochs, return_stats=True)
+        graphed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        best_r, trials_r = hpo.search_sequential(
+            base, tb, vb, n_trials=n, epochs=epochs,
+            train_fn=train_perona_reference)
+        host_s = time.perf_counter() - t0
+    finally:
+        hpo.SPACE = space
+    check([t.params for t in trials] == [t.params for t in trials_r],
+          "the two searches run the same trials")
+    f1_err = max(abs(a.val_f1 - b.val_f1) for a, b in zip(trials, trials_r))
+    loss_err = max(abs(a.val_loss - b.val_loss) / abs(b.val_loss)
+                   for a, b in zip(trials, trials_r))
+    out = {"check": {"trials": n, "epochs": epochs, "seconds": graphed_s,
+                     "host_loop_seconds": host_s, "f1_abs": f1_err,
+                     "val_loss_rel": loss_err,
+                     "buckets": stats.n_buckets,
+                     "captures": stats.trace_count,
+                     "same_best": best.params == best_r.params}}
+    if best.params == best_r.params:
+        errs = run_errors(run_of(best.result), run_of(best_r.result))
+        out["check"]["best_run"] = errs
+    print(f"  d. HPO, dropout-0 space, {n} trials x {epochs} epochs: search "
+          f"{graphed_s:.2f} s ({stats.n_buckets} buckets, "
+          f"{stats.trace_count} captures) vs search_sequential with the host "
+          f"loop {host_s:.2f} s; trials' selected F1 max abs difference "
+          f"{f1_err:.3e} (atol {TRAIN_F1_ATOL:g}), validation loss max rel "
+          f"{loss_err:.2e} (tol {loss_rtol(epochs - 1):g}); same best trial: "
+          f"{out['check']['same_best']}"
+          + (f", its losses by {TRAIN_EPOCH_BLOCK} epochs "
+             + " ".join(f"{x:.1e}" for x in errs.get("block_rel", []))
+             if out["check"]["same_best"] else ""))
+    check(f1_err <= TRAIN_F1_ATOL, "HPO trials' F1, graphed vs host loop")
+    check(loss_err <= loss_rtol(epochs - 1),
+          "HPO trials' validation loss, graphed vs host loop")
+    check(stats.trace_count == stats.n_buckets, "one capture a bucket")
+    if out["check"]["same_best"]:
+        check_run(errs, "the best trial, graphed vs host loop")
+
+    t0 = time.perf_counter()
+    best, trials, stats = hpo.search(golden.config, tb, vb,
+                                     n_trials=HPO_TRIALS, epochs=HPO_EPOCHS,
+                                     return_stats=True)
+    wall = time.perf_counter() - t0
+    f1s = np.asarray([t.val_f1 for t in trials])
+    out["default"] = {"trials": HPO_TRIALS, "epochs": HPO_EPOCHS,
+                      "seconds": wall, "buckets": stats.n_buckets,
+                      "bucket_sizes": {str(k): v for k, v in
+                                       stats.bucket_sizes.items()},
+                      "captures": stats.trace_count,
+                      "device_calls": stats.device_calls,
+                      "best_f1": best.val_f1, "best_val_loss": best.val_loss,
+                      "best_hypers": best.params,
+                      "median_f1": float(np.median(f1s))}
+    print(f"  d. HPO, the default space at the reference's size, "
+          f"{HPO_TRIALS} trials x {HPO_EPOCHS} epochs on the §IV-C batch: "
+          f"{wall:.2f} s ({wall / HPO_TRIALS * 1e3:.1f} ms a trial), "
+          f"{stats.n_buckets} buckets, {stats.trace_count} captures, "
+          f"{stats.device_calls} trial runs; best trial F1 {best.val_f1:.4f}"
+          f" (validation loss {best.val_loss:.4f}, heads "
+          f"{best.params['heads']}, root weight "
+          f"{best.params['use_root_weight']}), median F1 "
+          f"{out['default']['median_f1']:.4f}")
+    check(np.isfinite([t.val_loss for t in trials]).all(),
+          "every HPO trial trained to a finite validation loss")
+    check(stats.device_calls == HPO_TRIALS, "every trial ran")
+    return out
+
+
+def phase_graph_ranking():
+    """[15e] the train-then-rank entry points at their callers' sizes."""
+    import numpy as np
+
+    from repro_torch.core.ranking import rank_machines
+    from repro_torch.launch.train import fingerprint_cluster
+    from repro_torch.tuning.perona_weights import fingerprint_machine_scores
+
+    t0 = time.perf_counter()
+    wd, ranked, _ = fingerprint_cluster(CLUSTER, seed=0)
+    cluster_s = time.perf_counter() - t0
+    probs = wd.engine.score(wd.history).anomaly_prob
+    t0 = time.perf_counter()
+    scores = fingerprint_machine_scores(SCOUT_VM_TYPES,
+                                        runs_per_type=MACHINE_RUNS,
+                                        epochs=MACHINE_EPOCHS)
+    machines_s = time.perf_counter() - t0
+    by_score = rank_machines(scores)
+    out = {"cluster": {"seconds": cluster_s, "ranked": ranked,
+                       "history": len(wd.history)},
+           "machines": {"seconds": machines_s, "ranked": by_score,
+                        "scores": scores}}
+    print(f"  e. fingerprint_cluster, {len(CLUSTER)} x n2-standard-4, 8 "
+          f"runs a type, 40 epochs: {cluster_s:.2f} s, ranked {ranked}, "
+          f"watchdog history {len(wd.history)} runs; "
+          f"fingerprint_machine_scores, {len(SCOUT_VM_TYPES)} machine types x "
+          f"{MACHINE_RUNS} runs, {MACHINE_EPOCHS} epochs: {machines_s:.2f} s,"
+          f" ranked {by_score}")
+    for m in by_score:
+        print(f"    {m:11s} " + " ".join(f"{a} {v:.4f}"
+                                         for a, v in sorted(scores[m].items())))
+    check(sorted(ranked) == sorted(CLUSTER), "every host is ranked")
+    check(np.isfinite(probs).all(), "the watchdog scores its history")
+    check(sorted(scores) == sorted(SCOUT_VM_TYPES)
+          and all(np.isfinite(v) for per in scores.values()
+                  for v in per.values()), "finite machine scores")
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2395,6 +2852,25 @@ def main() -> int:
           "the training path launched the backward kernel")
     bwd_timing, epoch_prof = timed("training: timing", seconds,
                                    phase_train_timing, train_golden, tb, vb)
+    host_run = runs.pop("dropout0_run")
+
+    hpo_err = timed("graphed trainer: kernels", seconds, phase_graph_kernels)
+    ops.LAUNCHES = ops.BWD_LAUNCHES = 0  # the graphed path starts here
+    graph_train = timed("graphed trainer: dropout 0", seconds,
+                        phase_graph_train, train_golden, tb, vb, host_run)
+    graph_dropout = timed("graphed trainer: default dropouts", seconds,
+                          phase_graph_dropout, train_golden, tb, vb,
+                          runs["dropout_s"])
+    graph_hpo = timed("graphed trainer: HPO", seconds, phase_graph_hpo,
+                      train_golden, tb, vb)
+    graph_ranking = timed("graphed trainer: ranking", seconds,
+                          phase_graph_ranking)
+    graph_launches = {"forward": ops.LAUNCHES,
+                      "backward": ops.BWD_LAUNCHES}  # ... and ends here
+    check(graph_launches["forward"] > 0 and graph_launches["backward"] > 0,
+          "the graphed path captured both edge-softmax kernels")
+    per_replay = graph_dropout["profile"]["launches_per_replay"]
+    captured = graph_dropout["profile"]["launches_captured_per_epoch"]
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -2413,6 +2889,10 @@ def main() -> int:
         "library_ms": big["library_ms"],
         "shape": "N=262144 H=4 hd=8 P=3 float32",
         "by_n": timing,
+        "launches_graphed_trainer": graph_launches["forward"],
+        "launches_per_replay": per_replay.get("edge_softmax_fwd",
+                                              captured["forward"]),
+        "hpo_head_errors": {k: v[0] for k, v in hpo_err.items()},
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2472,6 +2952,10 @@ def main() -> int:
         "shape": "N=262144 H=4 hd=8 P=3 float32, no att cotangent",
         "by_n": bwd_timing,
         "launches_per_epoch": runs["launches_per_epoch"],
+        "launches_graphed_trainer": graph_launches["backward"],
+        "launches_per_replay": per_replay.get("edge_softmax_bwd",
+                                              captured["backward"]),
+        "hpo_head_errors": {k: v[1] for k, v in hpo_err.items()},
     }]
     card = card_line()
     REPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -2485,9 +2969,14 @@ def main() -> int:
         "training": {"backward_errors": bwd_err, "fixed_point": fixed,
                      "runs": runs, "launches": train_launches,
                      "backward_timing": bwd_timing,
-                     "epoch_profile": epoch_prof}},
+                     "epoch_profile": epoch_prof},
+        "graphed_training": {"hpo_head_errors": hpo_err,
+                             "dropout0": graph_train,
+                             "dropout": graph_dropout, "hpo": graph_hpo,
+                             "ranking": graph_ranking,
+                             "launches": graph_launches}},
         indent=1, default=str))
-    print(f"[15] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[16] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

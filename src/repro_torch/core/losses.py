@@ -29,7 +29,12 @@ import torch.nn.functional as F
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    """A float32 0-d tensor on ``like``'s device: a python number is
+    filled in place (no host-to-device copy, which a CUDA graph cannot
+    capture), a tensor is cast."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _count(valid: torch.Tensor) -> torch.Tensor:

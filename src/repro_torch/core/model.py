@@ -87,8 +87,13 @@ ALPHA_P = -1.7580993408473766
 
 def _keep(shape, rate, generator, device):
     """Bernoulli(1 - rate) keep mask, as ``jax.random.bernoulli``: a
-    uniform draw below the keep probability."""
-    u = torch.rand(shape, generator=generator, device=device)
+    uniform draw below the keep probability. ``generator`` is a
+    ``torch.Generator`` or a source of fixed draws (``rand(shape,
+    device)``, as ``core.trainer.FixedDraws``)."""
+    if isinstance(generator, torch.Generator):
+        u = torch.rand(shape, generator=generator, device=device)
+    else:
+        u = generator.rand(shape, device)
     return u < 1.0 - rate
 
 

@@ -1,0 +1,99 @@
+"""Perona's machine scores for tuner integration (paper §IV-D).
+
+The PyTorch counterpart of the fingerprinting half of
+``repro/tuning/perona_weights.py``: benchmark each candidate machine
+type once (10 runs a type in the paper), train Perona on the executions
+and score each type's codes per resource aspect with the p-norm
+(:func:`fingerprint_machine_scores`, the "540 executions" procedure);
+normalize the score vectors across types (:func:`normalized_machine_
+scores`) and calibrate them against raw capability proxies
+(:func:`calibrate_scores`). The acquisition weighter itself
+(``PeronaAcquisitionWeighter``) needs the scout dataset and is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from repro_torch.core.ranking import aspect_scores, machine_score_vector
+from repro_torch.fingerprint.runner import SuiteRunner
+from repro_torch.launch.train import train_on_records
+
+
+def normalized_machine_scores(machine_scores: Dict[str, Dict[str, float]]
+                              ) -> Dict[str, np.ndarray]:
+    """Per-aspect min-max normalization (+0.1 floor) of machine score
+    vectors across types: the weighter's precomputation."""
+    mats = {m: machine_score_vector(machine_scores, m)
+            for m in machine_scores}
+    arr = np.stack(list(mats.values()))
+    lo, hi = arr.min(0), arr.max(0)
+    rng = np.where(hi > lo, hi - lo, 1.0)
+    return {m: (v - lo) / rng + 0.1 for m, v in mats.items()}
+
+
+# canonical raw metric per aspect, for score->capability calibration
+_PROXY_METRIC = {
+    "cpu": "cpu.events_per_second",
+    "memory": "mem.throughput",
+    "disk": "fio.read.iops",
+    "network": "qperf.tcp_bw",
+}
+
+
+def fingerprint_machine_scores(machine_types, *, seed: int = 0,
+                               runs_per_type: int = 10, epochs: int = 60,
+                               return_calibration: bool = False,
+                               device="cuda", params0=None):
+    """Benchmark each machine type, train Perona on the executions, and
+    return {machine_type: {aspect: score}} (one simulated node per
+    type). ``params0``: initial parameters as the reference's nested
+    tree, else the port's seeded initialisation.
+
+    With ``return_calibration=True`` also returns capability proxies
+    {machine_type: {aspect: raw value}} from Perona's own benchmark
+    records, for :func:`calibrate_scores`.
+    """
+    runner = SuiteRunner(seed=seed)
+    machines = {f"{m}-0": m for m in machine_types}
+    records = runner.run(machines, runs_per_type=runs_per_type)
+    _, _, _, codes = train_on_records(records, seed=seed, epochs=epochs,
+                                      device=device, params0=params0)
+    scores = aspect_scores(codes, [r.benchmark_type for r in records],
+                           [r.machine_type for r in records])
+    if not return_calibration:
+        return scores
+    proxies: Dict[str, Dict[str, list]] = {}
+    for r in records:
+        for aspect, metric in _PROXY_METRIC.items():
+            if metric in r.metrics:
+                proxies.setdefault(r.machine_type, {}).setdefault(
+                    aspect, []).append(float(r.metrics[metric][0]))
+    proxy_means = {m: {a: float(np.mean(v)) for a, v in per.items()}
+                   for m, per in proxies.items()}
+    return scores, proxy_means
+
+
+def calibrate_scores(scores: Dict[str, Dict[str, float]],
+                     proxies: Dict[str, Dict[str, float]]
+                     ) -> Dict[str, Dict[str, float]]:
+    """Per aspect, least-squares affine map score -> capability proxy
+    across machine types (it dampens score-ranking errors)."""
+    out: Dict[str, Dict[str, float]] = {m: {} for m in scores}
+    aspects = sorted({a for per in scores.values() for a in per})
+    for a in aspects:
+        ms = [m for m in scores if a in scores[m] and a in proxies.get(m, {})]
+        s = np.asarray([scores[m][a] for m in ms])
+        p = np.asarray([proxies[m][a] for m in ms])
+        if len(ms) >= 2 and np.std(s) > 1e-9:
+            A = np.stack([s, np.ones_like(s)], axis=1)
+            coef, *_ = np.linalg.lstsq(A, p, rcond=None)
+            fit = A @ coef
+        else:
+            fit = p
+        for m, v in zip(ms, fit):
+            out[m][a] = float(max(v, 1e-9))
+    return out

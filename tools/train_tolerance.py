@@ -4,14 +4,18 @@ trainer, to set the whole-run tolerances of ``chip_smoke.py`` phase [14]
 and of ``tests/test_torch_train.py``.
 
     PYTHONPATH=src python tools/train_tolerance.py --device cpu --runs 8
+    PYTHONPATH=src python tools/train_tolerance.py --device cpu --runs 8 \
+        --trainer scan
 
 From the training golden file (``src/repro_torch/assets/
 perona_train_golden.npz``; the §IV-C batch at dropout 0 from its
-initial parameters) it prints, against the JAX package's
-``train_perona_reference``: the JAX package's own scanned
-``train_perona`` (stored in the file) and the port's
-``train_perona_reference`` run here on ``--device`` (the card unless
-``cpu``). For each: the largest relative error of the train and
+initial parameters) it prints, against one of the JAX package's two
+trainers stored there, the other one and the port's counterpart run
+here on ``--device`` (the card unless ``cpu``): with ``--trainer host``
+(phase [14c]) against JAX's ``train_perona_reference``, the port's
+``train_perona_reference``; with ``--trainer scan`` (phase [15b])
+against JAX's scanned ``train_perona``, the port's device-resident
+``train_perona``. For each: the largest relative error of the train and
 validation losses over the first epochs, per block of 10 epochs and over
 the whole run as a share of the limits, the largest validation-F1
 difference, the best epochs and the selected parameters' relative L2
@@ -45,28 +49,35 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--runs", type=int, default=1)
+    ap.add_argument("--trainer", choices=("host", "scan"), default="host")
     args = ap.parse_args(argv)
     cs = _chip_smoke()
     from repro_torch.common.device import resolve_device
     from repro_torch.core.params import load_train_golden
-    from repro_torch.core.trainer import train_perona_reference
+    from repro_torch.core.trainer import train_perona, train_perona_reference
 
     device = resolve_device(args.device)
     golden = load_train_golden()
     tb, vb = cs.train_batches()
     m = golden.meta
-    runs = {"JAX train_perona (scanned)": golden.scan}
+    # (the port's trainer, the JAX run it is held to, the other JAX run)
+    train, ref, other = {
+        "scan": (train_perona, "train_perona (scanned)",
+                 "train_perona_reference"),
+        "host": (train_perona_reference, "train_perona_reference",
+                 "train_perona (scanned)")}[args.trainer]
+    jax_runs = {"train_perona (scanned)": golden.scan,
+                "train_perona_reference": golden.ref}
+    runs = {f"JAX {other}": jax_runs[other]}
     for i in range(args.runs):
-        res = train_perona_reference(
+        res = train(
             cs.golden_model(golden, device), tb, vb, device=device,
             epochs=m["epochs"], patience=m["patience"], lr=m["lr"],
             weight_decay=m["weight_decay"], seed=m["seed"])
-        runs[f"port train_perona_reference on {device}, run {i}"] = \
-            cs.run_of(res)
-    print(f"against JAX train_perona_reference, {m['epochs']} epochs at "
-          f"dropout 0:")
+        runs[f"port {train.__name__} on {device}, run {i}"] = cs.run_of(res)
+    print(f"against JAX {ref}, {m['epochs']} epochs at dropout 0:")
     for name, run in runs.items():
-        e = cs.run_errors(run, golden.ref)
+        e = cs.run_errors(run, jax_runs[ref])
         print(f"  {name}: epochs {e['epochs']}; losses, max rel error: first "
               f"{cs.TRAIN_FIRST_EPOCHS} epochs {e['first_rel']:.3e}, by "
               f"{cs.TRAIN_EPOCH_BLOCK} epochs "
