@@ -8,13 +8,13 @@ rank (validation outlier F1, total loss as tie-break).
 :func:`sample_config` is the reference's, draw for draw, so both
 packages run the same trials from one seed.
 
-:func:`search` buckets the trials by the two hypers that change the
-program (``heads``, ``use_root_weight``), as the reference does; the
-scalar hypers (dropouts, CBFL gamma/beta, learning rate, weight decay)
-are the program's static tensors. Each
-bucket's trials share one cached epoch program of
-``core.trainer.train_perona`` (one CUDA graph capture on the card): a
-trial copies its initial parameters and scalar hypers into the
+:func:`search` runs the trials in trial order on the graphed trainer
+and counts its buckets, the two hypers that change the program
+(``heads``, ``use_root_weight``), as the reference does; the scalar
+hypers (dropouts, CBFL gamma/beta, learning rate, weight decay) are the
+program's static tensors. Each bucket's trials share one cached epoch
+program of ``core.trainer.train_perona`` (one CUDA graph capture on the
+card): a trial copies its initial parameters and scalar hypers into the
 program's static tensors, reseeds its generator and replays. The
 reference stacks a bucket's trials into one ``jax.vmap``-ed program;
 the port runs them one after another. Only the best trial keeps its
@@ -151,15 +151,18 @@ def search_sequential(base_cfg: PeronaConfig, train_batch: PeronaBatch,
                            patience=patience, device=device,
                            init_params=init_params)
         trials.append(trial)
+        # only the best trial keeps its result, to bound memory; the
+        # earlier trial wins a tie
         if best is None or trial.score > best.score:
+            if best is not None:
+                best.result = None
             best = trial
+        else:
+            trial.result = None
         if verbose:
             print(f"[hpo {t + 1}/{n_trials}] f1={trial.val_f1:.4f} "
                   f"val={trial.val_loss:.4f} best_f1={best.val_f1:.4f} "
                   f"{hp}")
-        # free non-best results to bound memory
-        if trial is not best:
-            trial.result = None
     return best, trials
 
 
@@ -170,46 +173,20 @@ def search(base_cfg: PeronaConfig, train_batch: PeronaBatch,
            device="cuda", init_params: Optional[Callable] = None):
     """Returns (best trial with trained result, all trials) — plus a
     :class:`SearchStats` when ``return_stats`` is set. The trials are
-    those of :func:`search_sequential` with the same seed, run bucket by
-    bucket."""
-    rng = np.random.default_rng(seed)
-    hps = [sample_config(rng) for _ in range(n_trials)]
-    buckets: Dict[Tuple[int, bool], List[int]] = {}
-    for t, hp in enumerate(hps):
-        buckets.setdefault((hp["heads"], hp["use_root_weight"]),
-                           []).append(t)
-
+    :func:`search_sequential`'s on the graphed trainer, whose cached
+    programs make one capture per (heads, use_root_weight) bucket."""
     captures = trainer_mod.CAPTURES
-    device_calls = 0
-    trials: List[Optional[Trial]] = [None] * n_trials
-    best_t: Optional[int] = None
-    for bkey in sorted(buckets):
-        for t in buckets[bkey]:
-            trial = _run_trial(train_perona, base_cfg, hps[t], t,
-                               train_batch, val_batch, epochs=epochs,
-                               seed=seed, patience=patience, device=device,
-                               init_params=init_params)
-            device_calls += 1
-            trials[t] = trial
-            # the earlier trial wins a tie, as in trial order
-            best = None if best_t is None else trials[best_t]
-            if best is None or (trial.score, -t) > (best.score, -best_t):
-                if best is not None:
-                    best.result = None
-                best_t = t
-            else:
-                trial.result = None
-        if verbose:
-            done = sum(tr is not None for tr in trials)
-            print(f"[hpo bucket heads={bkey[0]} root={bkey[1]}] "
-                  f"{len(buckets[bkey])} trials ({done}/{n_trials} done)")
-
-    best = trials[best_t] if best_t is not None else None
-    stats = SearchStats(
-        n_buckets=len(buckets),
-        bucket_sizes={k: len(v) for k, v in buckets.items()},
-        device_calls=device_calls,
-        trace_count=trainer_mod.CAPTURES - captures)
-    if return_stats:
-        return best, trials, stats
-    return best, trials
+    best, trials = search_sequential(
+        base_cfg, train_batch, val_batch, n_trials=n_trials, epochs=epochs,
+        seed=seed, patience=patience, verbose=verbose, device=device,
+        init_params=init_params)
+    if not return_stats:
+        return best, trials
+    sizes: Dict[Tuple[int, bool], int] = {}
+    for trial in trials:
+        key = (trial.params["heads"], trial.params["use_root_weight"])
+        sizes[key] = sizes.get(key, 0) + 1
+    stats = SearchStats(n_buckets=len(sizes), bucket_sizes=sizes,
+                        device_calls=len(trials),
+                        trace_count=trainer_mod.CAPTURES - captures)
+    return best, trials, stats
