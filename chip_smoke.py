@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Five paths are driven: Perona's scoring
+outputs, and time its kernels. Six paths are driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
 width (chunkwise mLSTM kernel), Perona's host-loop training and its
 device-resident training with the HPO and the train-then-rank entry
-points (the edge-softmax forward and backward kernels).
+points (the edge-softmax forward and backward kernels), and Perona's
+fleet serving tier: stacked request scoring, the scoring service, the
+ingestion daemon and the serve modes (the edge-softmax forward).
 
     python3 chip_smoke.py
 
@@ -123,6 +125,24 @@ Phases, each printing on lines of its own:
    buckets, captures, the best trial); (e) ``fingerprint_cluster`` on 4
    n2-standard-4 hosts and ``fingerprint_machine_scores`` on the 9
    scout machine types at 10 runs a type: times and rankings.
+16. the fleet tier: (a) ``PeronaWatchdog(service=FleetScoringService(
+   ..., context_per_chain=64))`` on phase [4]'s fleet and rounds, each
+   round one stacked dispatch of R = 512 requests x bucket 512 (262,144
+   rows): decisions equal to [4]'s engine path and to a CPU run of the
+   service, the new rows' anomaly_prob within 1e-4 of both, exactly the
+   degraded nodes confirmed, and each round's wall time split into
+   intake, store append, request assembly, stacking, host-to-device
+   copy, the scoring function (device time from CUDA events), the copy
+   back and the store attach, with the idle share and the kernel
+   launches a dispatch; (b) ``serve_fleet`` (``--fleet``) at 512 nodes x
+   4 rounds, training first: every node served every round, req/s; (c)
+   ``serve_daemon`` (``--daemon --faults``) at 512 nodes x 6 rounds: the
+   ladder counters, quarantined rows equal to the injector's corrupted
+   rows, then the same stream through a daemon scoring with the golden
+   model, which must flag the degraded node; a no-fault daemon at
+   ``service_time_scale=0`` equal to the closed loop bit for bit; (d)
+   ``serve_fingerprints`` (``--fingerprint``), 8 rounds. Every dispatch
+   launches the kernel; no dispatch is retried and no flush fails.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -478,11 +498,18 @@ def phase_watchdog(golden, pre):
     for w in wd.values():
         w.history = history
     before = ops.LAUNCHES
+    engine_path = []  # per round: decisions and the new rows' scores
     for r, new in enumerate(rounds):
+        first_id = wd["cuda"].store.next_id
         t0 = time.perf_counter()
         d_gpu = wd["cuda"].observe(new)
         wall = time.perf_counter() - t0
         d_cpu = wd["cpu"].observe(new)
+        store = wd["cuda"].store
+        scored = store.row_id >= first_id
+        engine_path.append({"decisions": d_gpu,
+                            "row_id": store.row_id[scored],
+                            "anomaly": store.anomaly[scored]})
         if r == 0:
             a_gpu, a_cpu = wd["cuda"].store.anomaly, wd["cpu"].store.anomaly
             check(np.array_equal(np.isnan(a_gpu), np.isnan(a_cpu)),
@@ -504,7 +531,8 @@ def phase_watchdog(golden, pre):
     launches = ops.LAUNCHES - before
     print(f"  {launches} kernel launches")
     check(launches > 0, "the watchdog launched the kernel")
-    return wd["cuda"].store.frame
+    return {"frame": wd["cuda"].store.frame, "history": history,
+            "rounds": rounds, "engine_path": engine_path}
 
 
 def time_kernel(N):
@@ -2798,6 +2826,421 @@ def phase_graph_ranking():
     return out
 
 
+# ------------------------------------------------------- the fleet tier
+# [16b-d]: the Perona serving modes of launch/serve.py at fleet size
+SERVE_NODES = FLEET_NODES
+SERVE_FLEET_ROUNDS = 4
+SERVE_DAEMON_ROUNDS = 6
+SERVE_FP_ROUNDS = 8
+# [16c]: the no-fault daemon against the closed loop
+CLOSED_LOOP_ROUNDS = 3
+DAY = 86400.0
+
+
+@contextlib.contextmanager
+def dispatch_launches():
+    """Edge-softmax forward launches of every stacked dispatch made
+    inside the block, in order (the ``ops.LAUNCHES`` delta around each
+    ``ShardedScorer.score_stack`` call)."""
+    from repro_torch.fleet.shard import ShardedScorer
+    from repro_torch.kernels.edge_softmax import ops
+
+    real, per = ShardedScorer.score_stack, []
+
+    def counted(self, params, stack):
+        before = ops.LAUNCHES
+        out = real(self, params, stack)
+        per.append(ops.LAUNCHES - before)
+        return out
+
+    ShardedScorer.score_stack = counted
+    try:
+        yield per
+    finally:
+        ShardedScorer.score_stack = real
+
+
+class RoundSplit:
+    """Times one service's round by its steps: intake (validation),
+    the store append, request assembly, host-to-device copy, the scoring
+    function (CUDA events), the device-to-host copy and the store
+    attach, each on the host clock between synchronisations; stacking is
+    read from the service's own ``fleet.stack`` span. What is left
+    (``other``) is the new rows' feature preparation, the result objects
+    and the watchdog's decisions. Installed on the instances only."""
+
+    STEPS = (("intake", "submit", "service"),
+             ("append", "append", "store"),
+             ("assembly", "_assemble_requests", "service"),
+             ("copy_in", "to_device", "scorer"),
+             ("copy_out", "to_host", "scorer"),
+             ("attach", "attach", "store"))
+
+    def __init__(self, svc):
+        import torch
+
+        self.svc, self.parts, self.device_ms = svc, {}, []
+        owners = {"service": svc, "scorer": svc.scorer, "store": svc.store}
+        for part, name, owner in self.STEPS:
+            obj = owners[owner]
+            setattr(obj, name, self._timed(part, getattr(obj, name)))
+        forward = svc.scorer.forward
+
+        def timed_forward(*args):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = forward(*args)
+            end.record()
+            end.synchronize()
+            self._add("forward", time.perf_counter() - t0)
+            self.device_ms.append(start.elapsed_time(end))
+            return out
+
+        svc.scorer.forward = timed_forward
+
+    def _add(self, part, dt):
+        self.parts[part] = self.parts.get(part, 0.0) + dt
+
+    def _timed(self, part, fn):
+        import torch
+
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self._add(part, time.perf_counter() - t0)
+            return out
+
+        return wrapped
+
+    def observe(self, wd, new):
+        """One watchdog round through the service, split by step."""
+        from repro_torch import obs
+
+        self.parts, self.device_ms = {}, []
+        obs.tracer().clear()
+        t0 = time.perf_counter()
+        decisions = wd.observe(new)
+        wall = time.perf_counter() - t0
+        self.parts["stack"] = sum(e.dur for e in obs.tracer().events()
+                                  if e.name == "fleet.stack")
+        device_s = sum(self.device_ms) / 1e3
+        split = {"wall_s": wall, "parts_s": dict(self.parts),
+                 "device_s": device_s,
+                 "other_s": wall - sum(self.parts.values()),
+                 "device_idle_share": 1.0 - device_s / wall}
+        return decisions, split
+
+
+def _round_rows(store, first_id):
+    """(row ids, anomaly) of the rows appended from ``first_id`` on,
+    in row-id order."""
+    import numpy as np
+
+    sel = store.row_id >= first_id
+    order = np.argsort(store.row_id[sel], kind="stable")
+    return store.row_id[sel][order], store.anomaly[sel][order]
+
+
+def phase_fleet_watchdog(golden, pre, fleet):
+    """[16a] the watchdog through the fleet service at phase [4]'s size,
+    on the card and on the CPU, against [4]'s engine path."""
+    import numpy as np
+
+    from repro_torch.core.model import PeronaModel
+    from repro_torch.fleet import FleetScoringService
+    from repro_torch.runtime.watchdog import PeronaWatchdog
+
+    print(f"  a. PeronaWatchdog(service=FleetScoringService(..., "
+          f"context_per_chain={FLEET_HISTORY})): {FLEET_NODES} nodes, "
+          f"{len(fleet['history'])} rows of history, {FLEET_ROUNDS} rounds "
+          f"of {len(fleet['rounds'][0])} rows")
+    model = PeronaModel(golden.config)
+    wd, svc = {}, {}
+    for dev in ("cuda", "cpu"):
+        svc[dev] = FleetScoringService(model, golden.params, pre,
+                                       context_per_chain=FLEET_HISTORY,
+                                       device=dev)
+        wd[dev] = PeronaWatchdog(model, golden.params, pre,
+                                 service=svc[dev])
+        t0 = time.perf_counter()
+        wd[dev].history = fleet["history"]
+        print(f"     {dev}: history seeded (features cached) in "
+              f"{time.perf_counter() - t0:.2f} s")
+    split = RoundSplit(svc["cuda"])
+    rounds = []
+    with dispatch_launches() as launches:
+        for r, new in enumerate(fleet["rounds"]):
+            first_id = svc["cuda"].store.next_id
+            n0 = len(launches)
+            d_gpu, row = split.observe(wd["cuda"], new)
+            row["launches"] = launches[n0:]  # one entry a dispatch
+            t0 = time.perf_counter()
+            d_cpu = wd["cpu"].observe(new)
+            row["cpu_round_s"] = time.perf_counter() - t0
+            ref = fleet["engine_path"][r]
+            ids, prob = _round_rows(svc["cuda"].store, first_id)
+            cids, cprob = _round_rows(svc["cpu"].store, first_id)
+            order = np.argsort(ref["row_id"], kind="stable")
+            check(np.array_equal(ids, ref["row_id"][order])
+                  and np.array_equal(ids, cids),
+                  f"round {r}: the same rows scored on every path")
+            row["err_vs_engine"] = float(
+                np.abs(prob - ref["anomaly"][order]).max())
+            row["err_vs_cpu"] = float(np.abs(prob - cprob).max())
+            key = [(d.node, d.flagged, d.confirmed) for d in d_gpu]
+            check(key == [(d.node, d.flagged, d.confirmed)
+                          for d in ref["decisions"]]
+                  and key == [(d.node, d.flagged, d.confirmed)
+                              for d in d_cpu],
+                  f"round {r}: decisions equal the engine path and the CPU")
+            row["mean_prob_err_vs_engine"] = max(
+                abs(a.anomaly_prob - b.anomaly_prob)
+                for a, b in zip(d_gpu, ref["decisions"]))
+            row["confirmed"] = sorted(d.node for d in d_gpu if d.confirmed)
+            rounds.append(row)
+            p = row["parts_s"]
+            print(f"     round {r}: {row['wall_s'] * 1e3:.2f} ms wall = "
+                  f"intake {p['intake'] * 1e3:.2f} + append "
+                  f"{p['append'] * 1e3:.2f} + "
+                  f"assembly {p['assembly'] * 1e3:.2f} + stack "
+                  f"{p['stack'] * 1e3:.2f} + copy in "
+                  f"{p['copy_in'] * 1e3:.2f} + forward "
+                  f"{p['forward'] * 1e3:.2f} (device "
+                  f"{row['device_s'] * 1e3:.3f}, CUDA events) + copy out "
+                  f"{p['copy_out'] * 1e3:.2f} + attach "
+                  f"{p['attach'] * 1e3:.2f} + other "
+                  f"{row['other_s'] * 1e3:.2f}; idle share "
+                  f"{row['device_idle_share']:.4f}; kernel launches a "
+                  f"dispatch {row['launches']}; anomaly_prob vs engine path "
+                  f"{row['err_vs_engine']:.3e}, vs CPU "
+                  f"{row['err_vs_cpu']:.3e} (atol {ENGINE_ATOL:g}); CPU "
+                  f"round {row['cpu_round_s']:.2f} s")
+            check(max(row["err_vs_engine"], row["err_vs_cpu"])
+                  <= ENGINE_ATOL, f"round {r}: service anomaly_prob")
+            check(len(row["launches"]) == 1 and row["launches"][0] >= 1,
+                  f"round {r}: one dispatch, and the kernel launched")
+    st = svc["cuda"].stats
+    sigs = sorted(svc["cuda"]._stack_sigs)
+    print(f"     stats: {st['dispatches']} dispatches, "
+          f"{st['requests_served']} requests, {st['rows_scored']} rows, "
+          f"{st['traces']} signature(s) {sigs}, {st['scorer_retries']} "
+          f"retries; confirmed after the last round "
+          f"{rounds[-1]['confirmed']}")
+    check(st["dispatches"] == FLEET_ROUNDS
+          and st["requests_served"] == FLEET_ROUNDS * FLEET_NODES,
+          "one stacked dispatch a round, every node a request")
+    check(sigs == [(FLEET_NODES, 512)] and st["traces"] == 1,
+          "each round is one stack of R=512 x bucket 512")
+    check(st["scorer_retries"] == 0, "no dispatch was retried")
+    check(rounds[-1]["confirmed"] == sorted(DEGRADED),
+          "exactly the degraded nodes are confirmed")
+    return {"rounds": rounds, "stats": st, "signatures": sigs}
+
+
+def _check_dispatches(label, launches, st):
+    print(f"     {label}: kernel launches per stacked dispatch {launches}")
+    check(len(launches) > 0 and min(launches) >= 1,
+          f"{label}: the kernel launched on every dispatch")
+    check(st["scorer_retries"] == 0, f"{label}: no retries")
+
+
+def phase_fleet_serve():
+    """[16b] ``serve_fleet`` (the ``--fleet`` mode) on the card."""
+    from repro_torch.launch import serve
+
+    with dispatch_launches() as launches:
+        t0 = time.perf_counter()
+        fl = serve.serve_fleet(SERVE_NODES, SERVE_FLEET_ROUNDS,
+                               device="cuda")
+        fl["wall_s"] = time.perf_counter() - t0
+    s = fl["stats"]
+    print(f"  b. serve_fleet({SERVE_NODES} nodes, {SERVE_FLEET_ROUNDS} "
+          f"rounds), training included: {fl['wall_s']:.2f} s; serving "
+          f"{fl['seconds']:.3f} s, {s['requests_served']} requests, "
+          f"{s['rows_scored']} rows, {s['requests_per_s']:.1f} req/s, "
+          f"{s['dispatches']} dispatches, {s['traces']} signature(s), "
+          f"worst drift node {fl['worst_node']}")
+    _check_dispatches("serve_fleet", launches, s)
+    check(s["requests_served"] == SERVE_FLEET_ROUNDS * SERVE_NODES
+          and s["dispatches"] == SERVE_FLEET_ROUNDS,
+          "every node served every round")
+    check(s["rows_scored"] == SERVE_FLEET_ROUNDS * SERVE_NODES * 6,
+          "rows scored")
+    return {"wall_s": fl["wall_s"], "seconds": fl["seconds"], "stats": s,
+            "worst_node": fl["worst_node"], "launches": launches}
+
+
+def phase_fleet_daemon(golden, pre):
+    """[16c] ``serve_daemon(faults=True)`` (``--daemon --faults``), then
+    the same stream and faults through a daemon that scores with the
+    golden model."""
+    from repro_torch.core.model import PeronaModel
+    from repro_torch.fingerprint.runner import SuiteRunner
+    from repro_torch.fleet import (FaultPlan, FleetScoringService,
+                                   IngestionDaemon, fleet_telemetry,
+                                   inject_faults)
+    from repro_torch.launch import serve
+
+    with dispatch_launches() as launches:
+        t0 = time.perf_counter()
+        dm = serve.serve_daemon(SERVE_NODES, SERVE_DAEMON_ROUNDS,
+                                faults=True, device="cuda")
+        wall = time.perf_counter() - t0
+    st, faults = dm["stats"], dm["faults"]
+    ladder = {k: st[k] for k in (
+        "events_seen", "events_accepted", "duplicates_dropped",
+        "deadline_flushes", "row_trigger_flushes", "forced_flushes",
+        "drain_flushes", "blocked_events", "shed_rows", "degrade_entries",
+        "degraded_flushes", "degrade_unscored_rows", "recoveries",
+        "flush_failures", "scorer_retries", "peak_staged_rows")}
+    print(f"  c. serve_daemon({SERVE_NODES} nodes, {SERVE_DAEMON_ROUNDS} "
+          f"rounds, faults), training included: {wall:.2f} s; ladder "
+          f"{ladder}; p99 queue latency {st['latency_p99']:.3f} s; "
+          f"quarantined {st['service']['quarantined_rows']} rows; "
+          f"injected {faults}; degraded node {dm['degraded_node']} -> "
+          f"flagged {dm['flagged']} (its 40-epoch model's)")
+    _check_dispatches("serve_daemon", launches, st)
+    check(st["flush_failures"] == 0, "no flush failed")
+    check(st["service"]["quarantined_rows"] == faults["corrupted_rows"],
+          "quarantined rows equal the injector's corrupted rows")
+    check(st["duplicates_dropped"] == faults["duplicated"],
+          "every duplicate dropped once")
+
+    # The flag needs a model that separates stressed runs: serve_daemon's
+    # 40 full-batch steps do not at this size (nor do the JAX package's
+    # at 16 and 64 nodes, ROADMAP.md §3), so the same stream and faults
+    # go through a daemon scoring with the golden model (JAX-trained).
+    machines = {f"fleet-{i}": "e2-medium" for i in range(SERVE_NODES)}
+    svc = FleetScoringService(PeronaModel(golden.config), golden.params,
+                              pre, context_per_chain=16, device="cuda")
+    svc.seed_history(SuiteRunner(seed=0).run_frame(
+        machines, runs_per_type=10, stress_fraction=0.2))
+    daemon = IngestionDaemon(svc, capacity_rows=64 * SERVE_NODES,
+                             flush_interval=0.5, min_flush_gap=0.05)
+    degraded = dm["degraded_node"]
+    events, log = inject_faults(
+        fleet_telemetry(machines, rounds=SERVE_DAEMON_ROUNDS,
+                        runs_per_type=1, seed=1, interval=1.0, jitter=0.25,
+                        degraded={degraded: SERVE_DAEMON_ROUNDS // 2}),
+        FaultPlan(seed=2, **serve.DAEMON_FAULTS))
+    with dispatch_launches() as golden_launches:
+        daemon.run(events)
+    gst = daemon.stats()
+    flagged = daemon.flagged_nodes()
+    report = daemon.drift.report()
+    ewma = sorted((r.anomaly_ewma, n) for n, r in report.items())
+    print(f"     the same stream, golden model: flagged {flagged}; "
+          f"{degraded} anomaly EWMA {report[degraded].anomaly_ewma:.4f}, "
+          f"the highest healthy node's {ewma[-2][0]:.4f} "
+          f"({ewma[-2][1]}); quarantined "
+          f"{gst['service']['quarantined_rows']} rows (injected "
+          f"{log.corrupted_rows})")
+    _check_dispatches("golden daemon", golden_launches, gst)
+    check(gst["flush_failures"] == 0, "no flush failed")
+    check(gst["service"]["quarantined_rows"] == log.corrupted_rows,
+          "quarantined rows equal the injector's corrupted rows")
+    check(degraded in flagged, "the injected degraded node is flagged")
+    return {"wall_s": wall, "ladder": ladder, "faults": faults,
+            "flagged": dm["flagged"], "latency_p99": st["latency_p99"],
+            "service": st["service"], "launches": launches,
+            "golden": {"flagged": flagged, "degraded_ewma":
+                       report[degraded].anomaly_ewma,
+                       "top_healthy": ewma[-2], "launches": golden_launches,
+                       "ladder": {k: gst[k] for k in ladder}}}
+
+
+def phase_fleet_fingerprint():
+    """[16d] ``serve_fingerprints`` (the ``--fingerprint`` mode)."""
+    from repro_torch.launch import serve
+
+    with dispatch_launches() as launches:
+        fp = serve.serve_fingerprints(SERVE_FP_ROUNDS, device="cuda")
+    print(f"  d. serve_fingerprints({SERVE_FP_ROUNDS} rounds): "
+          f"{fp['scored']} executions in {fp['seconds']:.3f} s, "
+          f"{fp['traces']} signature(s), excluded {fp['excluded']}")
+    _check_dispatches("serve_fingerprints", launches, fp["stats"])
+    check(fp["stats"]["requests_served"] == SERVE_FP_ROUNDS * 3,
+          "every fingerprint round served")
+    return {"scored": fp["scored"], "seconds": fp["seconds"],
+            "traces": fp["traces"], "excluded": fp["excluded"],
+            "launches": launches}
+
+
+def phase_fleet_closed_loop(golden, pre):
+    """[16c] a no-fault daemon at service_time_scale=0.0 against the
+    closed loop (score_round a round), bit for bit on the card."""
+    import numpy as np
+
+    from repro_torch.core.model import PeronaModel
+    from repro_torch.fingerprint.runner import SuiteRunner
+    from repro_torch.fleet import (FleetScoringService, IngestionDaemon,
+                                   fleet_telemetry)
+
+    machines = {f"node-{i:03d}": "e2-medium" for i in range(FLEET_NODES)}
+    history = SuiteRunner(seed=3).run_frame(machines, runs_per_type=10)
+    model = PeronaModel(golden.config)
+
+    def service():
+        svc = FleetScoringService(model, golden.params, pre, device="cuda")
+        svc.seed_history(history)
+        return svc
+
+    closed, src = service(), SuiteRunner(seed=7)
+    want = {}
+    for k in range(CLOSED_LOOP_ROUNDS):
+        rnd = src.run_frame(machines, runs_per_type=1,
+                            t_offset=(k + 1) * DAY)
+        for n, r in closed.score_round(rnd).items():
+            want.setdefault(n, []).append(r)
+    svc = service()
+    daemon = IngestionDaemon(svc, capacity_rows=8 * len(machines) * 6,
+                             flush_interval=0.5, flush_rows=1 << 30,
+                             service_time_scale=0.0)
+    got = daemon.run(fleet_telemetry(machines, rounds=CLOSED_LOOP_ROUNDS,
+                                     runs_per_type=1, seed=7, interval=1.0,
+                                     jitter=0.01))
+    st = daemon.stats()
+    same = sorted(got) == sorted(want) and all(
+        len(got[n]) == len(want[n]) == CLOSED_LOOP_ROUNDS
+        and all(np.array_equal(getattr(a, k), getattr(b, k))
+                for a, b in zip(got[n], want[n])
+                for k in ("anomaly_prob", "codes", "type_logits"))
+        for n in want)
+    print(f"     no-fault daemon ({FLEET_NODES} nodes, "
+          f"{CLOSED_LOOP_ROUNDS} rounds, service_time_scale 0): "
+          f"{st['deadline_flushes']} deadline + {st['drain_flushes']} drain "
+          f"flushes, {closed.stats['dispatches']} closed-loop dispatches; "
+          f"equal to the closed loop bit for bit: {same}")
+    check(st["deadline_flushes"] == CLOSED_LOOP_ROUNDS - 1
+          and st["drain_flushes"] == 1, "one flush a round")
+    check(same, "no-fault daemon equals the closed loop bit for bit")
+    check(st["flush_failures"] == 0 and st["scorer_retries"] == 0,
+          "no failures or retries")
+    return {"bit_identical": same, "daemon": {
+        k: st[k] for k in ("deadline_flushes", "drain_flushes",
+                           "flush_failures", "scorer_retries")}}
+
+
+def phase_fleet(golden, pre, fleet):
+    import torch
+
+    print("[16] the fleet tier: stacked request scoring, the service, "
+          "the watchdog's service path, the ingestion daemon and the "
+          "Perona serving modes")
+    out = {"watchdog": phase_fleet_watchdog(golden, pre, fleet),
+           "fleet": phase_fleet_serve(),
+           "daemon": phase_fleet_daemon(golden, pre),
+           "closed_loop": phase_fleet_closed_loop(golden, pre),
+           "fingerprint": phase_fleet_fingerprint()}
+    torch.cuda.empty_cache()
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2837,7 +3280,7 @@ def main() -> int:
 
     ops.LAUNCHES = 0  # the Perona main path starts here
     engine = timed("engine", seconds, phase_engine, golden, pre, frame)
-    fleet_frame = timed("watchdog", seconds, phase_watchdog, golden, pre)
+    fleet = timed("watchdog", seconds, phase_watchdog, golden, pre)
     launches = ops.LAUNCHES  # ... and ends here
     check(launches > 0, "the main path launched the kernel")
 
@@ -2847,7 +3290,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     timing, engine_rows, lm_timing = timed(
-        "timing", seconds, phase_timing, engine, frame, fleet_frame)
+        "timing", seconds, phase_timing, engine, frame, fleet["frame"])
     torch.cuda.empty_cache()
 
     from repro_torch.models.params import XLSTM_GOLDEN_PATH
@@ -2899,6 +3342,18 @@ def main() -> int:
           "the graphed path captured both edge-softmax kernels")
     # null where the profiler resolved no kernel inside the replays
     per_replay = graph_dropout["profile"]["launches_per_replay"]
+    from repro_torch.core.trainer import _program
+
+    _program.cache_clear()  # the graphed epochs' memory pools
+    torch.cuda.empty_cache()
+
+    ops.LAUNCHES = ops.BWD_LAUNCHES = 0  # the fleet tier starts here
+    fleet_tier = timed("fleet tier", seconds, phase_fleet, golden, pre,
+                       fleet)
+    fleet_launches = {"forward": ops.LAUNCHES,
+                      "backward": ops.BWD_LAUNCHES}  # ... and ends here
+    check(fleet_launches["forward"] > 0,
+          "the fleet tier launched the edge-softmax kernel")
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -2920,6 +3375,7 @@ def main() -> int:
         "launches_graphed_trainer": graph_launches["forward"],
         "launches_per_replay": per_replay.get("edge_softmax_fwd"),
         "hpo_head_errors": {k: v[0] for k, v in hpo_err.items()},
+        "launches_fleet_tier": fleet_launches["forward"],
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -2982,6 +3438,7 @@ def main() -> int:
         "launches_graphed_trainer": graph_launches["backward"],
         "launches_per_replay": per_replay.get("edge_softmax_bwd"),
         "hpo_head_errors": {k: v[1] for k, v in hpo_err.items()},
+        "launches_fleet_tier": fleet_launches["backward"],
     }]
     card = card_line()
     REPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -3000,9 +3457,10 @@ def main() -> int:
                              "dropout0": graph_train,
                              "dropout": graph_dropout, "hpo": graph_hpo,
                              "ranking": graph_ranking,
-                             "launches": graph_launches}},
+                             "launches": graph_launches},
+        "fleet_tier": {**fleet_tier, "launches": fleet_launches}},
         indent=1, default=str))
-    print(f"[16] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[17] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,6 @@
 """Perona degradation watchdog (paper §III-C applied to a live cluster).
 
-The PyTorch counterpart of ``repro/runtime/watchdog.py``, engine path.
+The PyTorch counterpart of ``repro/runtime/watchdog.py``.
 It periodically re-fingerprints cluster nodes with the standardized
 suite, pushes the new executions through the trained Perona model, and
 flags nodes whose anomaly probability stays above threshold. A node is
@@ -9,13 +9,16 @@ anomalous, strikes reset on clean rounds, and a flag is *confirmed*
 after ``confirm_runs`` consecutive anomalous rounds.
 
 The rolling history lives in a :class:`repro_torch.fleet.store.
-FingerprintStore`, compacted to ``history_per_chain`` rows per (node x
-benchmark type) chain after every round; ``drift_report()`` exposes the
-store-backed per-node / per-aspect EWMAs of
-:mod:`repro_torch.fleet.drift`. Scoring goes through one
-:class:`FingerprintEngine` call over the round's context. Scoring
-through a fleet scoring service (``service=``) comes with the port's
-fleet tier and raises until then.
+FingerprintStore` (compacted to ``history_per_chain`` rows per (node x
+benchmark type) chain after every round when the watchdog owns the
+store; a shared service store stays append-only); ``drift_report()``
+exposes the store-backed per-node / per-aspect EWMAs of
+:mod:`repro_torch.fleet.drift`. Scoring goes through one of two
+interchangeable paths: one :class:`FingerprintEngine` call over the
+round's context (the default), or a
+:class:`repro_torch.fleet.FleetScoringService` when one is passed
+(``service=``) — then the watchdog and the fleet serve entry point share
+one micro-batched, stacked scoring path *and* one store.
 """
 
 from __future__ import annotations
@@ -54,10 +57,6 @@ class PeronaWatchdog:
                  engine: Optional[FingerprintEngine] = None,
                  history_per_chain: int = 64,
                  service=None, drift_alpha: float = 0.3, device="cuda"):
-        if service is not None:
-            raise NotImplementedError(
-                "scoring through a fleet scoring service is not ported "
-                "yet; use the engine path (service=None)")
         self.model = model
         self.params = params
         self.preproc = preproc
@@ -65,10 +64,19 @@ class PeronaWatchdog:
         self.quorum = quorum
         self.confirm_runs = confirm_runs
         self.drift_alpha = drift_alpha
-        self.history_per_chain = history_per_chain
-        self.engine = engine or FingerprintEngine(model, params, preproc,
-                                                  device=device)
-        self.store = FingerprintStore()
+        self.service = service
+        if service is not None:
+            # the service governs scoring context and store lifecycle;
+            # reflect its cap so history_per_chain is never silently
+            # different from what actually bounds the context
+            self.history_per_chain = service.context_per_chain
+            self.engine = engine  # unused unless provided explicitly
+            self.store = service.store
+        else:
+            self.history_per_chain = history_per_chain
+            self.engine = engine or FingerprintEngine(
+                model, params, preproc, device=device)
+            self.store = FingerprintStore()
         self._strikes: Dict[str, int] = {}
         # running per-node anomaly EWMA, updated incrementally with
         # each round's new scores
@@ -83,9 +91,20 @@ class PeronaWatchdog:
 
     @history.setter
     def history(self, data: FrameOrRecords) -> None:
-        self.store.clear()
-        if len(data):
-            self.store.append(as_frame(data))
+        if self.service is not None:
+            # the service's store may hold fleet-wide history owned by
+            # other producers — never wipe it as a side effect
+            if len(self.store):
+                raise ValueError(
+                    "the shared service store already holds history; "
+                    "seed it through the service (seed_history) or "
+                    "attach a fresh FleetScoringService instead")
+            if len(data):
+                self.service.seed_history(as_frame(data))
+        else:
+            self.store.clear()
+            if len(data):
+                self.store.append(as_frame(data))
         self._ewma.clear()
 
     @property
@@ -99,24 +118,34 @@ class PeronaWatchdog:
         new = as_frame(data)
         if len(new) == 0:  # nothing observed: no scoring dispatch
             return []
-        # context rule shared with the reference's fleet service
-        # (store.context_with_new): the newest history rows per chain
-        # *as of before this round*, plus every new execution
-        first_id = self.store.append(new)
-        frame = self.store.frame
-        sel, is_new = self.store.context_with_new(
-            first_id, self.history_per_chain)
-        if len(sel) == 0:  # empty round on an empty store
-            return []
-        res = self.engine.score(frame.select(sel))
-        self.store.attach(sel[is_new], res.anomaly_prob[is_new],
-                          res.codes[is_new])
-        codes = frame.machine_code[sel[is_new]]
-        probs = res.anomaly_prob[is_new]
-        probs_of_node = {
-            frame.machines[c]: probs[codes == c]
-            for c in np.unique(codes)}
-        self.store.compact(self.history_per_chain)
+        if self.service is not None:
+            # the service's store is shared, so the watchdog does not
+            # compact it — scoring context is capped by the service.
+            # Drain requests other producers queued first, so this
+            # round's quorum judges only the observed executions.
+            self.service.flush()
+            results = self.service.score_round(new)
+            probs_of_node = {node: r.anomaly_prob
+                             for node, r in results.items()}
+        else:
+            # context rule shared with the fleet service
+            # (store.context_with_new): the newest history rows per
+            # chain *as of before this round*, plus every new execution
+            first_id = self.store.append(new)
+            frame = self.store.frame
+            sel, is_new = self.store.context_with_new(
+                first_id, self.history_per_chain)
+            if len(sel) == 0:  # empty round on an empty store
+                return []
+            res = self.engine.score(frame.select(sel))
+            self.store.attach(sel[is_new], res.anomaly_prob[is_new],
+                              res.codes[is_new])
+            codes = frame.machine_code[sel[is_new]]
+            probs = res.anomaly_prob[is_new]
+            probs_of_node = {
+                frame.machines[c]: probs[codes == c]
+                for c in np.unique(codes)}
+            self.store.compact(self.history_per_chain)
 
         decisions = []
         for node in sorted(probs_of_node):

@@ -11,7 +11,10 @@ the bucket and the two packages score the same arrays.
 Only the statistics-free graph topology (chain membership, predecessor
 indices, raw gauge gathering) stays in numpy (:func:`prepare_inputs`,
 a copy of the reference's); everything numeric runs in the scoring
-function of :func:`make_score_fn`.
+function of :func:`make_score_fn`, which the fleet scorer
+(``fleet.shard.ShardedScorer``) runs too. Each engine accounts its calls
+on a :class:`repro_torch.obs.DispatchSite` (one signature per bucket),
+and ``trace_count`` reads it as the reference's reads its jit site.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.core.params import flat_params
 from repro_torch.core.preprocess import Preprocessor
 from repro_torch.fingerprint.frame import (BenchmarkFrame, FrameOrRecords,
                                            as_frame)
+from repro_torch.obs.dispatch import DispatchSite, instance_site
 
 MIN_BUCKET = 64
 
@@ -105,6 +109,21 @@ def make_score_fn(model: PeronaModel, preproc: Preprocessor,
     return _score
 
 
+def device_params(model: PeronaModel, params, device: torch.device
+                  ) -> Dict[str, torch.Tensor]:
+    """``params`` (the reference's nested tree or ``state_dict`` names,
+    :func:`repro_torch.core.params.flat_params`) as float32 tensors on
+    ``device``, checked against ``model``'s parameter shapes."""
+    placed = {k: v.to(device, torch.float32)
+              for k, v in flat_params(params).items()}
+    shapes = {k: tuple(v.shape) for k, v in placed.items()}
+    expected = {k: tuple(v.shape) for k, v in model.named_parameters()}
+    if shapes != expected:
+        raise ValueError(f"params do not match the model: got "
+                         f"{shapes}, expected {expected}")
+    return placed
+
+
 def prepare_features(preproc: Preprocessor, frame: BenchmarkFrame
                      ) -> Dict[str, np.ndarray]:
     """Per-row feature columns of a frame, ready for the scoring call
@@ -170,16 +189,18 @@ class FingerprintEngine:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.model = model.eval()
-        self.params = {k: v.to(self.device, torch.float32)
-                       for k, v in flat_params(params).items()}
-        shapes = {k: tuple(v.shape) for k, v in self.params.items()}
-        expected = {k: tuple(v.shape) for k, v in model.named_parameters()}
-        if shapes != expected:
-            raise ValueError(f"params do not match the model: got "
-                             f"{shapes}, expected {expected}")
+        self.params = device_params(model, params, self.device)
         self.preproc = preproc
         self.min_bucket = min_bucket
         self._score = make_score_fn(self.model, preproc, self.device)
+        # per-instance dispatch accounting on the obs registry
+        self.site = DispatchSite(instance_site("serving.engine"))
+
+    @property
+    def trace_count(self) -> int:
+        """Distinct buckets scored so far (the reference's jit
+        tracings, one per bucket)."""
+        return self.site.count
 
     def prepare(self, frame: BenchmarkFrame):
         """Device inputs in ARG_NAMES order, and the bucket."""
@@ -193,7 +214,9 @@ class FingerprintEngine:
         frame = as_frame(data)
         n = len(frame)
         args, b = self.prepare(frame)
-        with torch.inference_mode():
+        with torch.inference_mode(), \
+                self.site.dispatch((b,), "engine.score",
+                                   args={"rows": n, "bucket": b}):
             out = self._score(self.params, *args)
             host = {k: v[:n].cpu().numpy() for k, v in out.items()}
         return ScoreResult(anomaly_prob=host["anomaly_prob"],

@@ -129,6 +129,15 @@ def test_empty_round_dispatches_nothing(models):
 
 
 def test_service_path_is_not_ported_yet(models):
-    with pytest.raises(NotImplementedError, match="service"):
-        PeronaWatchdog(*models["torch"], models["pre"], service=object(),
-                       device="cpu")
+    """The name predates the fleet tier: the ``service=`` path raised
+    until the port had a fleet scoring service. Now the watchdog takes
+    the service's store and context cap instead of raising
+    (``tests/test_torch_fleet.py`` holds it to the JAX package)."""
+    from repro_torch.fleet import FleetScoringService
+
+    svc = FleetScoringService(*models["torch"], models["pre"],
+                              context_per_chain=8, device="cpu")
+    wd = PeronaWatchdog(*models["torch"], models["pre"], service=svc,
+                        device="cpu")
+    assert wd.store is svc.store and wd.history_per_chain == 8
+    assert wd.engine is None
