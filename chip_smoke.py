@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Six paths are driven: Perona's scoring
+outputs, and time its kernels. Seven paths are driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
 width (chunkwise mLSTM kernel), Perona's host-loop training and its
 device-resident training with the HPO and the train-then-rank entry
-points (the edge-softmax forward and backward kernels), and Perona's
-fleet serving tier: stacked request scoring, the scoring service, the
-ingestion daemon and the serve modes (the edge-softmax forward).
+points (the edge-softmax forward and backward kernels), Perona's fleet
+serving tier: stacked request scoring, the scoring service, the
+ingestion daemon and the serve modes (the edge-softmax forward), and
+its operations layer: the model plane with its drift retrain, the
+registry, the timeline and the checkpoint manager (both edge-softmax
+kernels).
 
     python3 chip_smoke.py
 
@@ -142,6 +145,25 @@ Phases, each printing on lines of its own:
    model, which must flag the degraded node; a no-fault daemon at
    ``service_time_scale=0`` equal to the closed loop bit for bit; (d)
    ``serve_fingerprints`` (``--fingerprint``), 8 rounds. Every dispatch
+   launches the kernel; no dispatch is retried and no flush fails.
+17. the operations layer: (a) ``--daemon --modelplane --faults`` at 512
+   nodes x 6 rounds through ``launch/serve.py::main`` with ``--registry``
+   and ``--timeline``: the identical candidate passes its canary (its
+   divergence printed) and is promoted at a flush boundary, the NaN
+   candidate is rolled back on the watch's first flush, the offline
+   ``--modelplane-cmd list``, the timeline valid and holding the promote
+   and rollback instants; each step's time (flush, the canary's shadow
+   flush, warm, swap, the repair's rows and time); then the same stream
+   and faults at ``service_time_scale=0`` through a daemon scoring with
+   the golden model, with the plane's sequence and without it: the
+   repaired rows, the store and the results equal bit for bit; (b) one
+   drift retrain episode through the default ``retrain_fn`` (a fresh
+   model trained on the store) on a 256-node fleet, forced with
+   ``drift_ewma_threshold=0.0``, fired on a store of 24,576 rows: its
+   time, the N x N reckoning, peak memory, its canary and promote with
+   source ``drift-retrain``, the backward kernel launched; (c)
+   ``CheckpointManager(async_save=True)``: the card's parameters saved,
+   updated in place, restored onto the card bit for bit. Every dispatch
    launches the kernel; no dispatch is retried and no flush fails.
 
 Each phase prints its seconds. Then it writes every number to
@@ -3241,6 +3263,402 @@ def phase_fleet(golden, pre, fleet):
     return out
 
 
+# ------------------------------------------------ the operations layer
+# [17a]: the --modelplane run at the fleet tier's size, and the same
+# stream at service_time_scale 0 with and without the plane
+PLANE_NODES = SERVE_NODES
+PLANE_ROUNDS = SERVE_DAEMON_ROUNDS
+PLANE_REGISTRY = ROOT / "build" / "chip_registry"
+PLANE_TIMELINE = ROOT / "build" / "chip_timeline.json"
+# [17b]: one drift retrain through the default retrain_fn on a 256-node
+# fleet: 10 runs a type of history, then rounds of one run a type. The
+# drift report a flush hook reads holds the flushes before it, so with
+# drift_flag_flushes 5 the retrain fires at the 6th flush, on a store of
+# 256 x 6 x (10 + 6) = 24,576 rows; one more flush runs its canary and
+# one its watch.
+RETRAIN_NODES = 256
+RETRAIN_FLAG_FLUSHES = 5
+RETRAIN_ROUNDS = RETRAIN_FLAG_FLUSHES + 3
+CHECKPOINT_DIR = ROOT / "build" / "chip_checkpoint"
+
+
+@contextlib.contextmanager
+def plane_steps():
+    """The fleet service's calls that the model plane makes or waits on,
+    inside the block, in order: ``flush``, ``shadow`` and ``repair``
+    (``rescore`` with ``attach`` False and True), ``warm`` and ``swap``,
+    each timed on the host clock between synchronisations, with the rows
+    (and their ids) that a flush or a rescore returned."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import FleetScoringService
+
+    names = {"flush": "flush", "rescore": None, "warm": "warm",
+             "swap_params": "swap"}
+    real = {n: getattr(FleetScoringService, n) for n in names}
+    rec = []
+
+    def timed_call(name):
+        fn = real[name]
+
+        def wrapped(self, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            row = {"step": names[name] or ("repair" if kw.get("attach")
+                                           else "shadow"),
+                   "s": time.perf_counter() - t0}
+            if name in ("flush", "rescore"):
+                row["ids"] = (np.concatenate([r.row_ids
+                                              for r in out.values()])
+                              if out else np.empty(0, np.int64))
+                row["rows"] = len(row["ids"])
+            rec.append(row)
+            return out
+
+        return wrapped
+
+    for n in names:
+        setattr(FleetScoringService, n, timed_call(n))
+    try:
+        yield rec
+    finally:
+        for n, fn in real.items():
+            setattr(FleetScoringService, n, fn)
+
+
+def _step_ms(rec, step):
+    return [round(r["s"] * 1e3, 3) for r in rec if r["step"] == step]
+
+
+def _instants(tracer, name):
+    return [e for e in tracer.events() if e.name == name]
+
+
+def phase_plane_cli():
+    """[17a] ``--daemon --modelplane --faults`` at 512 nodes x 6 rounds
+    through ``launch/serve.py::main`` with ``--registry`` and
+    ``--timeline``, then ``--modelplane-cmd list`` on that registry."""
+    import io
+    import shutil
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import validate_chrome_trace_file
+
+    shutil.rmtree(PLANE_REGISTRY, ignore_errors=True)
+    argv = ["--daemon", "--modelplane", "--faults", "--nodes",
+            str(PLANE_NODES), "--rounds", str(PLANE_ROUNDS), "--registry",
+            str(PLANE_REGISTRY), "--timeline", str(PLANE_TIMELINE)]
+    print(f"  a. serve.main({' '.join(argv)}), training included:")
+    with dispatch_launches() as launches, plane_steps() as rec:
+        t0 = time.perf_counter()
+        out = serve.main(argv)
+        wall = time.perf_counter() - t0
+    st, mp, versions = out["stats"], out["modelplane"], out["versions"]
+    v2, v3 = versions[1], versions[2]
+    promote = _instants(out["tracer"], "modelplane.promote")
+    rollback = _instants(out["tracer"], "modelplane.rollback")
+    flush_ms = _step_ms(rec, "flush")
+    steps = {k: _step_ms(rec, k) for k in ("shadow", "warm", "swap",
+                                           "repair")}
+    repair_rows = [r["rows"] for r in rec if r["step"] == "repair"]
+    print(f"     {wall:.2f} s; {mp['retrains']} drift retrain(s); "
+          f"{len(flush_ms)} flushes, median "
+          f"{statistics.median(flush_ms):.3f} ms; canary shadow flush "
+          f"{steps['shadow']} ms; warm {steps['warm']} ms; swap "
+          f"{steps['swap']} ms; repair {repair_rows} rows in "
+          f"{steps['repair']} ms")
+    print(f"     v2 ({v2['source']}) canary: passed "
+          f"{v2['verdict']['passed']}, divergence max "
+          f"{v2['verdict']['divergence_max']:.3e}, latency ratio "
+          f"{v2['verdict']['latency_ratio_max']:.3f}, false positives "
+          f"{v2['verdict']['false_positive_rate']:.4f}; status "
+          f"{[(e['version'], e['status']) for e in versions]}; "
+          f"promotions {mp['promotions']}, rollbacks {mp['rollbacks']} "
+          f"after {[e.args['after_flushes'] for e in rollback]} watch "
+          f"flush(es), reason {[e.args['reason'] for e in rollback]}")
+    _check_dispatches("--modelplane", launches, st)
+    check(st["flush_failures"] == 0, "no flush failed")
+    check(v2["source"] == "cli-demo" and v2["verdict"]["passed"],
+          "the identical candidate passes its canary")
+    check([e.args["version"] for e in promote][:1] == [2]
+          and not promote[0].args["forced"],
+          "the identical candidate is promoted at a flush boundary")
+    check(v3["source"] == "cli-demo-bad" and v3["status"] == "rolled_back"
+          and mp["rollbacks"] == 1, "the NaN candidate is rolled back")
+    check(rollback[0].args["version"] == 3
+          and rollback[0].args["reason"] == "nonfinite"
+          and rollback[0].args["after_flushes"] == 1,
+          "on the watch's first flush")
+    check(repair_rows == [mp["repaired_rows"]] and repair_rows[0] > 0,
+          "one repair rescore of the candidate's rows")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--modelplane-cmd", "list", "--registry",
+                    str(PLANE_REGISTRY)])
+    listed = buf.getvalue().splitlines()
+    print(f"     --modelplane-cmd list: {listed}")
+    check([x.split()[:2] for x in listed]
+          == [[f"v{e['version']}", e["status"]] for e in versions],
+          "the offline list prints the registry's versions")
+    summary = validate_chrome_trace_file(str(PLANE_TIMELINE))
+    names = [e["name"] for e in
+             json.loads(PLANE_TIMELINE.read_text())["traceEvents"]]
+    print(f"     --timeline: {summary}; modelplane instants "
+          f"{[n for n in names if n.startswith('modelplane.')]}")
+    check("modelplane.promote" in names and "modelplane.rollback" in names,
+          "the timeline holds the promote and rollback instants")
+    return {"wall_s": wall, "flush_ms": flush_ms, "steps_ms": steps,
+            "repair_rows": repair_rows, "versions": versions, "status": mp,
+            "launches": launches, "timeline": summary,
+            "listed": listed,
+            "median_flush_ms": statistics.median(flush_ms)}
+
+
+def phase_plane_repair(golden, pre):
+    """[17a] the same stream and faults at service_time_scale 0 through a
+    daemon scoring with the golden model, once with the plane's sequence
+    (``serve.run_modelplane_demo``) and once without: the store and every
+    result equal bit for bit, the repaired rows among them."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.model import PeronaModel
+    from repro_torch.core.params import flat_params
+    from repro_torch.fingerprint.runner import SuiteRunner
+    from repro_torch.fleet import (FaultPlan, FleetScoringService,
+                                   IngestionDaemon, ModelPlane,
+                                   fleet_telemetry, inject_faults)
+    from repro_torch.launch import serve
+
+    machines = {f"fleet-{i}": "e2-medium" for i in range(PLANE_NODES)}
+    history = SuiteRunner(seed=0).run_frame(machines, runs_per_type=10,
+                                            stress_fraction=0.2)
+    events, _ = inject_faults(
+        fleet_telemetry(machines, rounds=PLANE_ROUNDS, runs_per_type=1,
+                        seed=1, interval=1.0, jitter=0.25,
+                        degraded={f"fleet-{PLANE_NODES - 1}":
+                                  PLANE_ROUNDS // 2}),
+        FaultPlan(seed=2, **serve.DAEMON_FAULTS))
+    params = flat_params(golden.params)
+    model = PeronaModel(golden.config)
+    runs = {}
+    for with_plane in (True, False):
+        svc = FleetScoringService(model, params, pre, context_per_chain=16,
+                                  device="cuda")
+        svc.seed_history(history)
+        daemon = IngestionDaemon(svc, capacity_rows=64 * PLANE_NODES,
+                                 flush_interval=0.5, min_flush_gap=0.05,
+                                 service_time_scale=0.0)
+        with dispatch_launches() as launches, plane_steps() as rec, \
+                tempfile.TemporaryDirectory() as reg:
+            if with_plane:
+                # serve_daemon's plane; the golden model flags the
+                # degraded node, and a drift retrain on this 50,000-row
+                # store is not what this run holds ([17b] retrains)
+                plane = ModelPlane(svc, reg, daemon=daemon,
+                                   canary_flushes=1, watch_flushes=3,
+                                   min_health_shift=0.5,
+                                   retrain_fn=lambda service: None)
+                plane.bootstrap(params)
+                serve.run_modelplane_demo(daemon, plane, params, events)
+                versions = plane.registry.list_versions()
+            else:
+                daemon.run(events)
+        runs[with_plane] = {"svc": svc, "res": daemon.results(),
+                            "launches": launches, "rec": rec,
+                            "stats": daemon.stats()}
+    a, b = runs[True], runs[False]
+    repaired = np.concatenate([r["ids"] for r in a["rec"]
+                               if r["step"] == "repair"])
+    rows = np.isin(a["svc"].store.row_id, repaired)
+    pa, pb = a["svc"].store.anomaly, b["svc"].store.anomaly
+    same_store = np.array_equal(pa, pb, equal_nan=True)
+    same_results = sorted(a["res"]) == sorted(b["res"]) and all(
+        len(a["res"][n]) == len(b["res"][n])
+        and all(np.array_equal(getattr(x, k), getattr(y, k))
+                for x, y in zip(a["res"][n], b["res"][n])
+                for k in ("anomaly_prob", "codes", "type_logits",
+                          "row_ids"))
+        for n in b["res"])
+    finite = np.isfinite(pb)
+    diff = np.abs(pa[finite] - pb[finite])
+    flush_sigs = sorted(a["svc"]._stack_sigs)
+    out = {"repaired_rows": int(rows.sum()),
+           "repaired_rows_equal": bool(np.array_equal(pa[rows], pb[rows])),
+           "store_equal": bool(same_store),
+           "results_equal": bool(same_results),
+           "max_abs_diff": float(diff.max()) if len(diff) else 0.0,
+           "rows_differing": int((pa[finite] != pb[finite]).sum()),
+           "nonfinite_rows": int((~np.isfinite(pa[finite])).sum()),
+           "versions": [(e["version"], e["status"]) for e in versions],
+           "shadow_divergence": versions[1]["verdict"]["divergence_max"],
+           "signatures": flush_sigs,
+           "launches": a["launches"] + b["launches"]}
+    print(f"     the same stream at service_time_scale 0, golden model, "
+          f"with and without the plane: versions {out['versions']}, "
+          f"shadow divergence {out['shadow_divergence']:.3e}; "
+          f"{out['repaired_rows']} repaired rows equal bit for bit: "
+          f"{out['repaired_rows_equal']}; store {out['store_equal']}, "
+          f"results {out['results_equal']}; rows differing "
+          f"{out['rows_differing']}, max |d| {out['max_abs_diff']:.3e}; "
+          f"stacked signatures {flush_sigs}")
+    for r in runs.values():
+        _check_dispatches("repair pair", r["launches"], r["stats"])
+    check(out["repaired_rows"] > 0, "the rollback repaired rows")
+    check(out["nonfinite_rows"] == 0, "no NaN of the candidate is left")
+    check(out["repaired_rows_equal"] and out["store_equal"]
+          and out["results_equal"],
+          "the repaired store equals the run without the plane bit for bit")
+    return out
+
+
+def phase_plane_retrain(golden, pre):
+    """[17b] one drift retrain episode through the default retrain_fn
+    (a fresh model trained on the store by ``train_perona``), forced
+    with drift_ewma_threshold 0.0, then its canary and promote."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.model import PeronaModel
+    from repro_torch.core.params import flat_params
+    from repro_torch.fingerprint.runner import SuiteRunner
+    from repro_torch.fleet import (FleetScoringService, IngestionDaemon,
+                                   ModelPlane, fleet_telemetry)
+    from repro_torch.kernels.edge_softmax import ops
+
+    machines = {f"node-{i:03d}": "e2-medium" for i in range(RETRAIN_NODES)}
+    svc = FleetScoringService(PeronaModel(golden.config),
+                              flat_params(golden.params), pre,
+                              context_per_chain=16, device="cuda")
+    svc.seed_history(SuiteRunner(seed=4).run_frame(
+        machines, runs_per_type=10, stress_fraction=0.2))
+    daemon = IngestionDaemon(svc, capacity_rows=8 * RETRAIN_NODES * 6,
+                             flush_interval=0.5, flush_rows=1 << 30,
+                             service_time_scale=0.0)
+    seen = {}
+    real = ModelPlane._default_retrain
+
+    def retrain(self, service):
+        seen["rows"] = len(service.store)
+        seen["bwd0"] = ops.BWD_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, service)
+        torch.cuda.synchronize()
+        seen["s"] = time.perf_counter() - t0
+        seen["bwd"] = ops.BWD_LAUNCHES - seen["bwd0"]
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    ModelPlane._default_retrain = retrain
+    try:
+        with tempfile.TemporaryDirectory() as reg, \
+                dispatch_launches() as launches:
+            # a retrained model is a new model: it is meant to diverge
+            # from the incumbent, so the divergence budget admits any
+            # score (probabilities lie in [0, 1]); finiteness, false
+            # positives and latency are gated as by default. Only a
+            # non-finite output may trip the watch (the reference
+            # test's min_health_shift).
+            plane = ModelPlane(svc, reg, daemon=daemon, canary_flushes=1,
+                               watch_flushes=1, divergence_budget=1.0,
+                               min_health_shift=1.0,
+                               drift_flag_flushes=RETRAIN_FLAG_FLUSHES,
+                               drift_ewma_threshold=0.0, drift_min_scored=1)
+            plane.bootstrap()
+            daemon.run(fleet_telemetry(machines, rounds=RETRAIN_ROUNDS,
+                                       runs_per_type=1, seed=5,
+                                       interval=1.0, jitter=0.01))
+            status = plane.status()
+            versions = plane.registry.list_versions()
+    finally:
+        ModelPlane._default_retrain = real
+    peak = torch.cuda.max_memory_allocated()
+    n = seen.get("rows", 0)
+    v2 = versions[1] if len(versions) > 1 else {}
+    verdict = v2.get("verdict") or {}
+    print(f"  b. drift retrain on {RETRAIN_NODES} nodes: the store held {n} "
+          f"rows when the retrain fired; the triplet loss's c @ c.T is "
+          f"4 N^2 = {4 * n * n / 1e9:.2f} GB a float32 N x N matrix; "
+          f"retrain {seen.get('s', float('nan')):.2f} s "
+          f"({plane.retrain_epochs} epochs, {seen.get('bwd', 0)} backward "
+          f"launches); peak memory {peak / 1e9:.2f} GB; v2 "
+          f"{v2.get('source')} {v2.get('status')}, canary passed "
+          f"{verdict.get('passed')} (divergence max "
+          f"{verdict.get('divergence_max', float('nan')):.4f}, latency "
+          f"ratio {verdict.get('latency_ratio_max', float('nan')):.3f}); "
+          f"retrains {status['retrains']}, promotions "
+          f"{status['promotions']}")
+    _check_dispatches("retrain", launches, daemon.stats())
+    check(status["retrains"] == 1 and n == RETRAIN_NODES * 6 * (
+        10 + RETRAIN_FLAG_FLUSHES + 1), "one retrain, on the 6-round store")
+    check(v2.get("source") == "drift-retrain" and verdict.get("passed"),
+          "the retrained candidate passes its canary")
+    check(v2.get("status") == "incumbent" and status["promotions"] == 1,
+          "the retrained candidate is promoted")
+    check(seen["bwd"] > 0, "the retrain launched the backward kernel")
+    from repro_torch.core.trainer import _program
+
+    _program.cache_clear()  # the retrain's graphed epoch and its pool
+    torch.cuda.empty_cache()
+    return {"store_rows": n, "retrain_s": seen["s"], "peak_bytes": peak,
+            "backward_launches": seen["bwd"], "status": status,
+            "verdict": verdict, "launches": launches}
+
+
+def phase_plane_checkpoint(golden):
+    """[17c] ``CheckpointManager(async_save=True)``: the card's parameters
+    saved, updated in place at once, then restored onto the card."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpointing import CheckpointManager
+    from repro_torch.core.params import flat_params
+
+    shutil.rmtree(CHECKPOINT_DIR, ignore_errors=True)
+    params = {k: v.to("cuda") for k, v in flat_params(golden.params).items()}
+    want = {k: v.clone() for k, v in params.items()}
+    mgr = CheckpointManager(CHECKPOINT_DIR, async_save=True)
+    t0 = time.perf_counter()
+    mgr.save(1, params)
+    save_s = time.perf_counter() - t0
+    for v in params.values():  # the writer must hold its own copy
+        v.mul_(-2.0)
+    mgr.wait()
+    got, meta = mgr.restore({k: torch.empty_like(v)
+                             for k, v in params.items()})
+    mgr.close()
+    same = all(got[k].is_cuda and torch.equal(got[k], v)
+               for k, v in want.items())
+    print(f"  c. CheckpointManager(async_save=True): {len(params)} leaves "
+          f"saved from the card in {save_s * 1e3:.2f} ms (host copy), "
+          f"restored onto the card bit for bit: {same} (meta {meta})")
+    check(same and sorted(got) == sorted(want),
+          "the card's parameters round-trip bit for bit")
+    return {"leaves": len(params), "save_ms": save_s * 1e3,
+            "bit_identical": same}
+
+
+def phase_model_plane(golden, pre):
+    import torch
+
+    print("[17] the operations layer: the model plane (canary, hot "
+          "promote, rollback with repair, drift retrain), the registry, "
+          "the timeline, the checkpoint manager")
+    out = {"cli": phase_plane_cli(),
+           "repair": phase_plane_repair(golden, pre),
+           "retrain": phase_plane_retrain(golden, pre),
+           "checkpoint": phase_plane_checkpoint(golden)}
+    torch.cuda.empty_cache()
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3355,6 +3773,14 @@ def main() -> int:
     check(fleet_launches["forward"] > 0,
           "the fleet tier launched the edge-softmax kernel")
 
+    ops.LAUNCHES = ops.BWD_LAUNCHES = 0  # the operations layer starts here
+    model_plane = timed("model plane", seconds, phase_model_plane, golden,
+                        pre)
+    plane_launches = {"forward": ops.LAUNCHES,
+                      "backward": ops.BWD_LAUNCHES}  # ... and ends here
+    check(plane_launches["forward"] > 0 and plane_launches["backward"] > 0,
+          "the operations layer launched both edge-softmax kernels")
+
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
     flash, lru = lm_timing["flash"], lm_timing["rg_lru"]
@@ -3376,6 +3802,7 @@ def main() -> int:
         "launches_per_replay": per_replay.get("edge_softmax_fwd"),
         "hpo_head_errors": {k: v[0] for k, v in hpo_err.items()},
         "launches_fleet_tier": fleet_launches["forward"],
+        "launches_model_plane": plane_launches["forward"],
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -3439,6 +3866,7 @@ def main() -> int:
         "launches_per_replay": per_replay.get("edge_softmax_bwd"),
         "hpo_head_errors": {k: v[1] for k, v in hpo_err.items()},
         "launches_fleet_tier": fleet_launches["backward"],
+        "launches_model_plane": plane_launches["backward"],
     }]
     card = card_line()
     REPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -3458,9 +3886,10 @@ def main() -> int:
                              "dropout": graph_dropout, "hpo": graph_hpo,
                              "ranking": graph_ranking,
                              "launches": graph_launches},
-        "fleet_tier": {**fleet_tier, "launches": fleet_launches}},
+        "fleet_tier": {**fleet_tier, "launches": fleet_launches},
+        "model_plane": {**model_plane, "launches": plane_launches}},
         indent=1, default=str))
-    print(f"[17] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[18] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,9 +15,11 @@ port of ``repro.fleet``:
   bounded ring staging, deadline/pow2 flush triggers, the backpressure
   ladder and crash-safe shutdown;
 - ``faults``  — deterministic seeded fault injection over telemetry
-  streams (numpy, copied).
-
-The model plane (``ModelPlane``, ``ModelRegistry``) is not ported yet.
+  streams (numpy, copied);
+- ``modelplane`` — :class:`ModelRegistry` (versioned parameter
+  checkpoints, the reference's registry format) and :class:`ModelPlane`
+  (canary, hot promote, watch with rollback and row repair, drift
+  retrain) on the service and the daemon.
 """
 
 from repro_torch.fleet.drift import (EwmaMean, NodeDrift, RollingDrift,
@@ -28,6 +30,7 @@ from repro_torch.fleet.faults import (FaultLog, FaultPlan, TelemetryEvent,
                                       inject_faults)
 from repro_torch.fleet.ingest import (IngestionDaemon, load_staging,
                                       save_staging)
+from repro_torch.fleet.modelplane import ModelPlane, ModelRegistry
 from repro_torch.fleet.service import FleetResult, FleetScoringService
 from repro_torch.fleet.shard import ShardedScorer
 from repro_torch.fleet.store import FingerprintStore, atomic_savez
@@ -39,4 +42,5 @@ __all__ = [
     "IngestionDaemon", "save_staging", "load_staging",
     "TelemetryEvent", "FaultPlan", "FaultLog", "fleet_telemetry",
     "inject_faults", "corrupt_frame", "atomic_savez",
+    "ModelPlane", "ModelRegistry",
 ]

@@ -9,6 +9,10 @@ fingerprint-scoring modes; the port of ``repro/launch/serve.py``.
     python -m repro_torch.launch.serve --fleet --nodes 16 --rounds 8
     python -m repro_torch.launch.serve --daemon --faults --nodes 6 \
         --rounds 12
+    python -m repro_torch.launch.serve --daemon --modelplane --faults \
+        --nodes 6 --rounds 12 --registry /tmp/r --timeline /tmp/t.json
+    python -m repro_torch.launch.serve --modelplane-cmd list \
+        --registry /tmp/r
 
 A fixed pool of batch slots serves a request queue: a finished sequence
 releases its slot, the next request prefills into it, and all slots
@@ -29,19 +33,29 @@ as one stacked dispatch a row bucket) and reports requests/s, dispatches
 and the store-backed drift summary. ``--daemon`` streams seeded per-node
 telemetry through an :class:`repro_torch.fleet.IngestionDaemon`;
 ``--faults`` routes the stream through the seeded fault injector with
-one genuinely degraded node. ``--metrics`` dumps the metrics registry
-every ``--metrics-interval`` seconds and at exit. The model plane
-(``--modelplane``, ``--modelplane-cmd``, ``--registry``, ``--version``)
-and ``--timeline`` are not ported yet and are refused.
+one genuinely degraded node. ``--daemon --modelplane`` runs the model
+plane over the stream (:func:`run_modelplane_demo`): the trained
+parameters become version 1, an identical candidate is canaried and
+hot-promoted after a third of the stream, and a NaN-poisoned candidate
+forced in after two thirds is rolled back by the post-promote watch,
+its rows repaired. ``--registry PATH`` keeps the version registry
+(default: a temporary directory); ``--modelplane-cmd
+{status,list,promote,rollback}`` (with ``--registry``, and ``--version
+N`` for promote) works on a registry offline and exits. ``--timeline
+PATH`` exports the run's spans as a Chrome trace: the daemon's own
+virtual-clock tracer in ``--daemon`` mode, the process-wide one in the
+others. ``--metrics`` dumps the metrics registry every
+``--metrics-interval`` seconds and at exit.
 
 Every mode runs on the card unless ``--device cpu`` is given, and fails
-when there is no card.
+when there is no card; ``--modelplane-cmd`` touches no device.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import tempfile
 import threading
 import time
 from typing import List, Optional
@@ -49,6 +63,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as tfm
@@ -254,16 +269,37 @@ DAEMON_FAULTS = dict(dropout=0.05, delay=0.2, duplicate=0.2, reorder=0.2,
                      corrupt=0.15, burst=0.2, burst_window=3.0)
 
 
+def run_modelplane_demo(daemon, plane, params, events) -> None:
+    """The ``--modelplane`` sequence over one event stream: a third of
+    the stream, then an identical candidate (a divergence-free canary,
+    then a zero-downtime promote at a flush boundary), the next third,
+    then a forced promote of a NaN-poisoned candidate, which the health
+    watch rolls back, and the rest."""
+    third = max(len(events) // 3, 1)
+    daemon.run(events[:third], drain=False)
+    plane.submit_candidate(params, source="cli-demo")
+    daemon.run(events[third:2 * third], drain=False)
+    bad = {k: v * float("nan") for k, v in params.items()}
+    vid_bad = plane.registry.save_version(bad, source="cli-demo-bad")
+    plane.promote(vid_bad, force=True)
+    daemon.run(events[2 * third:], drain=True)
+
+
 def serve_daemon(nodes: int = 6, rounds: int = 12,
                  runs_per_type: int = 1, seed: int = 0,
-                 faults: bool = False, device="cuda") -> dict:
+                 faults: bool = False, modelplane: bool = False,
+                 registry_dir: Optional[str] = None,
+                 device="cuda") -> dict:
     """Streaming ingestion loop: telemetry events through the bounded
     staging ring of an :class:`repro_torch.fleet.IngestionDaemon`,
     optionally perturbed by the seeded fault injector (``faults=True``
-    also marks one node genuinely degraded halfway through the run)."""
+    also marks one node genuinely degraded halfway through the run).
+    With ``modelplane=True`` the run exercises the full model lifecycle
+    on the live stream (:func:`run_modelplane_demo`), with the version
+    registry in ``registry_dir``."""
     from repro_torch.fleet import (FaultPlan, FleetScoringService,
-                                   IngestionDaemon, fleet_telemetry,
-                                   inject_faults)
+                                   IngestionDaemon, ModelPlane,
+                                   fleet_telemetry, inject_faults)
 
     machines = {f"fleet-{i}": "e2-medium" for i in range(nodes)}
     _, frame, pre, model, params = _trained_perona(
@@ -275,6 +311,16 @@ def serve_daemon(nodes: int = 6, rounds: int = 12,
     daemon = IngestionDaemon(service, capacity_rows=64 * nodes,
                              flush_interval=0.5,
                              min_flush_gap=0.05)
+    plane = None
+    if modelplane:
+        if registry_dir is None:
+            registry_dir = tempfile.mkdtemp(prefix="perona-registry-")
+        # generous health shift: only the NaN candidate should trip
+        # the watch, not the injected degraded node's drift
+        plane = ModelPlane(service, registry_dir, daemon=daemon,
+                           canary_flushes=1, watch_flushes=3,
+                           min_health_shift=0.5)
+        plane.bootstrap(params)
     degraded_node = f"fleet-{nodes - 1}"
     events = fleet_telemetry(
         machines, rounds=rounds, runs_per_type=runs_per_type,
@@ -285,20 +331,26 @@ def serve_daemon(nodes: int = 6, rounds: int = 12,
         events, log = inject_faults(
             events, FaultPlan(seed=seed + 2, **DAEMON_FAULTS))
         fault_counts = log.counts()
-    daemon.run(events)
+    if plane is None:
+        daemon.run(events)
+    else:
+        run_modelplane_demo(daemon, plane, params, events)
     return {"rounds": rounds, "stats": daemon.stats(),
             "faults": fault_counts,
             "degraded_node": degraded_node if faults else None,
             "flagged": daemon.flagged_nodes(),
-            # the daemon's private virtual-clock tracer
+            "modelplane": None if plane is None else plane.status(),
+            "registry": registry_dir,
+            "versions": (None if plane is None
+                         else plane.registry.list_versions()),
+            # the daemon's private virtual-clock tracer: --timeline
+            # exports this recording in daemon mode
             "tracer": daemon.tracer}
 
 
 def _start_metrics_dumper(interval: float) -> threading.Event:
     """Background thread printing the metrics registry every
     ``interval`` seconds until the returned event is set."""
-    from repro_torch import obs
-
     stop = threading.Event()
 
     def loop():
@@ -313,9 +365,58 @@ def _start_metrics_dumper(interval: float) -> threading.Event:
     return stop
 
 
-# the reference's flags that wait for the operations layer
-NOT_PORTED = ("modelplane", "modelplane_cmd", "registry", "version",
-              "timeline")
+def _export_timeline(path: str,
+                     tracer: Optional[obs.Tracer] = None) -> None:
+    obs.write_chrome_trace(path, tracer=tracer)
+    summary = obs.validate_chrome_trace_file(path)
+    print(f"[timeline] wrote {path}: {summary['events']} events, "
+          f"{summary['spans']} spans on {summary['threads']} "
+          "thread track(s) — load in https://ui.perfetto.dev")
+
+
+def _modelplane_cmd(args) -> list:
+    """Offline registry operations: inspect or re-point the version
+    registry without a live service. Returns the registry's versions
+    after the operation."""
+    from repro_torch.fleet import ModelRegistry
+
+    if args.registry is None:
+        raise SystemExit("--modelplane-cmd requires --registry PATH")
+    reg = ModelRegistry(args.registry)
+    cmd = args.modelplane_cmd
+    if cmd == "status":
+        print(f"[modelplane] incumbent=v{reg.incumbent} "
+              f"previous=v{reg.previous} "
+              f"versions={len(reg.list_versions())}")
+    elif cmd == "list":
+        for e in reg.list_versions():
+            v = e["verdict"]
+            line = (f"  v{e['version']:<3} {e['status']:<12} "
+                    f"source={e['source']}")
+            if e["tags"]:
+                line += f" tags={','.join(e['tags'])}"
+            if v is not None:
+                line += (" canary="
+                         + ("pass" if v["passed"] else
+                            "fail:" + ",".join(v["failed_checks"])))
+            print(line)
+    elif cmd == "promote":
+        if args.version is None:
+            raise SystemExit("promote requires --version N")
+        reg.set_incumbent(args.version)
+        print(f"[modelplane] incumbent=v{reg.incumbent} "
+              f"(previous=v{reg.previous})")
+    elif cmd == "rollback":
+        prev = reg.previous
+        if prev is None:
+            raise SystemExit("no previous version to roll back to")
+        cur = reg.incumbent
+        reg.set_incumbent(prev)
+        if cur is not None:
+            reg.set_status(cur, "rolled_back")
+        print(f"[modelplane] rolled back v{cur} -> incumbent "
+              f"v{reg.incumbent}")
+    return reg.list_versions()
 
 
 def _run_perona(args) -> dict:
@@ -330,7 +431,10 @@ def _run_perona(args) -> dict:
         return out
     if args.daemon:
         out = serve_daemon(args.nodes, args.rounds, seed=args.seed,
-                           faults=args.faults, device=args.device)
+                           faults=args.faults,
+                           modelplane=args.modelplane,
+                           registry_dir=args.registry,
+                           device=args.device)
         st = out["stats"]
         svc = st["service"]
         req_s = st["events_seen"] / max(st["run_wall_s"], 1e-9)
@@ -353,6 +457,20 @@ def _run_perona(args) -> dict:
             print(f"[serve-daemon] injected faults: {out['faults']}; "
                   f"degraded node {out['degraded_node']} -> "
                   f"flagged={out['flagged']}")
+        if out["modelplane"] is not None:
+            mp = out["modelplane"]
+            print(f"[modelplane] registry={out['registry']} "
+                  f"incumbent=v{mp['incumbent']} "
+                  f"phase={mp['phase']}; "
+                  f"promotions={mp['promotions']} "
+                  f"rollbacks={mp['rollbacks']} "
+                  f"canary={mp['canary_pass']}/"
+                  f"{mp['canary_pass'] + mp['canary_fail']} passed, "
+                  f"{mp['shadow_flushes']} shadow flushes, "
+                  f"{mp['repaired_rows']} rows repaired")
+            for e in out["versions"]:
+                print(f"[modelplane]   v{e['version']} "
+                      f"{e['status']} ({e['source']})")
         return out
     out = serve_fleet(args.nodes, args.rounds, seed=args.seed,
                       device=args.device)
@@ -390,33 +508,43 @@ def main(argv=None):
     ap.add_argument("--faults", action="store_true",
                     help="with --daemon: inject seeded stream faults "
                          "+ one genuinely degraded node")
+    ap.add_argument("--modelplane", action="store_true",
+                    help="with --daemon: run the model management "
+                         "plane demo (canary -> hot promote -> NaN "
+                         "candidate -> automatic rollback)")
+    ap.add_argument("--registry", metavar="PATH", default=None,
+                    help="model registry directory (persisted across "
+                         "runs; default: a temp dir)")
+    ap.add_argument("--modelplane-cmd", default=None,
+                    choices=["status", "list", "promote", "rollback"],
+                    help="offline registry operation (requires "
+                         "--registry) and exit")
+    ap.add_argument("--version", type=int, default=None,
+                    help="version id for --modelplane-cmd promote")
     ap.add_argument("--nodes", type=int, default=16,
                     help="fleet size for --fleet and --daemon")
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--timeline", metavar="PATH", default=None,
+                    help="export the run's span recording as Chrome "
+                         "trace-event JSON (perfetto-loadable)")
     ap.add_argument("--metrics", action="store_true",
                     help="dump the metrics registry periodically and "
                          "at exit")
     ap.add_argument("--metrics-interval", type=float, default=10.0,
                     help="seconds between --metrics dumps")
-    for flag in NOT_PORTED:
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        nargs="?", const=True, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    refused = [f for f in NOT_PORTED if getattr(args, f) is not None]
-    if refused:
-        ap.error(f"--{refused[0].replace('_', '-')} is not ported yet: "
-                 "the model plane and the timeline come with queue 1 "
-                 "item 3 of ROADMAP.md (the operations layer)")
 
-    from repro_torch import obs
-
-    resolve_device(args.device)
+    if not args.modelplane_cmd:
+        resolve_device(args.device)
     dumper = (_start_metrics_dumper(args.metrics_interval)
               if args.metrics else None)
     try:
-        if args.fingerprint or args.fleet or args.daemon:
-            return _run_perona(args)
-        return _serve_lm(args)
+        if args.modelplane_cmd:
+            out = _modelplane_cmd(args)
+        elif args.fingerprint or args.fleet or args.daemon:
+            out = _run_perona(args)
+        else:
+            out = _serve_lm(args)
     finally:
         if dumper is not None:
             dumper.set()
@@ -424,6 +552,11 @@ def main(argv=None):
             text = obs.registry().render()
             if text:
                 print(f"[metrics final]\n{text}", flush=True)
+    if args.timeline:
+        # the daemon's own virtual-clock tracer, else the process-wide
+        _export_timeline(args.timeline, tracer=out.get("tracer")
+                         if isinstance(out, dict) else None)
+    return out
 
 
 def _serve_lm(args) -> dict:
@@ -440,7 +573,9 @@ def _serve_lm(args) -> dict:
     server = SlotServer(model, params, n_slots=args.slots,
                         max_len=args.max_len)
     t0 = time.perf_counter()
-    out = server.serve(requests)
+    with obs.span("slots.serve", args={"requests": len(requests),
+                                       "slots": args.slots}):
+        out = server.serve(requests)
     dt = time.perf_counter() - t0
     n_tokens = sum(len(r.tokens) for r in out["completed"])
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"

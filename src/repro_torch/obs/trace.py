@@ -15,7 +15,7 @@ Span categories make host work vs device dispatch explicit:
 ``CAT_HOST`` for python/numpy table building and staging,
 ``CAT_DEVICE`` for compiled-dispatch boundaries, ``CAT_LADDER`` for
 backpressure-ladder transitions. ``events()`` hands the recording to
-a reader; the port has no Chrome trace-event exporter yet.
+a reader (``obs/timeline.py`` exports it as a Chrome trace).
 
 Recording is a no-op while the plane is disabled
 (``obs.disable()``) — the ``span`` context manager yields immediately

@@ -1,7 +1,10 @@
 """The port's telemetry plane (``obs/metrics.py``, ``obs/trace.py``,
-``obs/dispatch.py``) against the JAX package's on the same operations,
-and the port's dispatch accounting on the engine and the fleet scorer."""
+``obs/timeline.py``, ``obs/dispatch.py``) and straggler monitor
+(``runtime/straggler.py``) against the JAX package's on the same
+operations, and the port's dispatch accounting on the engine and the
+fleet scorer."""
 
+import json
 import threading
 
 import numpy as np
@@ -10,14 +13,22 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.obs import metrics as jmetrics  # noqa: E402
+from repro.obs import timeline as jtimeline  # noqa: E402
+from repro.obs.trace import SpanEvent as JSpanEvent  # noqa: E402
 from repro.obs.trace import Tracer as JTracer  # noqa: E402
+from repro.runtime.straggler import StragglerMonitor as JMonitor  # noqa
 from repro_torch import obs  # noqa: E402
 from repro_torch.fingerprint.runner import SuiteRunner  # noqa: E402
 from repro_torch.fleet import FleetScoringService  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.obs.dispatch import DispatchSite, instance_site  # noqa
+from repro_torch.obs.timeline import (chrome_trace,  # noqa: E402
+                                      validate_chrome_trace,
+                                      validate_chrome_trace_file,
+                                      write_chrome_trace)
 from repro_torch.obs.trace import (CAT_DEVICE, CAT_HOST,  # noqa: E402
-                                   CAT_LADDER, Tracer)
+                                   CAT_LADDER, CAT_PLANE, SpanEvent, Tracer)
+from repro_torch.runtime import StragglerMonitor  # noqa: E402
 from repro_torch.serving.engine import FingerprintEngine  # noqa: E402
 
 from _torch_fleet_pair import fleet_pair  # noqa: E402
@@ -194,3 +205,152 @@ def test_service_reports_through_the_registry(pair):
     assert ("fleet.stack", CAT_HOST) in names
     assert ("fleet.score_stack", CAT_DEVICE) in names
     assert ("fleet.flush", CAT_HOST) in names
+
+
+# ---------------------------------------------------------- timeline
+
+def _recorded(cls):
+    """One recording on an injected clock (tests/test_obs.py:171-186)."""
+    clock = {"t": 0.0}
+    tr = cls(clock=lambda: clock["t"])
+    with tr.span("outer"):
+        clock["t"] = 1.0
+    tr.instant("ladder.block", CAT_LADDER, ts=0.5)
+    with tr.span("later", cat=CAT_DEVICE, args={"rows": 3}):
+        clock["t"] = 3.0
+    tr.instant("modelplane.promote", CAT_PLANE, args={"version": 2},
+               ts=2.0)
+    return tr
+
+
+def test_chrome_trace_export_equals_jax_and_is_valid(tmp_path):
+    path = str(tmp_path / "t.json")
+    obj = write_chrome_trace(path, tracer=_recorded(Tracer),
+                             process_name="test-proc")
+    want = jtimeline.chrome_trace(tracer=_recorded(JTracer),
+                                  process_name="test-proc")
+    # thread ids differ between recordings only if the threads do
+    assert obj == want
+    summary = validate_chrome_trace_file(path)
+    assert summary == jtimeline.validate_chrome_trace(want)
+    assert summary["spans"] == 2 and summary["threads"] == 1
+    timed = [e for e in obj["traceEvents"] if e["ph"] != "M"]
+    assert [e["ts"] for e in timed] == [0.0, 500_000.0, 1_000_000.0,
+                                        2_000_000.0]
+    xs = [e for e in timed if e["ph"] == "X"]
+    assert xs[0]["dur"] == 1_000_000.0 and xs[1]["dur"] == 2_000_000.0
+    with open(path) as f:
+        assert json.load(f) == obj  # the artifact round-trips
+
+
+def test_chrome_trace_interleaves_threads_like_jax():
+    spans = [("a", CAT_HOST, 0.0, 1.0, 111, "main"),
+             ("b", CAT_DEVICE, 0.5, 1.0, 222, "worker"),
+             ("c", CAT_HOST, 2.0, 0.5, 111, "main")]
+    obj = chrome_trace([SpanEvent(n, c, ts, d, tid=t, thread=th)
+                        for n, c, ts, d, t, th in spans])
+    want = jtimeline.chrome_trace([JSpanEvent(n, c, ts, d, tid=t,
+                                              thread=th)
+                                   for n, c, ts, d, t, th in spans])
+    assert obj == want
+    validate_chrome_trace(obj)
+    by_name = {e["name"]: e["tid"] for e in obj["traceEvents"]
+               if e["ph"] == "X"}
+    assert by_name == {"a": 0, "b": 1, "c": 0}
+
+
+BASE = [{"ph": "M", "pid": 1, "tid": 0, "name": "process_name",
+         "args": {"name": "p"}},
+        {"ph": "M", "pid": 1, "tid": 0, "name": "thread_name",
+         "args": {"name": "t"}}]
+MALFORMED = {
+    "unknown phase": [{"ph": "Z", "pid": 1, "tid": 0, "name": "x",
+                       "ts": 0}],
+    "goes backwards": [
+        {"ph": "X", "pid": 1, "tid": 0, "name": "x", "ts": 5, "dur": 1},
+        {"ph": "X", "pid": 1, "tid": 0, "name": "y", "ts": 4, "dur": 1}],
+    "dur": [{"ph": "X", "pid": 1, "tid": 0, "name": "x", "ts": 0}],
+    "no open B": [{"ph": "E", "pid": 1, "tid": 0, "name": "x", "ts": 0}],
+    "unclosed B": [{"ph": "B", "pid": 1, "tid": 0, "name": "x", "ts": 0}],
+    "does not match": [
+        {"ph": "B", "pid": 1, "tid": 0, "name": "x", "ts": 0},
+        {"ph": "E", "pid": 1, "tid": 0, "name": "y", "ts": 1}],
+    "thread_name": [{"ph": "X", "pid": 1, "tid": 9, "name": "x", "ts": 0,
+                     "dur": 0}],
+}
+
+
+@pytest.mark.parametrize("fault", list(MALFORMED))
+def test_validator_rejects_what_jax_rejects(fault):
+    obj = {"traceEvents": BASE + MALFORMED[fault]}
+    with pytest.raises(ValueError) as got:
+        validate_chrome_trace(obj)
+    with pytest.raises(ValueError) as want:
+        jtimeline.validate_chrome_trace(obj)
+    assert fault in str(got.value)
+    assert str(got.value) == str(want.value)
+
+
+def test_validator_accepts_matched_begin_end():
+    obj = {"traceEvents": BASE + [
+        {"ph": "B", "pid": 1, "tid": 0, "name": "x", "ts": 0},
+        {"ph": "E", "pid": 1, "tid": 0, "name": "x", "ts": 1}]}
+    assert validate_chrome_trace(obj) == \
+        jtimeline.validate_chrome_trace(obj)
+    with pytest.raises(ValueError, match="traceEvents"):
+        validate_chrome_trace({"nope": []})
+
+
+# ---------------------------------------------------- straggler monitor
+
+STEPS = {
+    # tests/test_runtime.py:14-21: one persistently slow host
+    "persistent": (dict(ratio_threshold=1.3, patience=3),
+                   [{"h0": 100.0, "h1": 100.0, "h2": 100.0, "h3": 250.0}]
+                   * 10),
+    # tests/test_runtime.py:24-35: a single 4x blip decays in time
+    "transient_blip": (dict(ratio_threshold=1.3, patience=6, alpha=0.3),
+                       [{"a": 100.0, "b": 100.0,
+                         "c": 400.0 if s == 5 else 100.0}
+                        for s in range(14)]),
+    "blip_short_patience": (dict(ratio_threshold=1.3, patience=3,
+                                 alpha=0.3),
+                            [{"a": 100.0, "b": 100.0,
+                              "c": 400.0 if s == 5 else 100.0}
+                             for s in range(14)]),
+}
+
+
+@pytest.mark.parametrize("case", list(STEPS))
+def test_straggler_monitor_equals_jax(case):
+    kw, steps = STEPS[case]
+    mon, jmon = StragglerMonitor(**kw), JMonitor(**kw)
+    for step, times in enumerate(steps):
+        got = mon.record_step(step, times)
+        want = jmon.record_step(step, times)
+        assert [vars(e) for e in got] == [vars(e) for e in want]
+    assert [vars(e) for e in mon.events] == [vars(e) for e in jmon.events]
+    if case == "persistent":
+        assert {e.host for e in mon.events} == {"h3"}
+    elif case == "transient_blip":
+        assert not mon.events
+
+
+def test_daemon_timeline_is_valid_and_holds_its_spans(pair, tmp_path):
+    """A daemon's own virtual-clock recording exports as a valid trace
+    with one ``ingest.flush`` span a flush."""
+    from repro_torch.fleet import IngestionDaemon, fleet_telemetry
+
+    svc = FleetScoringService(pair.torch.model, pair.torch.params,
+                              pair.torch.pre, device="cpu")
+    svc.seed_history(pair.torch.frame)
+    daemon = IngestionDaemon(svc, capacity_rows=512, flush_interval=0.5,
+                             flush_rows=1 << 30, service_time_scale=0.0)
+    daemon.run(fleet_telemetry(pair.machines, rounds=3, runs_per_type=1,
+                               seed=7, interval=1.0, jitter=0.01))
+    path = str(tmp_path / "daemon.json")
+    obj = write_chrome_trace(path, tracer=daemon.tracer)
+    validate_chrome_trace_file(path)
+    flushes = [e for e in obj["traceEvents"] if e["name"] == "ingest.flush"]
+    st = daemon.stats()
+    assert len(flushes) == st["deadline_flushes"] + st["drain_flushes"] == 3
