@@ -3270,15 +3270,21 @@ PLANE_NODES = SERVE_NODES
 PLANE_ROUNDS = SERVE_DAEMON_ROUNDS
 PLANE_REGISTRY = ROOT / "build" / "chip_registry"
 PLANE_TIMELINE = ROOT / "build" / "chip_timeline.json"
-# [17b]: one drift retrain through the default retrain_fn on a 256-node
-# fleet: 10 runs a type of history, then rounds of one run a type. The
-# drift report a flush hook reads holds the flushes before it, so with
-# drift_flag_flushes 5 the retrain fires at the 6th flush, on a store of
-# 256 x 6 x (10 + 6) = 24,576 rows; one more flush runs its canary and
-# one its watch.
+# [17b]: two drift retrain episodes through the default retrain_fn on a
+# 256-node fleet: 10 runs a type of history, then rounds of one run a
+# type, one flush a round. The drift report a flush hook reads holds the
+# flushes before it, so with drift_flag_flushes 5 the first retrain
+# fires at the 6th flush, on a store of 256 x 6 x (10 + 6) = 24,576 rows;
+# one more flush runs its canary and one its watch, whose pass re-arms
+# the drift check, and the second retrain fires five flushes later, at
+# the 13th, on 256 x 6 x (10 + 13) = 35,328 rows.
 RETRAIN_NODES = 256
 RETRAIN_FLAG_FLUSHES = 5
-RETRAIN_ROUNDS = RETRAIN_FLAG_FLUSHES + 3
+RETRAIN_AT = (RETRAIN_FLAG_FLUSHES + 1, 2 * RETRAIN_FLAG_FLUSHES + 3)
+RETRAIN_ROUNDS = RETRAIN_AT[1] + 2
+# what a retrain may leave allocated or reserved on the card (the
+# returned parameters are some kilobytes; a kept graph pool, gigabytes)
+RETRAIN_MEMORY_SLACK = 64 << 20
 CHECKPOINT_DIR = ROOT / "build" / "chip_checkpoint"
 
 
@@ -3430,8 +3436,8 @@ def phase_plane_repair(golden, pre):
     from repro_torch.core.params import flat_params
     from repro_torch.fingerprint.runner import SuiteRunner
     from repro_torch.fleet import (FaultPlan, FleetScoringService,
-                                   IngestionDaemon, ModelPlane,
-                                   fleet_telemetry, inject_faults)
+                                   IngestionDaemon, fleet_telemetry,
+                                   inject_faults)
     from repro_torch.launch import serve
 
     machines = {f"fleet-{i}": "e2-medium" for i in range(PLANE_NODES)}
@@ -3459,11 +3465,8 @@ def phase_plane_repair(golden, pre):
                 # serve_daemon's plane; the golden model flags the
                 # degraded node, and a drift retrain on this 50,000-row
                 # store is not what this run holds ([17b] retrains)
-                plane = ModelPlane(svc, reg, daemon=daemon,
-                                   canary_flushes=1, watch_flushes=3,
-                                   min_health_shift=0.5,
-                                   retrain_fn=lambda service: None)
-                plane.bootstrap(params)
+                plane = serve.demo_plane(svc, daemon, reg, params,
+                                         retrain_fn=lambda service: None)
                 serve.run_modelplane_demo(daemon, plane, params, events)
                 versions = plane.registry.list_versions()
             else:
@@ -3517,9 +3520,11 @@ def phase_plane_repair(golden, pre):
 
 
 def phase_plane_retrain(golden, pre):
-    """[17b] one drift retrain episode through the default retrain_fn
+    """[17b] two drift retrain episodes through the default retrain_fn
     (a fresh model trained on the store by ``train_perona``), forced
-    with drift_ewma_threshold 0.0, then its canary and promote."""
+    with drift_ewma_threshold 0.0, each followed by its canary and
+    promote; the card's memory after each retrain is what it was
+    before."""
     import tempfile
 
     import torch
@@ -3540,21 +3545,26 @@ def phase_plane_retrain(golden, pre):
     daemon = IngestionDaemon(svc, capacity_rows=8 * RETRAIN_NODES * 6,
                              flush_interval=0.5, flush_rows=1 << 30,
                              service_time_scale=0.0)
-    seen = {}
+    episodes = []
     real = ModelPlane._default_retrain
 
     def retrain(self, service):
-        seen["rows"] = len(service.store)
-        seen["bwd0"] = ops.BWD_LAUNCHES
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ep = {"rows": len(service.store), "bwd0": ops.BWD_LAUNCHES,
+              "allocated0": torch.cuda.memory_allocated(),
+              "reserved0": torch.cuda.memory_reserved()}
         t0 = time.perf_counter()
         out = real(self, service)
         torch.cuda.synchronize()
-        seen["s"] = time.perf_counter() - t0
-        seen["bwd"] = ops.BWD_LAUNCHES - seen["bwd0"]
+        ep.update(s=time.perf_counter() - t0,
+                  bwd=ops.BWD_LAUNCHES - ep.pop("bwd0"),
+                  peak=torch.cuda.max_memory_allocated(),
+                  allocated=torch.cuda.memory_allocated(),
+                  reserved=torch.cuda.memory_reserved())
+        episodes.append(ep)
         return out
 
-    torch.cuda.reset_peak_memory_stats()
     ModelPlane._default_retrain = retrain
     try:
         with tempfile.TemporaryDirectory() as reg, \
@@ -3578,37 +3588,49 @@ def phase_plane_retrain(golden, pre):
             versions = plane.registry.list_versions()
     finally:
         ModelPlane._default_retrain = real
-    peak = torch.cuda.max_memory_allocated()
-    n = seen.get("rows", 0)
-    v2 = versions[1] if len(versions) > 1 else {}
-    verdict = v2.get("verdict") or {}
-    print(f"  b. drift retrain on {RETRAIN_NODES} nodes: the store held {n} "
-          f"rows when the retrain fired; the triplet loss's c @ c.T is "
-          f"4 N^2 = {4 * n * n / 1e9:.2f} GB a float32 N x N matrix; "
-          f"retrain {seen.get('s', float('nan')):.2f} s "
-          f"({plane.retrain_epochs} epochs, {seen.get('bwd', 0)} backward "
-          f"launches); peak memory {peak / 1e9:.2f} GB; v2 "
-          f"{v2.get('source')} {v2.get('status')}, canary passed "
-          f"{verdict.get('passed')} (divergence max "
-          f"{verdict.get('divergence_max', float('nan')):.4f}, latency "
-          f"ratio {verdict.get('latency_ratio_max', float('nan')):.3f}); "
-          f"retrains {status['retrains']}, promotions "
+    print(f"  b. {len(episodes)} drift retrain(s) on {RETRAIN_NODES} nodes, "
+          f"{plane.retrain_epochs} epochs each:")
+    for ep in episodes:
+        n = ep["rows"]
+        print(f"     the store held {n} rows; the triplet loss's c @ c.T is "
+              f"4 N^2 = {4 * n * n / 1e9:.2f} GB a float32 N x N matrix; "
+              f"retrain {ep['s']:.2f} s ({ep['bwd']} backward launches); "
+              f"peak memory {ep['peak'] / 1e9:.2f} GB; allocated "
+              f"{ep['allocated0'] / 1e6:.1f} -> {ep['allocated'] / 1e6:.1f} "
+              f"MB, reserved {ep['reserved0'] / 1e6:.1f} -> "
+              f"{ep['reserved'] / 1e6:.1f} MB")
+    for e in versions[1:]:
+        verdict = e.get("verdict") or {}
+        print(f"     v{e['version']} {e['source']} {e['status']}, canary "
+              f"passed {verdict.get('passed')} (divergence max "
+              f"{verdict.get('divergence_max', float('nan')):.4f}, latency "
+              f"ratio {verdict.get('latency_ratio_max', float('nan')):.3f})")
+    print(f"     retrains {status['retrains']}, promotions "
           f"{status['promotions']}")
     _check_dispatches("retrain", launches, daemon.stats())
-    check(status["retrains"] == 1 and n == RETRAIN_NODES * 6 * (
-        10 + RETRAIN_FLAG_FLUSHES + 1), "one retrain, on the 6-round store")
-    check(v2.get("source") == "drift-retrain" and verdict.get("passed"),
-          "the retrained candidate passes its canary")
-    check(v2.get("status") == "incumbent" and status["promotions"] == 1,
-          "the retrained candidate is promoted")
-    check(seen["bwd"] > 0, "the retrain launched the backward kernel")
-    from repro_torch.core.trainer import _program
-
-    _program.cache_clear()  # the retrain's graphed epoch and its pool
-    torch.cuda.empty_cache()
-    return {"store_rows": n, "retrain_s": seen["s"], "peak_bytes": peak,
-            "backward_launches": seen["bwd"], "status": status,
-            "verdict": verdict, "launches": launches}
+    check([ep["rows"] for ep in episodes]
+          == [RETRAIN_NODES * 6 * (10 + k) for k in RETRAIN_AT]
+          and status["retrains"] == len(RETRAIN_AT),
+          "two retrains, on the 6- and the 13-round store")
+    check(len(versions) == 3 and all(
+        e["source"] == "drift-retrain" and e["verdict"]["passed"]
+        for e in versions[1:]),
+          "each retrained candidate passes its canary")
+    check([e["status"] for e in versions[1:]] == ["retired", "incumbent"]
+          and status["promotions"] == 2,
+          "each retrained candidate is promoted")
+    check(all(ep["bwd"] > 0 for ep in episodes),
+          "each retrain launched the backward kernel")
+    check(all(ep["allocated"] - ep["allocated0"] <= RETRAIN_MEMORY_SLACK
+              and ep["reserved"] - ep["reserved0"] <= RETRAIN_MEMORY_SLACK
+              for ep in episodes),
+          "the card's memory after each retrain is what it was before")
+    first = episodes[0]
+    return {"store_rows": first["rows"], "retrain_s": first["s"],
+            "peak_bytes": first["peak"],
+            "backward_launches": first["bwd"], "episodes": episodes,
+            "status": status, "versions": versions[1:],
+            "launches": launches}
 
 
 def phase_plane_checkpoint(golden):

@@ -26,43 +26,22 @@ import os
 import queue
 import threading
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-
-def _key(name) -> str:
-    return str(name).replace(".", "/")
+from repro_torch.core.params import flat_params, unflatten
 
 
-def flatten_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(slash-joined path, leaf) pairs of a tree of dicts, lists and
-    tensors: the names the reference gives the same tree's leaves."""
-    if isinstance(tree, dict):
-        items = ((_key(k), v) for k, v in tree.items())
-    elif isinstance(tree, (list, tuple)):
-        items = ((str(i), v) for i, v in enumerate(tree))
-    else:
-        return [(prefix, tree)]
-    out = []
-    for k, v in items:
-        out.extend(flatten_with_paths(v, f"{prefix}/{k}" if prefix else k))
-    return out
-
-
-def map_with_paths(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
-    """``tree`` with each leaf replaced by ``fn(path, leaf)``; dicts keep
-    their keys, lists and tuples their type."""
-    if isinstance(tree, dict):
-        return {k: map_with_paths(fn, v, f"{prefix}/{_key(k)}"
-                                  if prefix else _key(k))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(map_with_paths(fn, v, f"{prefix}/{i}"
-                                         if prefix else str(i))
-                          for i, v in enumerate(tree))
-    return fn(prefix, tree)
+def _host_copy(leaf) -> np.ndarray:
+    """A leaf as a numpy array that owns its memory. numpy has no
+    bfloat16: a bf16 leaf is stored widened to float32, which holds it
+    exactly and restores to the same bits at the template's dtype."""
+    t = leaf.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.to("cpu", copy=True).numpy()
 
 
 class CheckpointManager:
@@ -93,8 +72,8 @@ class CheckpointManager:
         self._raise_pending()
         # a copy: a CPU tensor's numpy() would share its memory; a CUDA
         # tensor's copy has finished when .to returns
-        host = {path: leaf.detach().to("cpu", copy=True).numpy()
-                for path, leaf in flatten_with_paths(tree)}
+        host = {name.replace(".", "/"): _host_copy(leaf)
+                for name, leaf in flat_params(tree).items()}
         payload = (step, host, dict(extra or {}))
         if self.async_save:
             self._ensure_worker()
@@ -175,18 +154,27 @@ class CheckpointManager:
         return step if (self.dir / f"step_{step}.npz").exists() else None
 
     def restore(self, template: Any, step: Optional[int] = None):
-        """Restore into the structure of ``template`` (a tree of
-        tensors), each leaf on its template tensor's device and dtype.
-        Returns ``(tree, meta)``, or ``(None, None)`` when there is no
-        checkpoint."""
+        """Restore the leaves of ``template`` (a tree of tensors), each
+        on its template tensor's device and dtype: a flat dict of
+        tensors (a ``state_dict``) comes back with its keys, any other
+        tree as the nested dicts and lists of
+        :func:`~repro_torch.core.params.unflatten`. Returns ``(tree,
+        meta)``, or ``(None, None)`` when there is no checkpoint."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
         with np.load(self.dir / f"step_{step}.npz",
                      allow_pickle=False) as data:
-            tree = map_with_paths(
-                lambda path, leaf: torch.from_numpy(data[path]).to(
-                    device=leaf.device, dtype=leaf.dtype), template)
+            flat = {name: torch.from_numpy(
+                        data[name.replace(".", "/")]).to(
+                            device=leaf.device, dtype=leaf.dtype)
+                    for name, leaf in flat_params(template).items()}
+        if isinstance(template, dict) and all(
+                torch.is_tensor(v) for v in template.values()):
+            tree = flat
+        else:
+            tree = unflatten({k.replace(".", "/"): v
+                              for k, v in flat.items()})
         meta_path = self.dir / f"meta_{step}.json"
         extra = (json.loads(meta_path.read_text())["extra"]
                  if meta_path.exists() else {})

@@ -298,7 +298,7 @@ class EpochProgram:
 
     def _capture(self):
         dev = self.device
-        side = torch.cuda.Stream(dev)
+        side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_EPOCHS):
@@ -339,6 +339,15 @@ class EpochProgram:
         finally:
             torch.cuda.set_sync_debug_mode(mode)
 
+    def release(self) -> None:
+        """Drop the graph (its memory pool goes back to the allocator
+        once the program's tensors are gone too) and the static
+        batches; the program is spent."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+        self.tb = self.vb = None
+
     def result(self) -> Tuple[Dict[str, torch.Tensor], list, int]:
         """(selected parameters, history, best epoch) of the last run,
         read back once."""
@@ -359,6 +368,14 @@ class EpochProgram:
         return params, history, best_epoch
 
 
+@functools.lru_cache(maxsize=None)
+def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream of every program's warm-up on ``device``: cuBLAS
+    keeps a workspace for each stream it has run on, which a new stream
+    a program would leave behind at every capture."""
+    return torch.cuda.Stream(device)
+
+
 def _shapes(batch):
     return None if batch is None else tuple(
         (k, tuple(v.shape), v.dtype) for k, v in batch.items())
@@ -377,13 +394,22 @@ def train_perona(model: PeronaModel, train_batch: PeronaBatch,
                  val_batch: Optional[PeronaBatch] = None, *,
                  epochs: int = 100, lr: float = 3e-3,
                  weight_decay: float = 1e-4, patience: int = 25,
-                 seed: int = 0, device="cuda") -> TrainResult:
+                 seed: int = 0, device="cuda",
+                 cache: bool = True) -> TrainResult:
     """Device-resident training: the epoch as a CUDA graph replayed
     ``epochs`` times on the card (eagerly on the CPU). Trains ``model``
     from the parameters it holds, on ``device`` (the card unless
     ``"cpu"``), and leaves the selected parameters in it; they are also
     returned. ``epochs = 0`` returns the initial parameters, as the
-    reference's zero-length scan does."""
+    reference's zero-length scan does.
+
+    With ``cache=False`` the program serves this run only: its graph,
+    the graph's memory pool and its static tensors are released, and
+    the allocator's cache emptied, before the return. That is for a
+    one-off training in a long-lived process (the serve modes' model, a
+    retrain on a growing store), where a cached program would keep its
+    pool, tens of GB at some 30,000 rows, for the life of the
+    process."""
     dev = resolve_device(device)
     # full float32 products, set before any capture: parity with the
     # float32 reference
@@ -400,13 +426,19 @@ def train_perona(model: PeronaModel, train_batch: PeronaBatch,
     tb = batch_to_torch(train_batch, dev)
     vb = batch_to_torch(val_batch, dev) if has_val else None
     captures = CAPTURES
-    prog = _program(canonical_config(model.cfg), epochs, patience, has_val,
-                    (_shapes(tb), _shapes(vb)), dev)
+    key = (canonical_config(model.cfg), epochs, patience, has_val)
+    prog = (_program(*key, (_shapes(tb), _shapes(vb)), dev) if cache
+            else EpochProgram(*key, dev))
     hypers = {k: float(v) for k, v in model_hypers(
         model.cfg, lr, weight_decay, "cpu").items()}
     prog.run({k: p.detach() for k, p in live.items()}, tb, vb, hypers,
              seed)
     params, history, best_epoch = prog.result()
+    if not cache:
+        prog.release()
+        del prog, tb, vb
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     with torch.no_grad():
         _assign(live, params)
     return TrainResult(params=params, history=history,

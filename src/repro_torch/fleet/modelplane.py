@@ -679,7 +679,12 @@ class ModelPlane:
         ``train_perona`` trains the model it is given from the
         parameters it holds, and writes the selected ones into it, so
         the retrain trains a fresh model seeded by ``retrain_seed`` and
-        leaves ``service.model`` and ``service.params`` untouched."""
+        leaves ``service.model`` and ``service.params`` untouched.
+
+        The store grows between episodes, so each retrain trains at a
+        new batch shape: its program is not cached, and the card's
+        memory goes back to what it was before the retrain (less the
+        returned parameters)."""
         frame = service.store.frame
         if frame is None or len(frame) < 8:
             return None
@@ -689,7 +694,7 @@ class ModelPlane:
                                 self.retrain_seed))
         res = train_perona(model, batch, epochs=self.retrain_epochs,
                            seed=self.retrain_seed,
-                           device=service.scorer.devices[0])
+                           device=service.scorer.devices[0], cache=False)
         return res.params
 
     # -------------------------------------------------------------- stats

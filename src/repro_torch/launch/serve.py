@@ -198,7 +198,9 @@ def _trained_perona(machines, runs_per_type: int, seed: int, device):
     cfg = PeronaConfig(feature_dim=pre.feature_dim,
                        edge_dim=batch.edge.shape[-1])
     model = PeronaModel(cfg, generator=torch.Generator().manual_seed(seed))
-    res = train_perona(model, batch, epochs=40, seed=seed, device=device)
+    # one training a process: its program is released, not cached
+    res = train_perona(model, batch, epochs=40, seed=seed, device=device,
+                       cache=False)
     return runner, frame, pre, model, res.params
 
 
@@ -269,6 +271,22 @@ DAEMON_FAULTS = dict(dropout=0.05, delay=0.2, duplicate=0.2, reorder=0.2,
                      corrupt=0.15, burst=0.2, burst_window=3.0)
 
 
+def demo_plane(service, daemon, registry_dir, params, **overrides):
+    """The ``--modelplane`` run's plane over ``service`` and ``daemon``,
+    with ``params`` registered as the incumbent; ``overrides`` replace
+    its settings (``retrain_fn``, for one)."""
+    from repro_torch.fleet import ModelPlane
+
+    # generous health shift: only the NaN candidate should trip the
+    # watch, not the injected degraded node's drift
+    settings = dict(canary_flushes=1, watch_flushes=3,
+                    min_health_shift=0.5)
+    plane = ModelPlane(service, registry_dir, daemon=daemon,
+                       **{**settings, **overrides})
+    plane.bootstrap(params)
+    return plane
+
+
 def run_modelplane_demo(daemon, plane, params, events) -> None:
     """The ``--modelplane`` sequence over one event stream: a third of
     the stream, then an identical candidate (a divergence-free canary,
@@ -298,8 +316,8 @@ def serve_daemon(nodes: int = 6, rounds: int = 12,
     on the live stream (:func:`run_modelplane_demo`), with the version
     registry in ``registry_dir``."""
     from repro_torch.fleet import (FaultPlan, FleetScoringService,
-                                   IngestionDaemon, ModelPlane,
-                                   fleet_telemetry, inject_faults)
+                                   IngestionDaemon, fleet_telemetry,
+                                   inject_faults)
 
     machines = {f"fleet-{i}": "e2-medium" for i in range(nodes)}
     _, frame, pre, model, params = _trained_perona(
@@ -315,12 +333,7 @@ def serve_daemon(nodes: int = 6, rounds: int = 12,
     if modelplane:
         if registry_dir is None:
             registry_dir = tempfile.mkdtemp(prefix="perona-registry-")
-        # generous health shift: only the NaN candidate should trip
-        # the watch, not the injected degraded node's drift
-        plane = ModelPlane(service, registry_dir, daemon=daemon,
-                           canary_flushes=1, watch_flushes=3,
-                           min_health_shift=0.5)
-        plane.bootstrap(params)
+        plane = demo_plane(service, daemon, registry_dir, params)
     degraded_node = f"fleet-{nodes - 1}"
     events = fleet_telemetry(
         machines, rounds=rounds, runs_per_type=runs_per_type,

@@ -13,8 +13,6 @@ from repro.checkpointing.manager import CheckpointManager as JManager  # noqa
 from repro.core.model import PeronaConfig as JConfig  # noqa: E402
 from repro.core.model import PeronaModel as JModel  # noqa: E402
 from repro_torch.checkpointing import CheckpointManager  # noqa: E402
-from repro_torch.checkpointing.manager import (  # noqa: E402
-    flatten_with_paths)
 from repro_torch.core.model import PeronaConfig, PeronaModel  # noqa: E402
 from repro_torch.core.params import flat_params  # noqa: E402
 from repro_torch.core.params import params_from_numpy  # noqa: E402
@@ -154,6 +152,40 @@ def test_pinned_steps_survive_gc(tmp_path, package):
     assert float(np.asarray(restored["params"]["w"])[0, 0]) == 1.0
 
 
+@pytest.mark.parametrize("async_save", [False, True])
+def test_bfloat16_leaves_round_trip_bit_for_bit(tmp_path, async_save):
+    """numpy has no bfloat16: a bf16 leaf is stored as float32, which
+    holds it exactly, and restores to the same bits as bf16; the
+    reference restores the file at its own template's dtype."""
+    g = torch.Generator().manual_seed(0)
+    state = {"params": {"w": torch.randn(5, 7, generator=g).bfloat16(),
+                        "b": torch.randn(7, generator=g)},
+             "opt": {"m": (torch.randn(5, 7, generator=g) * 1e-30
+                           ).bfloat16()}}
+    mgr = CheckpointManager(tmp_path, async_save=async_save)
+    mgr.save(1, state)
+    mgr.close()
+    assert _npz(tmp_path / "step_1.npz")["params/w"].dtype == np.float32
+    got, _ = mgr.restore({"params": {"w": torch.zeros(5, 7,
+                                                      dtype=torch.bfloat16),
+                                     "b": torch.zeros(7)},
+                          "opt": {"m": torch.zeros(5, 7,
+                                                   dtype=torch.bfloat16)}})
+    # bf16 -> float32 is exact and one to one: equal floats, equal bits
+    for grp, leaves in state.items():
+        for k, want in leaves.items():
+            assert got[grp][k].dtype == want.dtype
+            assert torch.equal(got[grp][k].float(), want.float()), (grp, k)
+    jgot, _ = JManager(tmp_path).restore(
+        {"params": {"w": jnp.zeros((5, 7), jnp.bfloat16),
+                    "b": jnp.zeros(7)},
+         "opt": {"m": jnp.zeros((5, 7), jnp.bfloat16)}})
+    assert jgot["params"]["w"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(
+        np.asarray(jgot["params"]["w"], np.float32),
+        state["params"]["w"].float().numpy())
+
+
 # --------------------------------------------- the snapshot is a copy
 
 def test_tensor_updated_in_place_after_save_persists_old_values(
@@ -205,11 +237,15 @@ def test_flat_state_dict_names_are_the_references_paths(perona):
     from repro.common.tree import tree_flatten_with_paths
 
     want = sorted(p for p, _ in tree_flatten_with_paths(jparams))
-    got = sorted(p for p, _ in flatten_with_paths(model.state_dict()))
-    assert got == want
+
+    def paths(tree):
+        """The manager's names: ``flat_params`` names, slash-joined."""
+        return sorted(k.replace(".", "/") for k in flat_params(tree))
+
+    assert paths(model.state_dict()) == want
     # the reference's nested tree of tensors flattens to the same names
     nested = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams))
-    assert sorted(p for p, _ in flatten_with_paths(nested)) == want
+    assert paths(nested) == want
 
 
 def test_jax_checkpoint_restores_in_the_port(tmp_path, perona):

@@ -541,6 +541,34 @@ def test_default_retrain_leaves_the_service_untouched(retrain_pair,
         torch.testing.assert_close(again[k], v, rtol=1e-5, atol=1e-6)
 
 
+def test_default_retrain_keeps_no_program(retrain_pair, tmp_path,
+                                          monkeypatch):
+    """Each retrain builds its epoch program for that run only (the
+    store, hence the batch shape, grows between episodes): the program
+    cache does not grow, and the program is gone when the retrain
+    returns, with no garbage collection in between."""
+    import weakref
+
+    from repro_torch.core import trainer as T
+
+    built = []
+
+    class Tracked(T.EpochProgram):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(weakref.ref(self))
+
+    monkeypatch.setattr(T, "EpochProgram", Tracked)
+    svc = retrain_pair["torch"]
+    plane = ModelPlane(svc, tmp_path / "reg", retrain_epochs=2)
+    cached = T._program.cache_info().currsize
+    for _ in range(2):
+        assert plane._default_retrain(svc) is not None
+    assert len(built) == 2
+    assert all(ref() is None for ref in built)
+    assert T._program.cache_info().currsize == cached
+
+
 def test_default_retrain_batch_equals_jax_build_graphs(retrain_pair,
                                                        tmp_path,
                                                        monkeypatch):
