@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Seven paths are driven: Perona's scoring
+outputs, and time its kernels. Eight paths are driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
 width (chunkwise mLSTM kernel), Perona's host-loop training and its
@@ -11,7 +11,10 @@ serving tier: stacked request scoring, the scoring service, the
 ingestion daemon and the serve modes (the edge-softmax forward), and
 its operations layer: the model plane with its drift retrain, the
 registry, the timeline and the checkpoint manager (both edge-softmax
-kernels).
+kernels), and the configuration search of paper §IV-D/E: the scout
+simulator's threefry draws, CherryPick and Arrow with Perona's
+acquisition weighting, the batched float64 BO replay, Lotaru and Tarema
+(both edge-softmax kernels, through the machine scores).
 
     python3 chip_smoke.py
 
@@ -165,6 +168,30 @@ Phases, each printing on lines of its own:
    ``CheckpointManager(async_save=True)``: the card's parameters saved,
    updated in place, restored onto the card bit for bit. Every dispatch
    launches the kernel; no dispatch is retried and no flush fails.
+18. the configuration search, against the JAX package's golden file
+   ``src/repro_torch/assets/scout_search_golden.npz``: (a) the threefry
+   words and float64 uniforms of the scout's parameter and noise draws
+   bit for bit, normals within ``NORMAL_ULP``, the parameter grid within
+   ``BOUNDED_ULP``, the noise, runtime, cost and lows grids of
+   ``ScoutDataset(device="cuda")`` within ``GRID_RTOL``, and the seeded
+   expansion on the card equal to the dataset's host tables bit for
+   bit; (b) the §IV-D matrix (18 workloads x seeds 0-2 x 4 variants x
+   healthy and the c4 fleet degraded through the store path, 432
+   lanes) at the golden's stand-in scores: picks and counts equal to
+   JAX's in every lane, costs within ``GRID_RTOL``; (c) the same matrix
+   at [15e]'s machine scores: ``replay_pipelined(seeded=True,
+   block_lanes=128)`` against the sequential tuner on the host in every
+   lane (a lane may leave it only at a 1-ulp float32 EI tie, printed),
+   and the host-table, seeded and unpipelined replays equal; (d) the
+   fleet sweep of ``benchmarks/bench_optimizer.py`` (12 seeds x the
+   healthy fleet and three deferred drift conditions, 3,456 lanes in
+   blocks of 128), seeded and from host tables, picks equal; (e) one
+   seeded dispatch of the 432 lanes: first and later time, launches and
+   idle share from the profiler, and no host sync from the first copy
+   to the fetch under ``set_sync_debug_mode("error")``; (f) §IV-E as
+   ``benchmarks/bench_workflows.py`` prints it: the Lotaru table and
+   the Tarema grouping on calibrated scores of the four GCP types, the
+   paper's claims holding.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -3681,6 +3708,521 @@ def phase_model_plane(golden, pre):
     return out
 
 
+# ------------------------------------------------ the configuration search
+# [18]: the §IV-D configuration search (paper §IV-D/E). (a) and (b) hold
+# the port to the JAX package's golden file (scout_search_golden.npz),
+# (c) to the port's own sequential tuner on the host, (d) is the fleet
+# sweep of benchmarks/bench_optimizer.py:151-170.
+SEARCH_GOLDEN = (ROOT / "src" / "repro_torch" / "assets"
+                 / "scout_search_golden.npz")
+NORMAL_ULP = 32  # normals against JAX's (tests/test_torch_rng.py)
+BOUNDED_ULP = 1  # the parameter grid: XLA may fuse lo + (hi - lo) * U
+GRID_RTOL = 1e-13  # noise, runtime and cost grids, relative
+SEARCH_BLOCK = 128
+SWEEP_SEEDS = tuple(range(12))
+SWEEP_DRIFTS = (("c4.large", "cpu"), ("m4.xlarge", "memory"),
+                ("r4.large", "disk"))
+SEARCH_REPEATS = 5
+# [18f]: benchmarks/bench_workflows.py's machines
+WORKFLOW_TYPES = ("e2-medium", "n1-standard-4", "n2-standard-4",
+                  "c2-standard-4")
+TAREMA_MACHINES = {"a": "n1-standard-4", "b": "n1-standard-4",
+                   "c": "n2-standard-4", "d": "c2-standard-4",
+                   "e": "e2-medium"}
+
+
+def load_search_golden(path=SEARCH_GOLDEN):
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _ulps(a, b) -> int:
+    """Largest distance between two float64 arrays in ulps (values of
+    one sign, as every grid here)."""
+    import numpy as np
+
+    a = np.ascontiguousarray(a, np.float64).view(np.int64)
+    b = np.ascontiguousarray(b, np.float64).view(np.int64)
+    return int(np.max(np.abs(a - b))) if a.size else 0
+
+
+def _max_rel(a, b) -> float:
+    import numpy as np
+
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def search_matrix(ds, seeds, conditions, condition_major=False):
+    """The §IV-D scenario matrix over all 18 workloads and 4 variants:
+    the healthy fleet plus ``conditions``."""
+    from repro_torch.optimizer import HEALTHY, build_scenarios
+
+    return build_scenarios(ds, seeds=tuple(seeds),
+                           conditions=(HEALTHY,) + tuple(conditions),
+                           condition_major=condition_major)
+
+
+def golden_condition(golden):
+    """The golden matrix's degraded fleet, derived by the port's store
+    path (``drifted_condition``), held to the drops JAX derived."""
+    import json
+
+    from repro_torch.optimizer import drifted_condition
+
+    meta = json.loads(str(golden["meta"]))
+    cond = drifted_condition(tuple(meta["degraded_types"]),
+                             name=meta["condition"])
+    drop = {vm: {str(a): v for a, v in per.items()}
+            for vm, per in cond.score_drop.items()}
+    check(drop == json.loads(str(golden["search/drop"])),
+          "the degraded fleet's score drops equal JAX's")
+    return cond
+
+
+def check_search_rng(golden, device):
+    """[18a] threefry words and uniforms of the golden's keys bit for
+    bit, normals within ``NORMAL_ULP``, the parameter grid within
+    ``BOUNDED_ULP``, the noise, runtime, cost and lows grids within
+    ``GRID_RTOL``; then the seeded expansion on ``device`` against the
+    dataset's host tables, bit for bit."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common import rng
+    from repro_torch.optimizer import (HEALTHY, build_scenarios,
+                                       lane_spec, lane_tables)
+    from repro_torch.optimizer.replay import (TABLE_NAMES, expand_seeded,
+                                              seeded_inputs)
+    from repro_torch.tuning.scout import (CONTENTION_SCALE, PARAM_BOUNDS,
+                                          ScoutDataset)
+
+    dev = torch.device(device)
+    meta = json.loads(str(golden["meta"]))
+    seed = meta["seed"]
+    check(np.array_equal(rng.stream_key(seed, rng.STREAM_WORKLOAD_PARAMS),
+                         golden["keys/params"])
+          and np.array_equal(rng.stream_key(seed, rng.STREAM_CONTENTION),
+                             golden["keys/noise"]),
+          "stream keys equal JAX's")
+    uids = golden["grid/uid"].astype(np.int64)
+    n_w = len(golden["grid/runtime"])
+    out = {}
+    for name, cols in (("params", np.arange(len(PARAM_BOUNDS))),
+                       ("noise", uids)):
+        key = rng.as_key(golden[f"keys/{name}"], dev)
+        cells = rng.fold_in(
+            rng.fold_in(key, torch.arange(n_w, device=dev)).unsqueeze(1),
+            torch.as_tensor(cols, device=dev))
+        hi, lo = rng.random_bits(cells)
+        words = torch.stack([hi, lo], -1).cpu().numpy().astype(np.uint32)
+        check(np.array_equal(words, golden[f"{name}/words"]),
+              f"{name}: threefry words equal JAX's bit for bit")
+        check(np.array_equal(rng.uniform(cells).cpu().numpy(),
+                             golden[f"{name}/uniform"]),
+              f"{name}: uniforms equal JAX's bit for bit")
+        out[f"{name}_draws"] = int(words.size // 2)
+    normal = rng.normal(cells).cpu().numpy()
+    out["normal_max_ulp"] = _ulps(normal, golden["noise/normal"])
+    out["normal_differing"] = int(np.sum(normal != golden["noise/normal"]))
+    lo_b = np.asarray([b[1] for b in PARAM_BOUNDS])
+    hi_b = np.asarray([b[2] for b in PARAM_BOUNDS])
+    bounded = rng.bounded_uniform_grid(golden["keys/params"], n_w, lo_b,
+                                       hi_b, dev).cpu().numpy()
+    out["bounded_max_ulp"] = _ulps(bounded, golden["params/grid"])
+    noise = rng.lognormal_noise_grid(golden["keys/noise"], n_w, uids,
+                                     CONTENTION_SCALE, dev).cpu().numpy()
+    out["noise_max_ulp"] = _ulps(noise, golden["noise/grid"])
+    ds = ScoutDataset(seed=seed, device=dev)
+    rel = {"noise": _max_rel(noise, golden["noise/grid"])}
+    for name in ("base_runtime", "runtime", "cost", "lows"):
+        rel[name] = _max_rel(getattr(ds.grid, name), golden[f"grid/{name}"])
+    out["grid_rel"] = rel
+    out["grid_max_rel"] = max(rel.values())
+    check(out["normal_max_ulp"] <= NORMAL_ULP,
+          f"normals within {NORMAL_ULP} ulp of JAX's")
+    check(out["bounded_max_ulp"] <= BOUNDED_ULP,
+          f"the parameter grid within {BOUNDED_ULP} ulp of JAX's")
+    check(out["grid_max_rel"] <= GRID_RTOL,
+          f"noise, runtime, cost and lows grids within {GRID_RTOL} of "
+          "JAX's")
+    # the seeded expansion on the device against the host tables: one
+    # lane a (workload, variant)
+    scens = build_scenarios(ds, seeds=(0,), conditions=(HEALTHY,))
+    spec = lane_spec(ds, scens, meta["scores"])
+    tab = lane_tables(ds, scens, meta["scores"])
+    got = expand_seeded(*seeded_inputs(spec, dev), spec.noise_scale)
+    for name, t in zip(TABLE_NAMES, got):
+        check(np.array_equal(t.cpu().numpy(), getattr(tab, name)),
+              f"the seeded expansion's {name} equals the dataset's host "
+              "table bit for bit")
+    out["seeded_lanes"] = len(scens)
+    return out
+
+
+def check_search_jax(golden, device):
+    """[18b] the port's replay of the golden's 432-lane matrix at its
+    stand-in scores: picks and counts equal to JAX's in every lane,
+    costs within ``GRID_RTOL``."""
+    import json
+
+    import numpy as np
+
+    from repro_torch.optimizer import (lane_tables, replay,
+                                       traces_from_result)
+    from repro_torch.tuning.scout import ScoutDataset
+
+    meta = json.loads(str(golden["meta"]))
+    ds = ScoutDataset(seed=meta["seed"], device=device)
+    scens = search_matrix(ds, meta["seeds"], (golden_condition(golden),))
+    tab = lane_tables(ds, scens, meta["scores"])
+    res = replay(tab, device=ds.device)
+    picks, counts = golden["search/picks"], golden["search/counts"]
+    differ = np.any(res.chosen != picks, axis=1) | (res.count != counts)
+    traces = traces_from_result(tab, res, ds.configs)
+    costs = np.full(picks.shape, np.nan)
+    for lane, tr in enumerate(traces):
+        costs[lane, :len(tr.costs)] = tr.costs
+    both = np.isfinite(costs) & np.isfinite(golden["search/costs"])
+    return {"lanes": len(scens), "lanes_differing": int(differ.sum()),
+            "differing": np.flatnonzero(differ).tolist(),
+            "cost_max_rel": _max_rel(costs[both],
+                                     golden["search/costs"][both])}
+
+
+def _same_trace(a, b) -> bool:
+    return ([c.key for c in a.evaluated] == [c.key for c in b.evaluated]
+            and a.best_valid_cost == b.best_valid_cost)
+
+
+def tie_at_divergence(ds, scenario, scores, seq, got):
+    """Where a replayed lane leaves its sequential trace: the round,
+    both picks, and whether they are the lane's two top float32
+    selection scores at most one float32 ulp apart (the replay's scores
+    recomputed for that round on the dataset's device)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.common.mesh import shard_size
+    from repro_torch.optimizer import ReplayConfig, lane_tables
+    from repro_torch.optimizer.replay import (TABLE_NAMES, _to_device,
+                                              selection_scores)
+
+    cfg = ReplayConfig()
+    col = {c.key: j for j, c in enumerate(ds.configs)}
+    a = [col[c.key] for c in seq.evaluated]
+    b = [col[c.key] for c in got.evaluated]
+    k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    out = {"round": k, "sequential": a[k:k + 1], "replay": b[k:k + 1],
+           "tie": False}
+    if k >= min(len(a), len(b)):
+        return out  # a stop decision, not a pick
+    tab = lane_tables(ds, [scenario], scores, cfg)
+    tables = tuple(_to_device(getattr(tab, n), ds.device)
+                   for n in TABLE_NAMES)
+    sel = np.full((1, cfg.max_runs), -1, np.int64)
+    sel[0, :k] = a[:k]
+    ei, _ = selection_scores(_to_device(sel, ds.device),
+                             torch.full((1,), k, device=ds.device),
+                             tables, cfg=cfg,
+                             slots=shard_size(cfg.max_runs))
+    ei = ei[0].cpu().numpy().astype(np.float32)
+    top = np.argsort(-ei, kind="stable")[:2]
+    out["top_scores"] = ei[top].tolist()
+    out["tie"] = bool(sorted((a[k], b[k])) == sorted(top.tolist())
+                      and np.nextafter(ei[top[1]], np.float32(np.inf))
+                      >= ei[top[0]])
+    return out
+
+
+def phase_search_sequential(ds, scores, cond):
+    """[18c] the 432-lane matrix at [15e]'s scores: the pipelined seeded
+    replay against the port's sequential tuner on the host in every
+    lane; the host-table, seeded and pipelined replays equal."""
+    import torch
+
+    from repro_torch.optimizer import (reference_search, replay_pipelined,
+                                       replay_scenarios)
+
+    scens = search_matrix(ds, (0, 1, 2), (cond,))
+    t0 = time.perf_counter()
+    piped, stats = replay_pipelined(ds, scens, scores, seeded=True,
+                                    block_lanes=SEARCH_BLOCK,
+                                    return_stats=True)
+    piped_s = time.perf_counter() - t0
+    host = replay_scenarios(ds, scens, scores)
+    seeded = replay_scenarios(ds, scens, scores, seeded=True)
+    check(all(_same_trace(x, y) and _same_trace(x, z)
+              for x, y, z in zip(host, seeded, piped)),
+          "host-table, seeded and pipelined replays pick alike")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = [reference_search(ds, sc, scores) for sc in scens]
+    seq_s = time.perf_counter() - t0
+    diverged = [lane for lane, (a, b) in enumerate(zip(seq, piped))
+                if not _same_trace(a, b)]
+    ties = {lane: tie_at_divergence(ds, scens[lane], scores, seq[lane],
+                                    piped[lane]) for lane in diverged}
+    for lane, t in ties.items():
+        sc = scens[lane]
+        print(f"    lane {lane} ({sc.workload}, seed {sc.seed}, "
+              f"{sc.variant}, {sc.condition.name}) leaves the sequential "
+              f"trace at run {t['round']}: {t}")
+    check(all(t["tie"] for t in ties.values()),
+          "every lane equals the sequential tuner but at 1-ulp float32 "
+          "EI ties")
+    out = {"lanes": len(scens), "diverged": len(diverged),
+           "ties": {str(k): v for k, v in ties.items()},
+           "sequential_s": seq_s,
+           "sequential_searches_per_s": len(scens) / seq_s,
+           "pipelined_s": piped_s,
+           "pipelined_searches_per_s": len(scens) / piped_s,
+           "blocks": stats["blocks"], "table_s": stats["table_s"]}
+    print(f"  c. {len(scens)} lanes at [15e]'s scores: pipelined seeded "
+          f"replay (blocks of {SEARCH_BLOCK}) {piped_s:.3f} s "
+          f"({out['pipelined_searches_per_s']:.1f} searches/s), "
+          f"sequential tuner on the host {seq_s:.3f} s "
+          f"({out['sequential_searches_per_s']:.1f} searches/s); "
+          f"{len(diverged)} lanes leave the sequential trace, "
+          f"{sum(t['tie'] for t in ties.values())} of them at a 1-ulp "
+          "float32 tie; host-table, seeded and unpipelined replays equal")
+    return out
+
+
+def phase_search_sweep(ds, scores):
+    """[18d] the fleet sweep (benchmarks/bench_optimizer.py:151-170):
+    18 workloads x 12 seeds x 4 variants x the healthy fleet and three
+    deferred drift conditions, condition-major, in blocks of 128 lanes,
+    seeded and from host tables."""
+    from repro_torch.optimizer import REPLAY_TRACES, drifted_condition
+    from repro_torch.optimizer import replay_pipelined
+
+    conds = tuple(drifted_condition((vm,), aspects=(aspect,), seed=i,
+                                    name=f"sweep-{vm}-{aspect}",
+                                    deferred=True)
+                  for i, (vm, aspect) in enumerate(SWEEP_DRIFTS))
+    scens = search_matrix(ds, SWEEP_SEEDS, conds, condition_major=True)
+    check(len(scens) == 3456, "the sweep has 3,456 lanes")
+    runs = {}
+    signatures = REPLAY_TRACES.count
+    for name, seeded in (("seeded_cold", True), ("host_tables", False),
+                         ("seeded", True)):
+        t0 = time.perf_counter()
+        traces, stats = replay_pipelined(ds, scens, scores, seeded=seeded,
+                                         block_lanes=SEARCH_BLOCK,
+                                         return_stats=True)
+        wall = time.perf_counter() - t0
+        runs[name] = {"wall_s": wall, "searches_per_s": len(scens) / wall,
+                      "blocks": stats["blocks"],
+                      "table_s": stats["table_s"], "traces": traces}
+    check(all(_same_trace(a, b) and _same_trace(a, c) for a, b, c in zip(
+        runs["seeded"]["traces"], runs["host_tables"]["traces"],
+        runs["seeded_cold"]["traces"])),
+        "the sweep's seeded picks equal its host-table picks")
+    for r in runs.values():
+        del r["traces"]
+    out = {"lanes": len(scens), "runs": runs,
+           "new_signatures": REPLAY_TRACES.count - signatures}
+    print(f"  d. fleet sweep, {len(scens)} lanes in "
+          f"{runs['seeded']['blocks']} blocks: seeded "
+          f"{runs['seeded']['wall_s']:.3f} s "
+          f"({runs['seeded']['searches_per_s']:.1f} searches/s; first run, "
+          f"deriving the 3 drift conditions, "
+          f"{runs['seeded_cold']['wall_s']:.3f} s), host tables "
+          f"{runs['host_tables']['wall_s']:.3f} s "
+          f"({runs['host_tables']['table_s']:.3f} s building tables); "
+          f"picks equal; {out['new_signatures']} new signatures")
+    return out
+
+
+def _profiled(fn):
+    """Wall seconds, device seconds and CUDA activities (kernels and
+    copies) of one call of ``fn``, which ends in a fetch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        if (evt.device_type == DeviceType.CUDA
+                and not evt.key.startswith("Activity Buffer")):
+            device_us += evt.self_device_time_total
+            launches += evt.count
+    return wall, device_us / 1e6, launches
+
+
+def phase_search_timing(ds, scores, cond):
+    """[18e] one dispatch of the 432-lane seeded replay: first and
+    later, its launches and idle share (profiler), one round's and the
+    seeded expansion's launches, and no host sync from the first copy to
+    the fetch (``set_sync_debug_mode("error")``)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.common.mesh import pad_lanes, shard_size
+    from repro_torch.optimizer import (ReplayConfig, lane_spec,
+                                       lane_tables, replay_async,
+                                       replay_seeded,
+                                       replay_seeded_async)
+    from repro_torch.optimizer.replay import (_init_carry, _round,
+                                              expand_seeded, seeded_inputs)
+
+    cfg = ReplayConfig()
+    scens = search_matrix(ds, (0, 1, 2), (cond,))
+    spec = lane_spec(ds, scens, scores, cfg)
+    tab = lane_tables(ds, scens, scores, cfg)
+    dev = ds.device
+    # a lane count no earlier call used: its first dispatch is cold
+    lanes_floor = 1024
+    t0 = time.perf_counter()
+    first = replay_seeded(spec, cfg, device=dev, lanes_floor=lanes_floor)
+    first_s = time.perf_counter() - t0
+    later = []
+    for _ in range(SEARCH_REPEATS):
+        t0 = time.perf_counter()
+        again = replay_seeded(spec, cfg, device=dev, lanes_floor=lanes_floor)
+        later.append(time.perf_counter() - t0)
+        check((again.chosen == first.chosen).all(),
+              "repeated dispatches pick alike")
+    later_s = statistics.median(later)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [replay_seeded_async(spec, cfg, device=dev),
+                   replay_async(tab, cfg, device=dev)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    results = [p.result() for p in pending]
+    check((results[0].chosen == results[1].chosen).all(),
+          "seeded and host-table dispatches pick alike")
+    wall, device_s, launches = _profiled(
+        lambda: replay_seeded(spec, cfg, device=dev))
+    lanes = shard_size(len(spec))
+    grid, lane_args = seeded_inputs(spec, dev, lanes=lanes,
+                                    n_conds=shard_size(len(
+                                        spec.norm_scores)))
+    _, _, expand_launches = _profiled(
+        lambda: expand_seeded(grid, lane_args, spec.noise_scale))
+    tables = expand_seeded(grid, lane_args, spec.noise_scale)
+    carry = _init_carry(pad_lanes(spec.init_idx, lanes), lanes, cfg, dev)
+    _, _, round_launches = _profiled(
+        lambda: _round(*carry, tables, cfg=cfg,
+                       slots=shard_size(cfg.max_runs)))
+    out = {"lanes": len(scens), "padded": lanes, "first_s": first_s,
+           "later_s": later_s, "first_searches_per_s": len(scens) / first_s,
+           "later_searches_per_s": len(scens) / later_s,
+           "profiled_wall_s": wall, "device_s": device_s,
+           "device_idle_share": 1.0 - device_s / wall,
+           "launches_per_dispatch": launches,
+           "launches_expansion": expand_launches,
+           "launches_per_round": round_launches,
+           "rounds": cfg.max_runs - cfg.n_init,
+           "no_sync_inside_dispatch": True}
+    print(f"  e. one seeded dispatch of {len(scens)} lanes (padded to "
+          f"{lanes}; {lanes_floor} for the timed ones): first "
+          f"{first_s * 1e3:.1f} ms, later {later_s * 1e3:.1f} ms (median of "
+          f"{SEARCH_REPEATS}; {out['later_searches_per_s']:.1f} searches/s);"
+          f" profiled {wall * 1e3:.1f} ms wall, {device_s * 1e3:.2f} ms of "
+          f"device activity, idle share {out['device_idle_share']:.4f}, "
+          f"{launches} launches and copies a dispatch ({expand_launches} "
+          f"in the seeded expansion, {round_launches} a round x "
+          f"{out['rounds']}); no host sync from the first copy to the "
+          "fetch under set_sync_debug_mode('error')")
+    return out
+
+
+def phase_search_workflows():
+    """[18f] §IV-E as benchmarks/bench_workflows.py prints it: the
+    Lotaru table and the Tarema grouping on calibrated machine scores
+    of the four GCP types (10 runs a type, 40 epochs on the card)."""
+    import numpy as np
+
+    from repro_torch.tuning import lotaru, tarema
+    from repro_torch.tuning.perona_weights import (
+        calibrate_scores, fingerprint_machine_scores)
+
+    t0 = time.perf_counter()
+    scores, proxies = fingerprint_machine_scores(
+        WORKFLOW_TYPES, runs_per_type=10, epochs=40,
+        return_calibration=True)
+    train_s = time.perf_counter() - t0
+    cal = calibrate_scores(scores, proxies)
+    tab = lotaru.evaluate_predictors(cal)
+    rows = []
+    for method in ("naive", "online_m", "online_p", "lotaru", "perona"):
+        for stat in ("median", "p90", "p95"):
+            rows.append((f"tableIII.{method}.{stat}",
+                         f"{tab[method][stat]:.4f}"))
+    same = tarema.same_grouping(
+        tarema.groups_from_microbenchmarks(TAREMA_MACHINES),
+        tarema.groups_from_perona(TAREMA_MACHINES, cal))
+    rows.append(("tarema.same_groups", str(same)))
+    print(f"  f. §IV-E on calibrated scores of {len(WORKFLOW_TYPES)} GCP "
+          f"types (training {train_s:.2f} s):")
+    for name, value in rows:
+        print(f"    {name},,{value}")
+    check(all(np.isfinite(tab[m][s]) for m in tab for s in tab[m]),
+          "the Lotaru table is finite")
+    claims = {
+        "lotaru_beats_naive": tab["lotaru"]["median"] < tab["naive"]["median"],
+        "perona_beats_naive": tab["perona"]["median"] < tab["naive"]["median"],
+        "perona_within_2x_lotaru": (tab["perona"]["median"]
+                                    < 2.0 * tab["lotaru"]["median"] + 0.02),
+        "tarema_same_groups": same}
+    print(f"    the paper's claims (tests/test_tuning.py): {claims}")
+    check(all(claims.values()), f"the paper's §IV-E claims hold: {claims}")
+    return {"train_s": train_s, "table": tab, "claims": claims}
+
+
+def phase_search(scores):
+    import torch
+
+    from repro_torch.tuning.scout import ScoutDataset
+
+    print("[18] the configuration search: scout draws on threefry, "
+          "CherryPick and Arrow with Perona's weighting, the batched "
+          "float64 replay, Lotaru and Tarema")
+    golden = load_search_golden()
+    rng_out = check_search_rng(golden, "cuda")
+    print(f"  a. threefry words and uniforms bit for bit "
+          f"({rng_out['params_draws']} parameter and "
+          f"{rng_out['noise_draws']} noise draws); normals "
+          f"{rng_out['normal_differing']} differ, max "
+          f"{rng_out['normal_max_ulp']} ulp (limit {NORMAL_ULP}); "
+          f"parameter grid max {rng_out['bounded_max_ulp']} ulp (limit "
+          f"{BOUNDED_ULP}); noise grid max {rng_out['noise_max_ulp']} ulp; "
+          f"grids max relative {rng_out['grid_max_rel']:.3e} (limit "
+          f"{GRID_RTOL}); the seeded expansion equals the dataset's "
+          f"tables bit for bit ({rng_out['seeded_lanes']} lanes)")
+    jax_out = check_search_jax(golden, "cuda")
+    print(f"  b. {jax_out['lanes']} lanes at the stand-in scores: "
+          f"{jax_out['lanes_differing']} differ from JAX's picks and "
+          f"counts; costs max relative {jax_out['cost_max_rel']:.3e}")
+    check(jax_out["lanes_differing"] == 0,
+          f"every lane picks what JAX picked ({jax_out['differing']})")
+    check(jax_out["cost_max_rel"] <= GRID_RTOL,
+          f"costs within {GRID_RTOL} of JAX's")
+    ds = ScoutDataset(seed=0, device="cuda")
+    cond = golden_condition(golden)
+    out = {"rng": rng_out, "jax": jax_out,
+           "sequential": phase_search_sequential(ds, scores, cond),
+           "sweep": phase_search_sweep(ds, scores),
+           "timing": phase_search_timing(ds, scores, cond),
+           "workflows": phase_search_workflows()}
+    torch.cuda.empty_cache()
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3803,6 +4345,15 @@ def main() -> int:
     check(plane_launches["forward"] > 0 and plane_launches["backward"] > 0,
           "the operations layer launched both edge-softmax kernels")
 
+    ops.LAUNCHES = ops.BWD_LAUNCHES = 0  # the configuration search starts
+    search = timed("configuration search", seconds, phase_search,
+                   graph_ranking["machines"]["scores"])
+    search_launches = {"forward": ops.LAUNCHES,
+                       "backward": ops.BWD_LAUNCHES}  # ... and ends here
+    check(search_launches["forward"] > 0 and search_launches["backward"] > 0,
+          "the configuration search's machine scores launched both "
+          "edge-softmax kernels")
+
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
     flash, lru = lm_timing["flash"], lm_timing["rg_lru"]
@@ -3825,6 +4376,7 @@ def main() -> int:
         "hpo_head_errors": {k: v[0] for k, v in hpo_err.items()},
         "launches_fleet_tier": fleet_launches["forward"],
         "launches_model_plane": plane_launches["forward"],
+        "launches_search": search_launches["forward"],
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -3889,6 +4441,7 @@ def main() -> int:
         "hpo_head_errors": {k: v[1] for k, v in hpo_err.items()},
         "launches_fleet_tier": fleet_launches["backward"],
         "launches_model_plane": plane_launches["backward"],
+        "launches_search": search_launches["backward"],
     }]
     card = card_line()
     REPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -3909,9 +4462,10 @@ def main() -> int:
                              "ranking": graph_ranking,
                              "launches": graph_launches},
         "fleet_tier": {**fleet_tier, "launches": fleet_launches},
-        "model_plane": {**model_plane, "launches": plane_launches}},
+        "model_plane": {**model_plane, "launches": plane_launches},
+        "search": {**search, "launches": search_launches}},
         indent=1, default=str))
-    print(f"[18] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[19] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,1 +1,2 @@
-"""Shared primitives: pow2 bucketing, host RNG streams, device choice."""
+"""Shared primitives: pow2 bucketing, counter-based RNG streams (host and
+device), padded batch axes, device choice."""

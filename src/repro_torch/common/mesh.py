@@ -1,6 +1,8 @@
 """Host half of ``repro/common/mesh.py``: padded batch-axis sizing and
 the stacked request buffers (numpy bodies copied).
 
+- :func:`pow2_devices` — the largest power-of-two prefix of a device
+  list (pow2-padded batch axes then split evenly);
 - :func:`shard_size` — the padded batch-axis length for a device list:
   the smallest power of two that is >= the row count, >= ``floor`` and
   divisible by the device count;
@@ -14,11 +16,17 @@ hand (``fleet.shard.ShardedScorer``).
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 
 from repro_torch.common.bucketing import next_pow2
+
+
+def pow2_devices(devices: Sequence) -> List:
+    """Largest power-of-two prefix of ``devices`` (empty stays empty)."""
+    devices = list(devices)
+    return devices[:1 << (len(devices).bit_length() - 1)] if devices else []
 
 
 def shard_size(n: int, n_devices: int = 1, floor: int = 1) -> int:

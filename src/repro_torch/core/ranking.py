@@ -63,7 +63,7 @@ def machine_score_vector(scores: Dict[str, Dict[str, float]],
 def machine_score_matrix(scores: Dict[str, Dict[str, float]],
                          machines: Sequence[str]) -> np.ndarray:
     """(len(machines), 4) stacked score vectors — the batched-input
-    form consumed by the optimizer's vmapped acquisition weighting."""
+    form consumed by the optimizer's batched acquisition weighting."""
     if not len(machines):
         return np.zeros((0, 4))
     return np.stack([machine_score_vector(scores, m) for m in machines])

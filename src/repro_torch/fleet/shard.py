@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.mesh import shard_size
+from repro_torch.common.mesh import pow2_devices, shard_size
 from repro_torch.core.model import PeronaModel
 from repro_torch.core.preprocess import Preprocessor
 from repro_torch.obs.dispatch import DispatchSite, instance_site
@@ -49,9 +49,8 @@ class ShardedScorer:
         devices = ["cuda"] if devices is None else list(devices)
         if not devices:
             raise ValueError("ShardedScorer needs at least one device")
-        # the largest power-of-two prefix: pow2-padded request axes
-        # then split evenly (the reference's pow2_devices)
-        devices = devices[:1 << (len(devices).bit_length() - 1)]
+        # pow2-padded request axes then split evenly
+        devices = pow2_devices(devices)
         self.devices: List[torch.device] = [resolve_device(d)
                                             for d in devices]
         self.n_devices = len(self.devices)
