@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Eight paths are driven: Perona's scoring
+outputs, and time its kernels. Nine paths are driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
 width (chunkwise mLSTM kernel), Perona's host-loop training and its
@@ -14,7 +14,10 @@ registry, the timeline and the checkpoint manager (both edge-softmax
 kernels), and the configuration search of paper §IV-D/E: the scout
 simulator's threefry draws, CherryPick and Arrow with Perona's
 acquisition weighting, the batched float64 BO replay, Lotaru and Tarema
-(both edge-softmax kernels, through the machine scores).
+(both edge-softmax kernels, through the machine scores), and the LM
+zoo's dense and MoE decoders, smollm-135m, qwen2.5-3b, olmo-1b,
+gemma3-4b and granite-moe-1b-a400m, serving at full width (the
+flash-attention kernel, head dims 64, 128 and 256).
 
     python3 chip_smoke.py
 
@@ -31,10 +34,11 @@ Phases, each printing on lines of its own:
 4. the watchdog at fleet size (512 nodes, 196,608 rows of history,
    3 rounds of 6,144 new rows) against a CPU run of the port;
 5. the flash-attention and RG-LRU kernels against their plain versions
-   on the card (f32 and bf16; B 1/2, KH 1/16, D 64/256, S up to 4096,
-   window 0/2048; then the bf16 kernel's tile edges: S, T in 15..191
-   around multiples of 64 and 128, window 0/1/64/65, KH 1/4/16, D
-   16/64/256; the scan at C=4096, S 1/257/4096, with and without h0;
+   on the card (f32 and bf16; B 1/2, (H, KH) (16, 1)/(16, 16)/(9, 3)/
+   (16, 2), D 64/256, S up to 4096, window 0/2048; then the bf16
+   kernel's tile edges: S, T in 15..191 around multiples of 64 and 128,
+   window 0/1/64/65, (H, KH) (16, 1)/(16, 4)/(16, 16)/(9, 3)/(16, 2), D
+   16/64/128/256; the scan at C=4096, S 1/257/4096, with and without h0;
    then the scan's tile edges, S 1/31/32/33/65/4097 by C
    1/33/127/128/129/4096, B 1/3, with and without h0; 20 launches at
    B=4 S=4096 C=4096, equal bit for bit; and a long-memory case held
@@ -192,6 +196,27 @@ Phases, each printing on lines of its own:
    ``benchmarks/bench_workflows.py`` prints it: the Lotaru table and
    the Tarema grouping on calibrated scores of the four GCP types, the
    paper's claims holding.
+19. the LM zoo's dense and MoE decoders: (a) the flash kernel on both
+   routes against its plain version at the zoo's (H, KH, D, window),
+   (9, 3, 64, 0), (16, 2, 128, 0), (16, 16, 128, 0), (8, 4, 256, 1024),
+   (8, 4, 256, 0), (16, 8, 64, 0), S 1/100/2048/3000/4096, and the
+   tensor-core kernel's resources at D = 128; (b) the five small models
+   (float32) against the JAX package's prefill and decode logits and
+   served tokens (``lm_zoo_small_golden.npz``); (c) each arch at full
+   width (bf16, seed-0 weights drawn on the card) serving 8 requests of
+   128..4096 prompt tokens through ``SlotServer``: completion, flash
+   launches per prefill equal to its attention layers, TTFT from arrival
+   and prefill latency, prefill and decode tokens/s, peak memory;
+   prefill logits through the kernels vs the plain versions (bf16 at
+   4096 and 3000, float32 at 4096) and decode after a 3000-token prefill
+   vs a no-cache forward, in bf16 and float32 (gemma3's window of 1024:
+   the port's ring layout off a multiple of W); granite: the routing
+   choices each prefill dropped, and decode steps after a prefill that
+   dropped none vs the forward at positions before its first drop; the
+   profiler's view of a 4096-token prefill of smollm-135m and
+   qwen2.5-3b; (d) the flash kernel at head dim 128, B=1 H=16 KH=2
+   S=4096 causal: time, TFLOP/s, bound, plain version, SDPA and the
+   float32 route.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -493,6 +518,7 @@ def phase_engine(golden, pre, frame):
 
     from repro_torch.core.model import PeronaModel
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.serving.engine import FingerprintEngine
 
     print("[3] FingerprintEngine on the §IV-C acquisition vs the JAX "
@@ -524,6 +550,7 @@ def phase_watchdog(golden, pre):
     from repro_torch.core.model import PeronaModel
     from repro_torch.fingerprint.runner import SuiteRunner
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.runtime.watchdog import PeronaWatchdog
 
     print(f"[4] PeronaWatchdog at fleet size: {FLEET_NODES} e2-medium "
@@ -923,12 +950,18 @@ def _lru_long_memory(g):
 # 64 rows a warpgroup; T != S included
 EDGE_LENGTHS = (15, 63, 64, 65, 127, 128, 129, 191)
 EDGE_WINDOWS = (0, 1, 64, 65)
+# (H, KH) of the flash sweeps: MQA and MHA at 16 heads, RecurrentGemma's
+# group of 16, and the LM zoo's groups of 3 (smollm: 9 heads, not a power
+# of two) and 8 (qwen2.5)
+FLASH_HEADS = ((16, 1), (16, 16), (9, 3), (16, 2))
+EDGE_HEADS = ((16, 1), (16, 4), (16, 16), (9, 3), (16, 2))
 
 
 def _flash_tile_edges(g):
     """The bf16 kernel against the plain version at every S, T in
-    EDGE_LENGTHS, window in EDGE_WINDOWS, KH 1/4/16, D 16/64/256 (B 1,
-    H 16), at the bf16 tolerance on the rows with a live key. A row with
+    EDGE_LENGTHS, window in EDGE_WINDOWS, (H, KH) in EDGE_HEADS, D in
+    HEAD_DIMS (B 1), at the bf16 tolerance on the rows with a live key. A
+    row with
     no live key (i >= T + window - 1, only when T < S) is 0 from the
     kernel; the plain version, as the reference's oracle, averages v
     over all keys there, so those rows are checked to be 0."""
@@ -938,10 +971,10 @@ def _flash_tile_edges(g):
 
     tol = TOL["bfloat16"]
     n, largest, dead_rows = 0, 0.0, 0
-    for S, T, W, KH, D in itertools.product(
-            EDGE_LENGTHS, EDGE_LENGTHS, EDGE_WINDOWS, (1, 4, 16),
+    for S, T, W, (H, KH), D in itertools.product(
+            EDGE_LENGTHS, EDGE_LENGTHS, EDGE_WINDOWS, EDGE_HEADS,
             fa_ops.HEAD_DIMS):
-        q = torch.randn(1, S, 16, D, generator=g, device="cuda")
+        q = torch.randn(1, S, H, D, generator=g, device="cuda")
         k, v = (torch.randn(1, T, KH, D, generator=g, device="cuda")
                 for _ in range(2))
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
@@ -949,7 +982,7 @@ def _flash_tile_edges(g):
         expect = _plain_flash(q, k, v, window=W)
         rows = torch.arange(S, device="cuda")
         rows = rows < T + W - 1 if W > 0 else rows >= 0
-        label = f"S={S} T={T} window={W} KH={KH} D={D} bfloat16"
+        label = f"S={S} T={T} window={W} H={H} KH={KH} D={D} bfloat16"
         err = float((out.float() - expect.float())[:, rows].abs().max())
         check(err <= tol, f"flash kernel vs plain, {label}: {err}")
         check(not out[:, ~rows].any(), f"flash rows with no live key are "
@@ -958,8 +991,9 @@ def _flash_tile_edges(g):
         dead_rows += int((~rows).sum())
         n += 1
     print(f"  flash bfloat16 tile edges: {n} cases (S, T "
-          f"{'/'.join(map(str, EDGE_LENGTHS))}, window 0/1/64/65, KH "
-          f"1/4/16, D 16/64/256), largest error {largest:.3e} (tol "
+          f"{'/'.join(map(str, EDGE_LENGTHS))}, window 0/1/64/65, (H, KH) "
+          f"{EDGE_HEADS}, D {fa_ops.HEAD_DIMS}), largest error "
+          f"{largest:.3e} (tol "
           f"{tol:g}) ok; {dead_rows} rows with no live key are 0")
     return largest, n
 
@@ -981,29 +1015,29 @@ def phase_lm_kernels():
             name = str(dtype).split(".")[-1]
             tol = TOL[name]
             n, largest = 0, 0.0
-            for B, KH, D, S, W in itertools.product(
-                    (1, 2), (1, 16), (64, 256), (1, 100, 2048, 3000, 4096),
-                    (0, 2048)):
-                q, k, v = _flash_inputs(g, B, 16, KH, S, D, dtype)
+            for B, (H, KH), D, S, W in itertools.product(
+                    (1, 2), FLASH_HEADS, (64, 256),
+                    (1, 100, 2048, 3000, 4096), (0, 2048)):
+                q, k, v = _flash_inputs(g, B, H, KH, S, D, dtype)
                 out = fa_ops.flash_attention(q, k, v, window=W)
                 expect = _plain_flash(q, k, v, window=W)
                 torch.cuda.synchronize()
                 check(out.shape == expect.shape and out.dtype == q.dtype,
                       "flash shapes and type")
                 err = float((out.float() - expect.float()).abs().max())
-                label = (f"B={B} H=16 KH={KH} D={D} S={S} window={W} "
+                label = (f"B={B} H={H} KH={KH} D={D} S={S} window={W} "
                          f"{name}")
                 check(err <= tol, f"flash kernel vs plain, {label}: {err}")
                 largest = max(largest, err)
-                if (B, KH, D, S, W) == (1, 1, 256, 4096, 2048) and \
+                if (B, H, KH, D, S, W) == (1, 16, 1, 256, 4096, 2048) and \
                         dtype == torch.bfloat16:
                     worst["flash_main"] = err
                 n += 1
                 del q, k, v, out, expect
             worst["flash"] = max(worst["flash"], largest)
-            print(f"  flash {name}: {n} cases (B 1/2, H 16, KH 1/16, D "
-                  f"64/256, S 1/100/2048/3000/4096, window 0/2048), largest "
-                  f"error {largest:.3e} (tol {tol:g}) ok")
+            print(f"  flash {name}: {n} cases (B 1/2, (H, KH) "
+                  f"{FLASH_HEADS}, D 64/256, S 1/100/2048/3000/4096, window "
+                  f"0/2048), largest error {largest:.3e} (tol {tol:g}) ok")
         worst["flash_edges"], worst["flash_edge_cases"] = \
             _flash_tile_edges(g)
         torch.cuda.empty_cache()
@@ -1033,10 +1067,11 @@ def phase_lm_kernels():
     return worst
 
 
-def phase_lm_golden(path=None, label="[6] small RecurrentGemma"):
-    """The small model of an LM golden file, on the card, in float32:
-    prefill and decode logits against the JAX package's, and the served
-    tokens."""
+def phase_lm_golden(path=None, label="[6] small RecurrentGemma",
+                    prefix=""):
+    """The small model of an LM golden file (an arch of the LM zoo's file
+    under ``prefix``), on the card, in float32: prefill and decode logits
+    against the JAX package's, and the served tokens."""
     import numpy as np
     import torch
 
@@ -1047,7 +1082,7 @@ def phase_lm_golden(path=None, label="[6] small RecurrentGemma"):
 
     print(f"{label} on the card vs the JAX package's outputs (golden "
           f"file)")
-    golden = load_lm_golden(path or LM_GOLDEN_PATH)
+    golden = load_lm_golden(path or LM_GOLDEN_PATH, prefix=prefix)
     cfg = golden.config
     model = build_model(cfg)
     params = cast_params(golden.params, cfg, "cuda")
@@ -1427,12 +1462,21 @@ def time_lm_kernels():
     """Each LM kernel at the full-width prefill shapes, with its plain
     version, the library call and the bound."""
     import torch
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    flash = time_flash(g, 1, 16, 1, 4096, 256, 2048)
+    return {"flash": flash, "rg_lru": time_lru(g)}
+
+
+def time_flash(g, B, H, KH, S, D, W):
+    """The flash kernel at one shape in bf16 (the tensor-core route) and
+    float32 (the CUDA-core route), its plain version, one SDPA call of
+    the same function on each problem, and the bounds."""
+    import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    g = torch.Generator(device="cuda").manual_seed(3)
-    B, H, KH, S, D, W = 1, 16, 1, 4096, 256, 2048
     q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
     with torch.no_grad():
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, window=W), 20)
@@ -1442,16 +1486,20 @@ def time_lm_kernels():
         f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf,
                                                         window=W), 5)
         # one library call of the same function: SDPA with a boolean
-        # causal + window mask, in its own layout (B, H, S, D), with k/v
-        # expanded to the 16 query heads; the copies are not timed
+        # causal (+ window) mask, in its own layout (B, H, S, D), with k/v
+        # expanded (MQA) or repeated (GQA) to the query heads; the copies
+        # are not timed
         pos = torch.arange(S, device="cuda")
         rel = pos[:, None] - pos[None, :]
-        mask = (rel >= 0) & (rel < W)
+        mask = (rel >= 0) & (rel < W) if W > 0 else rel >= 0
+
+        def heads(t):
+            t = t.transpose(1, 2).contiguous()
+            return (t.expand(B, H, S, D) if KH == 1
+                    else t.repeat_interleave(H // KH, dim=1))
 
         def sdpa_args(q, k, v):
-            return (q.transpose(1, 2).contiguous(),
-                    *(t.transpose(1, 2).contiguous().expand(B, H, S, D)
-                      for t in (k, v)))
+            return q.transpose(1, 2).contiguous(), heads(k), heads(v)
 
         # the same on the float32 route's problem
         f32_args = sdpa_args(qf, kf, vf)
@@ -1466,7 +1514,8 @@ def time_lm_kernels():
             - fa_ops.flash_attention(q, k, v, window=W).float())
             .abs().max())
     check(lib_err <= TOL["bfloat16"], f"SDPA vs flash kernel: {lib_err}")
-    pairs = sum(min(i + 1, W) for i in range(S))  # live (q, k) per head
+    # live (q, k) pairs per head
+    pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
     flops = 4 * D * pairs * H * B
     nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -1500,7 +1549,7 @@ def time_lm_kernels():
           f"bytes of shared memory a block")
     del q, k, v, qt, ke, ve
     torch.cuda.empty_cache()
-    return {"flash": flash, "rg_lru": time_lru(g)}
+    return flash
 
 
 # the RG-LRU scan's timed shapes (B, S) at C = 4096: the main shape (a
@@ -2182,6 +2231,7 @@ def _bwd_inputs(g, N, H, hd, P, dtype, with_g_att):
     import torch
 
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     q, k, v, mask = _inputs(g, N, H, hd, P, dtype)
     blank = slice(N // 3, N // 3 + min(N // 4, 64))
@@ -2261,6 +2311,7 @@ def phase_train_fixed_point(golden, tb):
     """[14b] loss terms, gradients and one AdamW step at the golden's
     initial parameters, dropout 0."""
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     before = ops.BWD_LAUNCHES
     errs = fixed_point_errors(golden, tb, "cuda")
@@ -2288,6 +2339,7 @@ def phase_train_runs(golden, tb, vb):
 
     from repro_torch.core.trainer import evaluate, train_perona_reference
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     m = golden.meta
     kw = dict(epochs=m["epochs"], patience=m["patience"], lr=m["lr"],
@@ -2609,6 +2661,7 @@ def profile_graph(golden, tb, vb, epochs=20):
 
     from repro_torch.core import trainer as T
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     cfg = golden.config
     dev = torch.device("cuda")
@@ -2893,6 +2946,7 @@ def dispatch_launches():
     ``ShardedScorer.score_stack`` call)."""
     from repro_torch.fleet.shard import ShardedScorer
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     real, per = ShardedScorer.score_stack, []
 
@@ -3562,6 +3616,7 @@ def phase_plane_retrain(golden, pre):
     from repro_torch.fleet import (FleetScoringService, IngestionDaemon,
                                    ModelPlane, fleet_telemetry)
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     machines = {f"node-{i:03d}": "e2-medium" for i in range(RETRAIN_NODES)}
     svc = FleetScoringService(PeronaModel(golden.config),
@@ -4223,6 +4278,356 @@ def phase_search(scores):
     return out
 
 
+# ------------------------------------------------- the LM zoo (phase [19])
+ZOO_ARCHS = ("smollm-135m", "qwen2.5-3b", "olmo-1b", "gemma3-4b",
+             "granite-moe-1b-a400m")
+ZOO_PROFILED = ("smollm-135m", "qwen2.5-3b")
+# the flash kernel at the zoo's attention shapes, (H, KH, D, window):
+# smollm, qwen2.5, olmo, gemma3's local and global layers, granite
+ZOO_FLASH = ((9, 3, 64, 0), (16, 2, 128, 0), (16, 16, 128, 0),
+             (8, 4, 256, 1024), (8, 4, 256, 0), (16, 8, 64, 0))
+ZOO_FLASH_S = (1, 100, 2048, 3000, 4096)
+# the timed D = 128 shape, (B, H, KH, S, D, window): qwen2.5-3b's prefill
+ZOO_D128 = (1, 16, 2, 4096, 128, 0)
+# MoE decode vs the no-cache forward: decode steps after a prefill that
+# dropped no routing choice, at positions before the forward's first drop
+MOE_DECODE_STEPS = 8
+
+
+def phase_zoo_kernels():
+    """(a) The flash kernel at the zoo's shapes, both routes, against the
+    plain version at the kernel tolerances."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    worst = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tol, largest, n = TOL[name], 0.0, 0
+            for (H, KH, D, W), S in itertools.product(ZOO_FLASH,
+                                                      ZOO_FLASH_S):
+                q, k, v = _flash_inputs(g, 1, H, KH, S, D, dtype)
+                out = fa_ops.flash_attention(q, k, v, window=W)
+                expect = _plain_flash(q, k, v, window=W)
+                err = float((out.float() - expect.float()).abs().max())
+                label = f"H={H} KH={KH} D={D} S={S} window={W} {name}"
+                check(out.shape == expect.shape and out.dtype == dtype,
+                      f"flash shapes and type, {label}")
+                check(err <= tol, f"flash kernel vs plain, {label}: {err}")
+                largest = max(largest, err)
+                if (1, H, KH, S, D, W) == ZOO_D128 and name == "bfloat16":
+                    worst["d128_main"] = err
+                n += 1
+                del q, k, v, out, expect
+            worst[name] = largest
+            print(f"  flash {name} at the zoo's shapes: {n} cases ((H, KH, "
+                  f"D, window) {ZOO_FLASH}, S {ZOO_FLASH_S}), largest error "
+                  f"{largest:.3e} (tol {tol:g}) ok")
+    attrs = fa_ops.tensor_core_attributes(128)
+    print(f"  tensor_core_attributes(128): {attrs}")
+    worst["d128_attributes"] = attrs
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _moe_decode_check(model, params, prompt, cache_dtype, tol, label):
+    """Decode after prefill vs the no-cache forward for an MoE model,
+    where a forward over more tokens may drop routing choices that a
+    decode step (one token, never past capacity) keeps: the forward over
+    ``prompt`` finds its first position with a dropped choice in any
+    layer, f; the longest prefix p0 below f - MOE_DECODE_STEPS whose
+    prefill drops no choice is prefilled (halving until none drops), and
+    decode steps fed the prompt's next tokens are held to the forward's
+    logits at positions p0 .. p0 + MOE_DECODE_STEPS - 1, all before f."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    toks = torch.as_tensor(prompt, device="cuda").long()[None]
+    N = toks.shape[1]
+    with moe.record_keep() as keeps:
+        hidden, _ = tfm.forward(params, cfg, tokens=toks, skip_unembed=True)
+    kept = torch.stack([k[0].all(-1) for k in keeps]).all(0)  # (N,)
+    dropped = int(sum(int((~k).sum()) for k in keeps))
+    bad = (~kept).nonzero()
+    first = int(bad[0]) if len(bad) else N
+    p0 = max(1, first - MOE_DECODE_STEPS)
+    while True:
+        cache = model.init_cache(1, FULL_MAX_LEN, dtype=cache_dtype,
+                                 device="cuda")
+        with moe.record_keep() as pkeeps:
+            model.prefill(params, cache, tokens=toks[:, :p0])
+        prefill_drops = int(sum(int((~k).sum()) for k in pkeeps))
+        if prefill_drops == 0 or p0 == 1:
+            break
+        p0 = max(1, p0 // 2)
+    check(prefill_drops == 0, f"{label}: a prefill without drops")
+    steps = min(MOE_DECODE_STEPS, first - p0, N - p0)
+    got = []
+    for i in range(steps):
+        with moe.record_keep() as dkeeps:
+            ld, cache = model.decode_step(
+                params, toks[:, p0 + i:p0 + i + 1],
+                torch.tensor([p0 + i], device="cuda"), cache)
+        check(all(bool(k.all()) for k in dkeeps),
+              f"{label}: a decode step keeps every choice")
+        got.append(ld[0])
+    del cache
+    want = tfm.unembed(params, cfg, hidden[:, p0:p0 + steps])[0]
+    got = torch.stack(got)
+    check(bool(torch.isfinite(got).all()), "finite decode logits")
+    err = _rel(got, want)
+    print(f"  {label}: the forward over {N} tokens dropped {dropped} "
+          f"choices, the first at position {first}; prefill of {p0} tokens "
+          f"(0 dropped), {steps} decode steps vs the forward at positions "
+          f"{p0}..{p0 + steps - 1}: max err {err[0]:.3e} of max |logit| "
+          f"{err[1]:.1f}, relative L2 {err[2]:.2e} (tol {tol:g}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"err": err, "forward_dropped": dropped, "first_drop": first,
+            "prefill_len": p0, "steps": steps}
+
+
+ROUTER_REPEATS = 20
+
+
+def _router_repeats(params, cfg):
+    """The router's top-k on the card at a 4096-token prefill's shape, the
+    first layer's weights: 20 launches give the same ids and weights bit
+    for bit, with the weights as drawn and with every odd expert's column
+    a copy of the even one before it (every token then meets ties), where
+    each pair must come lower index first, as ``jax.lax.top_k`` orders
+    it."""
+    import torch
+
+    from repro_torch.models import moe
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(1, 4096, cfg.d_model, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    w = params["body"][0]["moe"]["router"]["w"][0]
+    tied = w.clone()
+    tied[:, 1::2] = tied[:, 0::2]
+    out = {}
+    for name, weights in (("drawn", w), ("tied", tied)):
+        p = {"router": {"w": weights}}
+        first_w, first_ids, _ = moe.router_topk(p, cfg.moe, x)
+        same = all(
+            torch.equal(first_ids, ids) and torch.equal(first_w, wts)
+            for wts, ids, _ in (moe.router_topk(p, cfg.moe, x)
+                                for _ in range(ROUTER_REPEATS - 1)))
+        check(same, f"router top-k, {name} weights: {ROUTER_REPEATS} "
+                    f"launches bit for bit")
+        if name == "tied":
+            check(bool((first_ids[..., 0::2] % 2 == 0).all()
+                       and (first_ids[..., 1::2]
+                            == first_ids[..., 0::2] + 1).all()),
+                  "tied experts come lower index first")
+        out[name] = same
+    print(f"    router top-k at (1, 4096, {cfg.d_model}): {ROUTER_REPEATS} "
+          f"launches give the same ids and weights bit for bit, with the "
+          f"drawn weights and with every expert tied to a neighbour (each "
+          f"pair lower index first): {out}")
+    return out
+
+
+def _prefill_drops(keeps):
+    """{prompt length: routing choices dropped over its prefill's
+    layers} from ``moe.record_keep``'s masks of a serving run (decode
+    steps, one token a row, never drop)."""
+    out = {}
+    for k in keeps:
+        if k.shape[1] > 1:
+            out[k.shape[1]] = out.get(k.shape[1], 0) + int((~k).sum())
+    return out
+
+
+def phase_zoo_full(arch):
+    """(c) One arch of the zoo at full width, bf16, weights from seed 0 on
+    the card, serving eight requests through SlotServer; then the same
+    weights in float32 for the sharp checks."""
+    import contextlib as ctx
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serve import SlotServer, make_requests
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config(arch)
+    is_moe = "moe_attn" in cfg.layer_kinds
+    print(f"  {cfg.name} at full width: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, H {cfg.n_heads} / KH {cfg.n_kv_heads}, hd "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}"
+          + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+             if is_moe else ""))
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"    weights: {n_params / 1e9:.3f} B parameters, "
+          f"{n_bytes / 1e9:.2f} GB on the card, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    n_attn = sum(k in ("attn", "local_attn", "moe_attn")
+                 for k in cfg.layer_kinds)
+    requests = make_requests(len(FULL_LENGTHS), cfg.vocab_size,
+                             FULL_MAX_NEW, seed=0, lengths=FULL_LENGTHS)
+    server = SlotServer(model, params, n_slots=FULL_SLOTS,
+                        max_len=FULL_MAX_LEN)
+    warm = make_requests(1, cfg.vocab_size, 2, seed=1, lengths=(64,))
+    SlotServer(model, params, n_slots=FULL_SLOTS,
+               max_len=FULL_MAX_LEN).serve(warm)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    record = moe.record_keep() if is_moe else ctx.nullcontext([])
+    fa_ops.LAUNCHES = 0  # this arch's serving path starts here
+    t0 = time.perf_counter()
+    with record as keeps:
+        out = server.serve(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa_ops.LAUNCHES  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    done = sorted(out["completed"], key=lambda r: r.rid)
+    check(len(done) == len(FULL_LENGTHS), f"{arch}: every request completed")
+    check(all(len(r.tokens) == FULL_MAX_NEW for r in done),
+          f"{arch}: every request got {FULL_MAX_NEW} tokens")
+    check(launches == n_attn * len(FULL_LENGTHS),
+          f"{arch}: {launches} flash launches, expected {n_attn} per "
+          f"prefill x {len(FULL_LENGTHS)}")
+    prompt_tokens = sum(FULL_LENGTHS)
+    prefill_s = sum(r.prefill_s for r in done)
+    row = {
+        "arch": arch, "parameters": n_params, "weight_bytes": n_bytes,
+        "requests": len(done), "prompt_tokens": prompt_tokens,
+        "decode_steps": out["decode_steps"], "wall_s": wall,
+        "ttft_s": {len(r.prompt): r.ttft_s for r in done},
+        "prefill_latency_s": {len(r.prompt): r.prefill_s for r in done},
+        "prefill_tokens_per_s": prompt_tokens / prefill_s,
+        "decode_tokens": server.decode_tokens, "decode_s": server.decode_s,
+        "decode_tokens_per_s": server.decode_tokens / server.decode_s,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_prefill": n_attn,
+    }
+    print(f"    served {len(done)} requests x {FULL_MAX_NEW} tokens in "
+          f"{wall:.2f} s, {out['decode_steps']} decode steps; flash launches "
+          f"{launches} ({n_attn} per prefill)")
+    print("    TTFT (from arrival): " + ", ".join(
+        f"S={s} {t * 1e3:.1f} ms" for s, t in row["ttft_s"].items()))
+    print("    prefill latency: " + ", ".join(
+        f"S={s} {t * 1e3:.1f} ms"
+        for s, t in row["prefill_latency_s"].items()))
+    print(f"    prefill {row['prefill_tokens_per_s']:.0f} tokens/s; decode "
+          f"{row['decode_tokens_per_s']:.1f} tokens/s ({server.decode_tokens}"
+          f" tokens in {server.decode_s:.2f} s, {FULL_SLOTS} slots); peak "
+          f"memory {peak / 1e9:.2f} GB")
+    if is_moe:
+        row["prefill_drops"] = _prefill_drops(keeps)
+        row["router_repeats"] = _router_repeats(params, cfg)
+        print(f"    routing choices dropped per prefill (of S x "
+              f"{cfg.moe.top_k} x {cfg.n_layers}): "
+              + ", ".join(f"S={s} {n}"
+                          for s, n in row["prefill_drops"].items()))
+        del keeps
+
+    by_len = {len(r.prompt): r for r in done}
+    ring_req = by_len[FULL_RING_LENGTH]
+    checks = {}
+    with torch.inference_mode():
+        for length in FULL_CHECK_LENGTHS:
+            toks = torch.as_tensor(by_len[length].prompt, device="cuda")
+            logits, _ = model.prefill(
+                params, model.init_cache(1, FULL_MAX_LEN, device="cuda"),
+                tokens=toks.long()[None])
+            check(int(logits.argmax()) == by_len[length].tokens[0],
+                  f"{arch}: a prefill of the served prompt gives the "
+                  f"served token")
+        checks["bf16_kernels_vs_plain"] = _kernels_vs_plain(
+            model, params, [by_len[n].prompt for n in FULL_CHECK_LENGTHS],
+            FULL_BF16_REL_TOL, f"  {arch} bf16")
+        if is_moe:
+            checks["bf16_decode"] = _moe_decode_check(
+                model, params, ring_req.prompt, torch.bfloat16,
+                FULL_BF16_REL_TOL, f"  {arch} bf16 MoE decode check")
+            err = checks["bf16_decode"]["err"]
+        else:
+            err = checks["bf16_decode"] = _ring_check(
+                model, params, ring_req, torch.bfloat16, FULL_BF16_REL_TOL,
+                f"  {arch} bf16 ring check")
+        check(err[2] <= FULL_BF16_REL_TOL, f"{arch}: bf16 decode check")
+        if arch in ZOO_PROFILED:
+            row["profile"] = profile_lm(model, params, server,
+                                        by_len[4096])
+        del server
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32 = build_model(cfg32)
+        params32 = tfm.tree_map(lambda t: t.float(), params)
+        del params
+        torch.cuda.empty_cache()
+        checks["f32_kernels_vs_plain"] = _kernels_vs_plain(
+            model32, params32, [by_len[FULL_CHECK_LENGTHS[0]].prompt],
+            FULL_F32_REL_TOL, f"  {arch} f32")
+        if is_moe:
+            checks["f32_decode"] = _moe_decode_check(
+                model32, params32, ring_req.prompt, torch.float32,
+                FULL_F32_REL_TOL, f"  {arch} f32 MoE decode check")
+            err = checks["f32_decode"]["err"]
+        else:
+            err = checks["f32_decode"] = _ring_check(
+                model32, params32, ring_req, torch.float32,
+                FULL_F32_REL_TOL, f"  {arch} f32 ring check")
+        check(err[2] <= FULL_F32_REL_TOL, f"{arch}: f32 decode check")
+        del params32
+    torch.cuda.empty_cache()
+    row["checks"] = {k: ({str(s): e for s, e in v.items()}
+                         if isinstance(v, dict) and k.endswith("plain")
+                         else v)
+                     for k, v in checks.items()}
+    return row, launches
+
+
+def phase_zoo():
+    import torch
+
+    from repro_torch.models.params import LM_ZOO_GOLDEN_PATH
+
+    print(f"[19] the LM zoo's dense and MoE decoders: {', '.join(ZOO_ARCHS)}"
+          f"; the flash kernel at their shapes (head dim 128 new), the small "
+          f"models vs the JAX package's outputs, each at full width serving "
+          f"{len(FULL_LENGTHS)} requests (prompts {FULL_LENGTHS}, "
+          f"{FULL_SLOTS} slots, max_new {FULL_MAX_NEW})")
+    out = {"kernel_errors": phase_zoo_kernels()}
+    out["golden"] = {
+        arch: phase_lm_golden(LM_ZOO_GOLDEN_PATH, f"  small {arch}",
+                              prefix=f"{arch}/")
+        for arch in ZOO_ARCHS}
+    out["full"], out["launches"] = {}, {}
+    for arch in ZOO_ARCHS:
+        t0 = time.perf_counter()
+        out["full"][arch], out["launches"][arch] = phase_zoo_full(arch)
+        out["full"][arch]["seconds"] = time.perf_counter() - t0
+        print(f"    -- {arch}: {out['full'][arch]['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+    print("  (d) the flash kernel at head dim 128 (CUDA events after "
+          "warm-up)")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out["d128"] = time_flash(g, *ZOO_D128)
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4244,6 +4649,7 @@ def main() -> int:
     from repro_torch.core.preprocess import Preprocessor
     from repro_torch.fingerprint.runner import paper_acquisition_frame
     from repro_torch.kernels.edge_softmax import ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     t_start = time.perf_counter()
     seconds = {}
@@ -4354,6 +4760,11 @@ def main() -> int:
           "the configuration search's machine scores launched both "
           "edge-softmax kernels")
 
+    # the LM zoo: each arch's serving run sets the flash count to 0 before
+    # it and reads it after
+    zoo = timed("LM zoo", seconds, phase_zoo)
+    d128 = zoo["d128"]
+
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
     flash, lru = lm_timing["flash"], lm_timing["rg_lru"]
@@ -4392,6 +4803,16 @@ def main() -> int:
         "shape": flash["shape"],
         "design": flash["design"],
         "f32_ms": flash["f32_ms"],
+        "head_dims": list(fa_ops.HEAD_DIMS),
+        "launches_zoo": zoo["launches"],
+        "zoo_max_abs_err": {k: zoo["kernel_errors"][k]
+                            for k in ("float32", "bfloat16")},
+        "d128": {"shape": d128["shape"],
+                 "max_abs_err": zoo["kernel_errors"]["d128_main"],
+                 **{k: d128[k] for k in (
+                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "tflop_per_s", "f32_ms", "f32_bound_ms",
+                     "f32_library_ms", "attributes")}},
     }, {
         "name": "rg_lru_scan",
         "route": "cuda",
@@ -4463,9 +4884,10 @@ def main() -> int:
                              "launches": graph_launches},
         "fleet_tier": {**fleet_tier, "launches": fleet_launches},
         "model_plane": {**model_plane, "launches": plane_launches},
-        "search": {**search, "launches": search_launches}},
+        "search": {**search, "launches": search_launches},
+        "lm_zoo": zoo},
         indent=1, default=str))
-    print(f"[19] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[20] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

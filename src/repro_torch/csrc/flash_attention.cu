@@ -272,6 +272,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
     case 64:
       return launch<T, 64>(q, k, v, out, batch, heads, kv_heads, q_len, k_len,
                            causal, window, scale, s);
+    case 128:
+      return launch<T, 128>(q, k, v, out, batch, heads, kv_heads, q_len,
+                            k_len, causal, window, scale, s);
     case 256:
       return launch<T, 256>(q, k, v, out, batch, heads, kv_heads, q_len,
                             k_len, causal, window, scale, s);
@@ -306,10 +309,11 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 //     before its V has landed, and tile j + 1 is in flight while tile j is
 //     computed. Keys past T arrive as zeros (TMA fills out-of-range rows);
 //   - operands stay bf16 in shared memory in the layout wgmma reads: column
-//     blocks of 64 elements (128-byte rows, the 128-byte swizzle) at D of 64
-//     and 256, 32-byte rows with the 32-byte swizzle at D = 16, written so
-//     by TMA itself. Q 64 KB and two stages of K and V 128 KB: 192 KB at
-//     D = 256, one block an SM;
+//     blocks of 64 elements (128-byte rows, the 128-byte swizzle) at D of
+//     64, 128 and 256, 32-byte rows with the 32-byte swizzle at D = 16,
+//     written so by TMA itself. Q 64 KB and two stages of K and V 128 KB:
+//     192 KB at D = 256, one block an SM; half of that at D = 128 (Q 32 KB,
+//     the stages 64 KB);
 //   - dead tiles are skipped by the loop bounds (keys from
 //     max(0, q0 - window + 1) to min(T, q0 + 128)); the element-wise mask
 //     runs only on tiles that hold a masked pair for some row of the block
@@ -422,6 +426,37 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (64 x 128) += a (64 x 16) b (16 x 128): a in registers (bf16 pairs),
+// b in shared memory, MN-major; float32 accumulators
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d (64 x 256) += a (64 x 16) b (16 x 256): a in registers (bf16 pairs),
 // b in shared memory, MN-major; float32 accumulators
 __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
@@ -483,6 +518,11 @@ template <>
 __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
                                              uint64_t desc_b) {
   wgmma_rs_n64(d, a, desc_b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                              uint64_t desc_b) {
+  wgmma_rs_n128(d, a, desc_b);
 }
 template <>
 __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
@@ -793,8 +833,10 @@ cudaError_t attributes(int* regs, int* local_bytes, int* static_smem,
 // Launches on `stream` and returns the launch's cudaError_t (0 = queued).
 // q, out (B, S, H, D) and k, v (B, T, KH, D): contiguous, 16-byte aligned,
 // of type float32 (is_bf16 = 0: the CUDA-core kernel) or bfloat16
-// (is_bf16 = 1: the tensor-core kernel); H % KH == 0; D in {16, 64, 256}
-// (the small test model, the kernel sweep, and RecurrentGemma's 256);
+// (is_bf16 = 1: the tensor-core kernel); H % KH == 0 (any group, as
+// smollm's 9 / 3); D in {16, 64, 128, 256} (the small test models, smollm's
+// and granite's 64, qwen2.5's and olmo's 128, RecurrentGemma's and gemma3's
+// 256);
 // S*H*D and T*KH*D below 2^31; window <= 0 means no window. A case that
 // the chosen kernel does not take returns cudaErrorInvalidValue: neither
 // kernel stands in for the other.
@@ -820,6 +862,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     case 64:
       return (int)tc::launch<64>(q, k, v, out, batch, heads, kv_heads, q_len,
                                  k_len, causal, window, scale, s);
+    case 128:
+      return (int)tc::launch<128>(q, k, v, out, batch, heads, kv_heads,
+                                  q_len, k_len, causal, window, scale, s);
     case 256:
       return (int)tc::launch<256>(q, k, v, out, batch, heads, kv_heads,
                                   q_len, k_len, causal, window, scale, s);
@@ -841,6 +886,9 @@ extern "C" int flash_attention_bf16_attributes(int head_dim, int* regs,
     case 64:
       return (int)tc::attributes<64>(regs, local_bytes, static_smem,
                                      dynamic_smem);
+    case 128:
+      return (int)tc::attributes<128>(regs, local_bytes, static_smem,
+                                      dynamic_smem);
     case 256:
       return (int)tc::attributes<256>(regs, local_bytes, static_smem,
                                       dynamic_smem);

@@ -13,8 +13,9 @@ serving runs) goes to the tensor-core kernel (``wgmma`` with float32
 accumulators, K/V by TMA into a ring of two shared-memory stages),
 float32 to the CUDA-core kernel, whose checks are held at 2e-5, closer
 than tensor cores reach from float32 inputs. Both take any S and T (the
-TPU kernel asks S % 512 == 0 past 512), GQA/MQA with H % KH == 0, D in
-{16, 64, 256}, and one batch row of q or k below 2**31 elements.
+TPU kernel asks S % 512 == 0 past 512), GQA/MQA with H % KH == 0 (any
+group: smollm's 9 query heads over 3 kv heads, qwen2.5's 16 over 2), D in
+{16, 64, 128, 256}, and one batch row of q or k below 2**31 elements.
 Neither stands in for the other. A row with no live key (only when
 T < S with a window) gives 0 from both kernels; the plain version, as
 the reference's ``ref``, gives the mean of v over all keys there. The
@@ -35,7 +36,7 @@ from repro_torch.kernels.flash_attention import ref
 #: Kernel launches so far (a plain count; callers reset it to 0).
 LAUNCHES = 0
 
-HEAD_DIMS = (16, 64, 256)
+HEAD_DIMS = (16, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _FN = None

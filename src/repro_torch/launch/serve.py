@@ -1,6 +1,9 @@
 """Serving entry point: slot-based LM prefill + decode, and Perona's
 fingerprint-scoring modes; the port of ``repro/launch/serve.py``.
 
+    python -m repro_torch.launch.serve --scale small --device cpu
+    python -m repro_torch.launch.serve --arch qwen2.5-3b --scale full \
+        --max-len 4112
     python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --scale small --device cpu
     python -m repro_torch.launch.serve --arch xlstm-1.3b \
@@ -500,7 +503,7 @@ def _run_perona(args) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="recurrentgemma-9b")
+    ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)

@@ -1,6 +1,6 @@
-"""Self-attention with GQA/MQA and a sliding window:
-``repro/models/attention.py`` (``:37-65``, ``:93-130``, ``:200-357``) in
-PyTorch.
+"""Self-attention with GQA/MQA, a sliding window and the optional
+RMSNorm of q and k (``qk_norm``): ``repro/models/attention.py``
+(``:37-65``, ``:93-130``, ``:200-357``) in PyTorch.
 
 Prefill (and the no-cache forward) always goes through the kernel
 wrapper ``kernels.flash_attention.ops.flash_attention`` (the CUDA kernel
@@ -35,12 +35,13 @@ NEG_INF = -2.3819763e38  # large negative for masking in fp32
 
 def attention_init(init: nn.Init, cfg: ModelConfig):
     d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if cfg.qk_norm:
-        raise ValueError("qk_norm comes with a later slice of the port")
     params = {}
     for name, d_out in (("wq", H * hd), ("wk", KH * hd), ("wv", KH * hd)):
         params[name] = nn.linear_init(init, d, d_out, bias=cfg.qkv_bias)
     params["wo"] = nn.linear_init(init, H * hd, d)
+    if cfg.qk_norm:  # RMSNorm over hd of q and k, before RoPE
+        for name in ("q_norm", "k_norm"):
+            params[name] = nn.norm_init(init, "rmsnorm", hd)
     return params
 
 
@@ -107,6 +108,9 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     q = nn.linear(params["wq"], x).reshape(B, S, H, hd)
     k = nn.linear(params["wk"], x).reshape(B, S, KH, hd)
     v = nn.linear(params["wv"], x).reshape(B, S, KH, hd)
+    if cfg.qk_norm:
+        q = nn.apply_norm(params["q_norm"], "rmsnorm", q)
+        k = nn.apply_norm(params["k_norm"], "rmsnorm", k)
     if cfg.rope_style == "rope":
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)

@@ -2,8 +2,8 @@
 
 Every field of the reference is kept, so that a configuration crosses
 between the packages field for field; the port serves the layer kinds
-"attn", "local_attn", "rg_lru", "mlstm" and "slstm" so far (``ROADMAP.md``
-lists the rest).
+"attn", "local_attn", "moe_attn", "rg_lru", "mlstm" and "slstm" so far
+(``ROADMAP.md`` lists the rest).
 
 A model is: [embedding / modality frontend stub] -> head layers (unrolled)
 -> scanned pattern body (n_periods x period) -> tail layers (unrolled)

@@ -10,7 +10,9 @@ compute type (``cfg.dtype``) at each use. The port holds the parameters
 read in the compute type in that type once (:class:`Init` with a
 ``dtype``; ``models.params.cast_params`` for carried weights), which
 gives the same products with half the memory in bfloat16. The leaves
-read in float32 (norm scales, the RG-LRU ``lambda``) stay float32.
+read in float32 (norm scales and biases, the RG-LRU ``lambda``, the MoE
+router) stay float32. An :class:`Init` on the ``meta`` device draws
+nothing: it gives the parameter tree's structure and shapes.
 A float64 compute type (tests only: the reference the float32 runs of
 both packages are measured against) keeps norms and recurrent states in
 float64 too (:func:`state_dtype`).
@@ -60,15 +62,19 @@ class Init:
     the reference reads in float32 (``f32=True``).
     """
 
-    def __init__(self, generator: torch.Generator, dtype=torch.float32):
+    def __init__(self, generator: Optional[torch.Generator],
+                 dtype=torch.float32, device=None):
         self.generator = generator
-        self.device = generator.device
+        self.device = (generator.device if generator is not None
+                       else torch.device(device))
         self.dtype = dtype
 
     def param(self, shape, scale: float = 1.0, mode: str = "normal",
               f32: bool = False) -> torch.Tensor:
         shape = tuple(shape)
         dtype = torch.float32 if f32 else self.dtype
+        if self.device.type == "meta":  # the tree's structure only
+            return torch.empty(shape, device=self.device, dtype=dtype)
         kw = dict(device=self.device, dtype=torch.float32)
         if mode == "zeros":
             return torch.zeros(shape, device=self.device, dtype=dtype)
@@ -123,7 +129,7 @@ def unembed(params, x):
 
 
 # ---------------------------------------------------------------------------
-# Norms (RMSNorm, computed in float32)
+# Norms (RMSNorm, LayerNorm; computed in float32)
 # ---------------------------------------------------------------------------
 
 def state_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -133,17 +139,33 @@ def state_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def norm_init(init: Init, kind: str, dim: int):
-    if kind != "rmsnorm":
-        raise ValueError(f"the port has only rmsnorm so far, not {kind!r}")
-    return {"scale": init.param((dim,), mode="ones", f32=True)}
+    if kind == "rmsnorm":
+        return {"scale": init.param((dim,), mode="ones", f32=True)}
+    if kind == "layernorm":
+        return {"scale": init.param((dim,), mode="ones", f32=True),
+                "bias": init.param((dim,), mode="zeros", f32=True)}
+    if kind == "nonparametric_ln":
+        return {}
+    raise ValueError(f"the port has no norm {kind!r}")
 
 
 def apply_norm(params, kind: str, x, eps: float = 1e-6):
-    if kind != "rmsnorm":
-        raise ValueError(f"the port has only rmsnorm so far, not {kind!r}")
+    """RMSNorm, or LayerNorm with (``layernorm``) or without
+    (``nonparametric_ln``) its scale and bias, evaluated in float32 (in
+    float64 for a float64 compute type) and returned in x's type."""
+    if kind not in ("rmsnorm", "layernorm", "nonparametric_ln"):
+        raise ValueError(f"the port has no norm {kind!r}")
     xf = x.to(state_dtype(x.dtype))
-    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y * params["scale"].to(xf.dtype)).to(x.dtype)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        y = y * params["scale"].to(xf.dtype)
+    else:
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        if params:
+            y = y * params["scale"].to(xf.dtype) + params["bias"].to(xf.dtype)
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

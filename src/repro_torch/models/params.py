@@ -8,13 +8,21 @@ every leaf under its slash-joined path (``embed/table``,
 either form into the port's tree. The mapping is the identity on paths
 and shapes: the port keeps the reference's tree, body leaves with their
 leading ``n_periods`` axis included (``models.transformer`` takes views
-per period), and only the types change, by :func:`cast_params`.
+per period), and only the types change, by :func:`cast_params`. A flat
+checkpoint holds no key for a node without leaves (``nonparametric_ln``
+gives ``norm1``, ``norm2`` and ``final_norm`` as ``{}``), so it is read
+into the structure of the configuration's tree
+(``transformer.model_template``), as the reference's
+``CheckpointManager.restore(template)`` reads one.
 
 :func:`load_lm_golden` reads ``assets/recurrentgemma_small_golden.npz``
 or ``assets/xlstm_small_golden.npz`` (``XLSTM_GOLDEN_PATH``): a small
 RecurrentGemma or xLSTM (``scaled_down(dtype="float32")``) with the JAX
 package's parameters, its prefill and decode logits and the tokens its
 ``SlotServer`` served (written by ``tests/test_torch_lm_golden.py
+--write``). ``assets/lm_zoo_small_golden.npz`` (``LM_ZOO_GOLDEN_PATH``)
+holds the same for the five small dense and MoE decoders, each under a
+prefix of its arch's name (written by ``tests/test_torch_lm_zoo.py
 --write``).
 """
 
@@ -29,16 +37,19 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.core.params import load_npz, params_from_numpy, unflatten
+from repro_torch.core.params import params_from_numpy
 from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig
-from repro_torch.models.transformer import compute_dtype
+from repro_torch.models.transformer import compute_dtype, model_template
 
 ASSETS = Path(__file__).resolve().parents[1] / "assets"
 LM_GOLDEN_PATH = ASSETS / "recurrentgemma_small_golden.npz"
 XLSTM_GOLDEN_PATH = ASSETS / "xlstm_small_golden.npz"
+LM_ZOO_GOLDEN_PATH = ASSETS / "lm_zoo_small_golden.npz"
 
-#: Leaf names the reference reads in float32 whatever the compute type.
-F32_LEAVES = ("scale", "lambda")
+#: Ends of the leaf paths the reference reads in float32 whatever the
+#: compute type: norm scales and biases, the RG-LRU ``lambda``, the MoE
+#: router.
+F32_LEAVES = ("scale", "bias", "lambda", "router/w")
 
 
 def cast_params(tree, cfg: ModelConfig, device="cpu", path: str = ""):
@@ -50,9 +61,29 @@ def cast_params(tree, cfg: ModelConfig, device="cpu", path: str = ""):
     if isinstance(tree, (list, tuple)):
         return [cast_params(v, cfg, device, f"{path}/{i}")
                 for i, v in enumerate(tree)]
-    name = path.rsplit("/", 1)[-1]
-    dtype = torch.float32 if name in F32_LEAVES else compute_dtype(cfg)
+    f32 = any(path.endswith("/" + end) for end in F32_LEAVES)
+    dtype = torch.float32 if f32 else compute_dtype(cfg)
     return tree.to(device=device, dtype=dtype)
+
+
+def restore(flat: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference's tree of float32 CPU tensors from its leaves under
+    slash-joined paths, in the structure of ``cfg``'s tree (empty nodes
+    included); keys outside that tree are ignored, as the reference's
+    ``restore`` ignores them."""
+    def build(node, path):
+        if isinstance(node, dict):
+            return {k: build(v, f"{path}{k}/") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v, f"{path}{i}/") for i, v in enumerate(node)]
+        key = path[:-1]
+        leaf = params_from_numpy(flat[key])
+        if tuple(leaf.shape) != tuple(node.shape):
+            raise ValueError(f"{key}: shape {tuple(leaf.shape)}, the "
+                             f"configuration's is {tuple(node.shape)}")
+        return leaf
+
+    return build(model_template(cfg), "")
 
 
 def lm_params(source, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
@@ -63,7 +94,7 @@ def lm_params(source, cfg: ModelConfig, device="cuda") -> Dict[str, Any]:
     dev = resolve_device(device)
     if isinstance(source, Mapping) and source and all(
             isinstance(k, str) and "/" in k for k in source):
-        source = unflatten({k: np.asarray(v) for k, v in source.items()})
+        return cast_params(restore(source, cfg), cfg, dev)
     return cast_params(params_from_numpy(source), cfg, dev)
 
 
@@ -97,15 +128,20 @@ class LMGolden:
     served: List[List[int]]  # the JAX SlotServer's tokens per request
 
 
-def load_lm_golden(path=LM_GOLDEN_PATH) -> LMGolden:
+def load_lm_golden(path=LM_GOLDEN_PATH, prefix: str = "") -> LMGolden:
+    """One small model of a golden file; ``prefix`` (``"olmo-1b/"``)
+    picks an arch of ``lm_zoo_small_golden.npz``."""
     with np.load(path, allow_pickle=False) as z:
-        g = {k: z[k] for k in z.files if not k.startswith("params/")}
+        g = {k[len(prefix):]: z[k] for k in z.files if k.startswith(prefix)}
+    flat = {k[len("params/"):]: g.pop(k) for k in list(g)
+            if k.startswith("params/")}
+    config = config_from_json(str(g["config"]))
     cuts = np.cumsum(g["serve/prompt_lengths"])[:-1]
     served = np.split(g["serve/tokens"], np.cumsum(g["serve/token_counts"])
                       [:-1])
     return LMGolden(
-        config=config_from_json(str(g["config"])),
-        params=load_npz(path, prefix="params/"),
+        config=config,
+        params=restore(flat, config),
         prefill_tokens=g["prefill/tokens"],
         prefill_logits=g["prefill/logits"],
         cache_len=int(g["cache_len"]),

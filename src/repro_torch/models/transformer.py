@@ -1,6 +1,10 @@
 """LM assembly: embedding -> head/body/tail layers -> final norm ->
 logits; ``repro/models/transformer.py`` in PyTorch for the layer kinds
-"attn", "local_attn", "rg_lru", "mlstm" and "slstm". The xLSTM kinds are
+"attn", "local_attn", "moe_attn", "rg_lru", "mlstm" and "slstm". A
+"moe_attn" layer is an attention layer whose feed-forward is the MoE of
+``models.moe``; its load-balancing loss is returned by
+:func:`layer_apply` and summed by :func:`forward` (``return_aux=True``),
+as the reference returns it, and serving ignores it. The xLSTM kinds are
 self-contained blocks: no ``norm2`` / ``mlp``, ``x + block(norm1(x))``.
 
 Parameters and caches keep the reference's tree: ``params["body"][i]``
@@ -23,11 +27,12 @@ from typing import Any, Dict, Iterator, Tuple
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import nn
 from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ModelConfig
 
-ATTN_KINDS = ("attn", "local_attn")
+ATTN_KINDS = ("attn", "local_attn", "moe_attn")
 XLSTM_KINDS = ("mlstm", "slstm")
 KINDS = ATTN_KINDS + ("rg_lru",) + XLSTM_KINDS
 
@@ -74,13 +79,18 @@ def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
     else:
         raise ValueError(kind)
     params["norm2"] = nn.norm_init(init, cfg.norm, cfg.d_model)
-    params["mlp"] = nn.mlp_init(init, cfg.mlp, cfg.d_model, cfg.d_ff)
+    if kind == "moe_attn":
+        params["moe"] = moe_lib.moe_init(init, cfg)
+    else:
+        params["mlp"] = nn.mlp_init(init, cfg.mlp, cfg.d_model, cfg.d_ff)
     return params
 
 
 def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
                 mode: str, cache=None):
-    """One layer. Returns (x, cache)."""
+    """One layer. Returns (x, cache, aux loss); the aux loss is 0.0 but in
+    "moe_attn" layers."""
+    aux = 0.0
     rm = cfg.residual_multiplier
     h = nn.apply_norm(params["norm1"], cfg.norm, x)
     if kind in ATTN_KINDS:
@@ -93,13 +103,16 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
     elif kind in XLSTM_KINDS:
         block = rec.mlstm_block if kind == "mlstm" else rec.slstm_block
         y, cache = block(params["mix"], cfg, h, mode=mode, cache=cache)
-        return x + y * rm, cache  # self-contained block
+        return x + y * rm, cache, aux  # self-contained block
     else:
         raise ValueError(kind)
     x = x + y * rm
     h2 = nn.apply_norm(params["norm2"], cfg.norm, x)
-    x = x + nn.apply_mlp(params["mlp"], cfg.mlp, h2) * rm
-    return x, cache
+    if kind == "moe_attn":
+        y2, aux = moe_lib.moe_apply(params["moe"], cfg, h2)
+    else:
+        y2 = nn.apply_mlp(params["mlp"], cfg.mlp, h2)
+    return x + y2 * rm, cache, aux
 
 
 def layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
@@ -125,7 +138,7 @@ class _StackedInit(nn.Init):
     """Prepends an ``n_periods`` axis to every parameter."""
 
     def __init__(self, base: nn.Init, n: int):
-        super().__init__(base.generator, base.dtype)
+        super().__init__(base.generator, base.dtype, base.device)
         self.n = n
 
     def param(self, shape, scale: float = 1.0, mode: str = "normal",
@@ -136,9 +149,21 @@ class _StackedInit(nn.Init):
 
 def model_init(cfg: ModelConfig, generator: torch.Generator) -> Dict:
     """Seeded parameters on ``generator``'s device, in the compute type
-    (float32 for norm scales and the RG-LRU ``lambda``)."""
+    (float32 for the leaves read in float32: norm scales and biases, the
+    RG-LRU ``lambda``, the MoE router)."""
+    return _init(cfg, nn.Init(generator, dtype=compute_dtype(cfg)))
+
+
+def model_template(cfg: ModelConfig) -> Dict:
+    """The tree of :func:`model_init` with ``meta`` tensors of its
+    shapes and types: the structure that a flat checkpoint is read
+    into (``models.params.lm_params``), empty nodes included."""
+    return _init(cfg, nn.Init(None, dtype=compute_dtype(cfg),
+                              device="meta"))
+
+
+def _init(cfg: ModelConfig, init: nn.Init) -> Dict:
     _check_kinds(cfg)
-    init = nn.Init(generator, dtype=compute_dtype(cfg))
     params: Dict[str, Any] = {
         "embed": nn.embed_init(init, cfg.vocab_size, cfg.d_model)}
     for group, pattern in (("head", cfg.head_pattern),
@@ -207,22 +232,27 @@ def cache_rows(cache, rows: slice):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, *, tokens, positions=None,
-            mode: str = "train", cache=None, skip_unembed: bool = False):
+            mode: str = "train", cache=None, skip_unembed: bool = False,
+            return_aux: bool = False):
     """Decoder forward. tokens (B, S) integers. Returns (logits or the
-    final hidden state, cache); the cache (prefill / decode) is written
-    in place."""
+    final hidden state, cache), and the summed aux loss third with
+    ``return_aux`` (0.0 without MoE layers); the cache (prefill / decode)
+    is written in place."""
     x = nn.embed(params["embed"], tokens, compute_dtype(cfg))
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    aux_total = 0.0
     for kind, lp, lc in layers(cfg, params, cache):
-        x, _ = layer_apply(lp, cfg, kind, x, positions, mode=mode, cache=lc)
+        x, _, aux = layer_apply(lp, cfg, kind, x, positions, mode=mode,
+                                cache=lc)
+        if return_aux:
+            aux_total = aux_total + aux
     x = nn.apply_norm(params["final_norm"], cfg.norm, x)
-    if skip_unembed:
-        return x, cache
-    return unembed(params, cfg, x), cache
+    out = x if skip_unembed else unembed(params, cfg, x)
+    return (out, cache, aux_total) if return_aux else (out, cache)
 
 
 def unembed(params, cfg: ModelConfig, x):

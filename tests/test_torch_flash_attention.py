@@ -136,7 +136,7 @@ def test_route_sends_bf16_to_tensor_cores_and_f32_to_cuda_cores(D):
 
 def test_route_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError, match="D in"):
-        ops.route(torch.bfloat16, 128)
+        ops.route(torch.bfloat16, 96)
     with pytest.raises(TypeError):
         ops.route(torch.float16, 64)
 
