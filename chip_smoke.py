@@ -518,7 +518,6 @@ def phase_engine(golden, pre, frame):
 
     from repro_torch.core.model import PeronaModel
     from repro_torch.kernels.edge_softmax import ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.serving.engine import FingerprintEngine
 
     print("[3] FingerprintEngine on the §IV-C acquisition vs the JAX "
@@ -550,7 +549,6 @@ def phase_watchdog(golden, pre):
     from repro_torch.core.model import PeronaModel
     from repro_torch.fingerprint.runner import SuiteRunner
     from repro_torch.kernels.edge_softmax import ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.runtime.watchdog import PeronaWatchdog
 
     print(f"[4] PeronaWatchdog at fleet size: {FLEET_NODES} e2-medium "
@@ -1214,8 +1212,8 @@ def _ring_check(model, params, req, cache_dtype, tol, label,
     ld, _ = model.decode_step(params, first,
                               torch.tensor([S], device="cuda"), cache)
     del cache
-    hidden, _ = tfm.forward(params, cfg, tokens=torch.cat([toks, first], 1),
-                            skip_unembed=True)
+    hidden, _, _ = tfm.forward(params, cfg, tokens=torch.cat([toks, first], 1),
+                               skip_unembed=True)
     lf = tfm.unembed(params, cfg, hidden[:, -1:])[:, 0]
     del hidden
     check(bool(torch.isfinite(ld).all()), "finite decode logits")
@@ -1485,13 +1483,18 @@ def time_flash(g, B, H, KH, S, D, W):
         qf, kf, vf = (t.float() for t in (q, k, v))
         f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf,
                                                         window=W), 5)
-        # one library call of the same function: SDPA with a boolean
-        # causal (+ window) mask, in its own layout (B, H, S, D), with k/v
-        # expanded (MQA) or repeated (GQA) to the query heads; the copies
-        # are not timed
-        pos = torch.arange(S, device="cuda")
-        rel = pos[:, None] - pos[None, :]
-        mask = (rel >= 0) & (rel < W) if W > 0 else rel >= 0
+        # one library call of the same function, SDPA in its own layout
+        # (B, H, S, D). A window needs a boolean mask; plain causal
+        # attention takes is_causal, which keeps SDPA's flash backend
+        # open, on k/v repeated to the query heads (the copies are not
+        # timed) and on the KH heads as they are (enable_gqa); the faster
+        # of the two is the library's time
+        if W > 0:
+            pos = torch.arange(S, device="cuda")
+            rel = pos[:, None] - pos[None, :]
+            how = {"attn_mask": (rel >= 0) & (rel < W)}
+        else:
+            how = {"is_causal": True}
 
         def heads(t):
             t = t.transpose(1, 2).contiguous()
@@ -1501,18 +1504,30 @@ def time_flash(g, B, H, KH, S, D, W):
         def sdpa_args(q, k, v):
             return q.transpose(1, 2).contiguous(), heads(k), heads(v)
 
+        def sdpa(q, k, v, **gqa):
+            return F.scaled_dot_product_attention(q, k, v, **how, **gqa)
+
+        def sdpa_ms(q, k, v):
+            """The library's time on one problem, and which call it was."""
+            args = sdpa_args(q, k, v)
+            times = {"repeated": cuda_ms(lambda: sdpa(*args), 5)}
+            del args
+            if W == 0 and KH < H:
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                times["enable_gqa"] = cuda_ms(
+                    lambda: sdpa(qt, kt, vt, enable_gqa=True), 5)
+            best = min(times, key=times.get)
+            return times[best], best, times
+
         # the same on the float32 route's problem
-        f32_args = sdpa_args(qf, kf, vf)
-        f32_library = cuda_ms(lambda: F.scaled_dot_product_attention(
-            *f32_args, attn_mask=mask), 5)
-        del qf, kf, vf, f32_args
+        f32_library, _, _ = sdpa_ms(qf, kf, vf)
+        del qf, kf, vf
+        library, library_call, library_times = sdpa_ms(q, k, v)
         qt, ke, ve = sdpa_args(q, k, v)
-        library = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, ke, ve, attn_mask=mask), 5)
-        lib_err = float((F.scaled_dot_product_attention(
-            qt, ke, ve, attn_mask=mask).transpose(1, 2).float()
-            - fa_ops.flash_attention(q, k, v, window=W).float())
-            .abs().max())
+        lib_err = float((sdpa(qt, ke, ve).transpose(1, 2).float()
+                         - fa_ops.flash_attention(q, k, v, window=W).float())
+                        .abs().max())
     check(lib_err <= TOL["bfloat16"], f"SDPA vs flash kernel: {lib_err}")
     # live (q, k) pairs per head
     pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
@@ -1531,9 +1546,12 @@ def time_flash(g, B, H, KH, S, D, W):
              "f32_tflop_per_s": flops / f32_ms / 1e9,
              "f32_bound_ms": f32_bound, "f32_library_ms": f32_library,
              "design": fa_ops.route(q.dtype, D), "attributes": attrs,
-             "library_vs_kernel": lib_err}
+             "library_vs_kernel": lib_err,
+             "library_call": f"{next(iter(how))}, {library_call}",
+             "library_times_ms": library_times}
     print(f"  flash {flash['shape']}: kernel ({flash['design']}) {ms:.4f} "
-          f"ms, plain {plain:.4f} ms, SDPA {library:.4f} ms, bound "
+          f"ms, plain {plain:.4f} ms, SDPA {library:.4f} ms "
+          f"({flash['library_call']}: {library_times}), bound "
           f"{flash['bound_ms']:.4f} ms ({flash['bound_by']}: "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
           f"{flash['tflop_per_s']:.1f} TFLOP/s; SDPA vs kernel "
@@ -2231,7 +2249,6 @@ def _bwd_inputs(g, N, H, hd, P, dtype, with_g_att):
     import torch
 
     from repro_torch.kernels.edge_softmax import ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     q, k, v, mask = _inputs(g, N, H, hd, P, dtype)
     blank = slice(N // 3, N // 3 + min(N // 4, 64))
@@ -2311,7 +2328,6 @@ def phase_train_fixed_point(golden, tb):
     """[14b] loss terms, gradients and one AdamW step at the golden's
     initial parameters, dropout 0."""
     from repro_torch.kernels.edge_softmax import ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     before = ops.BWD_LAUNCHES
     errs = fixed_point_errors(golden, tb, "cuda")
@@ -2339,7 +2355,6 @@ def phase_train_runs(golden, tb, vb):
 
     from repro_torch.core.trainer import evaluate, train_perona_reference
     from repro_torch.kernels.edge_softmax import ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     m = golden.meta
     kw = dict(epochs=m["epochs"], patience=m["patience"], lr=m["lr"],
@@ -2661,7 +2676,6 @@ def profile_graph(golden, tb, vb, epochs=20):
 
     from repro_torch.core import trainer as T
     from repro_torch.kernels.edge_softmax import ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     cfg = golden.config
     dev = torch.device("cuda")
@@ -2946,7 +2960,6 @@ def dispatch_launches():
     ``ShardedScorer.score_stack`` call)."""
     from repro_torch.fleet.shard import ShardedScorer
     from repro_torch.kernels.edge_softmax import ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     real, per = ShardedScorer.score_stack, []
 
@@ -3616,7 +3629,6 @@ def phase_plane_retrain(golden, pre):
     from repro_torch.fleet import (FleetScoringService, IngestionDaemon,
                                    ModelPlane, fleet_telemetry)
     from repro_torch.kernels.edge_softmax import ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
 
     machines = {f"node-{i:03d}": "e2-medium" for i in range(RETRAIN_NODES)}
     svc = FleetScoringService(PeronaModel(golden.config),
@@ -4352,7 +4364,7 @@ def _moe_decode_check(model, params, prompt, cache_dtype, tol, label):
     toks = torch.as_tensor(prompt, device="cuda").long()[None]
     N = toks.shape[1]
     with moe.record_keep() as keeps:
-        hidden, _ = tfm.forward(params, cfg, tokens=toks, skip_unembed=True)
+        hidden, _, _ = tfm.forward(params, cfg, tokens=toks, skip_unembed=True)
     kept = torch.stack([k[0].all(-1) for k in keeps]).all(0)  # (N,)
     dropped = int(sum(int((~k).sum()) for k in keeps))
     bad = (~kept).nonzero()
@@ -4811,7 +4823,7 @@ def main() -> int:
                  "max_abs_err": zoo["kernel_errors"]["d128_main"],
                  **{k: d128[k] for k in (
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                     "tflop_per_s", "f32_ms", "f32_bound_ms",
+                     "library_call", "library_times_ms", "tflop_per_s", "f32_ms", "f32_bound_ms",
                      "f32_library_ms", "attributes")}},
     }, {
         "name": "rg_lru_scan",

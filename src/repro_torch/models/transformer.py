@@ -3,9 +3,9 @@ logits; ``repro/models/transformer.py`` in PyTorch for the layer kinds
 "attn", "local_attn", "moe_attn", "rg_lru", "mlstm" and "slstm". A
 "moe_attn" layer is an attention layer whose feed-forward is the MoE of
 ``models.moe``; its load-balancing loss is returned by
-:func:`layer_apply` and summed by :func:`forward` (``return_aux=True``),
-as the reference returns it, and serving ignores it. The xLSTM kinds are
-self-contained blocks: no ``norm2`` / ``mlp``, ``x + block(norm1(x))``.
+:func:`layer_apply` and summed by :func:`forward`, which returns it
+third as the reference does, and serving ignores it. The xLSTM kinds
+are self-contained blocks: no ``norm2`` / ``mlp``, ``x + block(norm1(x))``.
 
 Parameters and caches keep the reference's tree: ``params["body"][i]``
 holds layer ``i`` of the period with every leaf stacked over a leading
@@ -232,12 +232,10 @@ def cache_rows(cache, rows: slice):
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg: ModelConfig, *, tokens, positions=None,
-            mode: str = "train", cache=None, skip_unembed: bool = False,
-            return_aux: bool = False):
+            mode: str = "train", cache=None, skip_unembed: bool = False):
     """Decoder forward. tokens (B, S) integers. Returns (logits or the
-    final hidden state, cache), and the summed aux loss third with
-    ``return_aux`` (0.0 without MoE layers); the cache (prefill / decode)
-    is written in place."""
+    final hidden state, cache, the summed aux loss (0.0 without MoE
+    layers)); the cache (prefill / decode) is written in place."""
     x = nn.embed(params["embed"], tokens, compute_dtype(cfg))
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
@@ -248,11 +246,10 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
     for kind, lp, lc in layers(cfg, params, cache):
         x, _, aux = layer_apply(lp, cfg, kind, x, positions, mode=mode,
                                 cache=lc)
-        if return_aux:
-            aux_total = aux_total + aux
+        aux_total = aux_total + aux
     x = nn.apply_norm(params["final_norm"], cfg.norm, x)
     out = x if skip_unembed else unembed(params, cfg, x)
-    return (out, cache, aux_total) if return_aux else (out, cache)
+    return out, cache, aux_total
 
 
 def unembed(params, cfg: ModelConfig, x):
@@ -266,14 +263,15 @@ def unembed(params, cfg: ModelConfig, x):
 def prefill(params, cfg: ModelConfig, cache, *, tokens, positions=None):
     """Run the whole prompt, fill the cache in place; returns
     (last-position logits (B, V), cache)."""
-    hidden, cache = forward(params, cfg, tokens=tokens, positions=positions,
-                            mode="prefill", cache=cache, skip_unembed=True)
+    hidden, cache, _ = forward(params, cfg, tokens=tokens,
+                               positions=positions, mode="prefill",
+                               cache=cache, skip_unembed=True)
     return unembed(params, cfg, hidden[:, -1:])[:, 0], cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
     """One token for every sequence. tokens (B, 1); pos (B,) absolute."""
-    logits, cache = forward(params, cfg, tokens=tokens,
-                            positions=pos[:, None], mode="decode",
-                            cache=cache)
+    logits, cache, _ = forward(params, cfg, tokens=tokens,
+                               positions=pos[:, None], mode="decode",
+                               cache=cache)
     return logits[:, 0], cache

@@ -130,8 +130,8 @@ def test_cache_layout_matches_reference():
 @pytest.mark.parametrize("impl", IMPLS)
 def test_forward_matches_jax(lm, impl):
     with torch.no_grad():
-        logits, _ = tfm.forward(lm["params"], port_cfg(),
-                                tokens=torch.from_numpy(lm["long"]))
+        logits, _, _ = tfm.forward(lm["params"], port_cfg(),
+                                   tokens=torch.from_numpy(lm["long"]))
     np.testing.assert_allclose(logits.numpy(), lm["forward"][impl],
                                atol=ATOL, rtol=0)
 

@@ -186,8 +186,7 @@ def test_forward_matches_jax(granite):
     with torch.no_grad():
         logits, _, aux = tfm.forward(params, port_config(MOE),
                                      tokens=torch.from_numpy(
-                                         granite["tokens"]),
-                                     return_aux=True)
+                                         granite["tokens"]))
     np.testing.assert_allclose(logits.numpy(), granite["forward"],
                                atol=ATOL, rtol=0)
     from repro.models import transformer as jtfm

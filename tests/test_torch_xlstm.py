@@ -247,7 +247,7 @@ def test_short_prompt_conv_history_is_left_padded(lm):
         conv = cache["body"][0]["conv"][0].clone()  # period 0, (B, 3, 2 d)
         ld, _ = model.decode_step(lm["params"], toks[:, 2:3],
                                   torch.full((B,), 2), cache)
-        full, _ = tfm.forward(lm["params"], cfg, tokens=toks)
+        full, _, _ = tfm.forward(lm["params"], cfg, tokens=toks)
     assert not conv[:, 0].any() and conv[:, 1:].abs().amax(-1).gt(0).all()
     np.testing.assert_allclose(ld.numpy(), full[:, 2].numpy(),
                                atol=MODEL_ATOL, rtol=0)
@@ -257,8 +257,8 @@ def test_short_prompt_conv_history_is_left_padded(lm):
 @pytest.mark.parametrize("impl", ["reference", "pallas"])
 def test_forward_matches_jax(lm, impl):
     with torch.no_grad():
-        logits, _ = tfm.forward(lm["params"], port_cfg(),
-                                tokens=torch.from_numpy(lm["tokens"]).long())
+        logits, _, _ = tfm.forward(lm["params"], port_cfg(),
+                                   tokens=torch.from_numpy(lm["tokens"]).long())
     np.testing.assert_allclose(logits.numpy(), lm["forward"][impl],
                                atol=MODEL_ATOL, rtol=0)
 
@@ -299,7 +299,7 @@ def self_forward(lm):
     long = torch.from_numpy(rng.integers(
         0, 256, (1, max(SELF_S) + 1)).astype(np.int64))
     with torch.no_grad():
-        logits, _ = tfm.forward(lm["params"], port_cfg(), tokens=long)
+        logits, _, _ = tfm.forward(lm["params"], port_cfg(), tokens=long)
     return long, logits
 
 
