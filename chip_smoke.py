@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Nine paths are driven: Perona's scoring
+outputs, and time its kernels. Ten paths are driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
 width (chunkwise mLSTM kernel), Perona's host-loop training and its
@@ -17,7 +17,10 @@ acquisition weighting, the batched float64 BO replay, Lotaru and Tarema
 (both edge-softmax kernels, through the machine scores), and the LM
 zoo's dense and MoE decoders, smollm-135m, qwen2.5-3b, olmo-1b,
 gemma3-4b and granite-moe-1b-a400m, serving at full width (the
-flash-attention kernel, head dims 64, 128 and 256).
+flash-attention kernel, head dims 64, 128 and 256), and DeepSeek-V2-Lite
+(latent attention and MoE) and Qwen2-VL (M-RoPE, embeddings input)
+serving at full width (the flash-attention kernel with q/k head dim 192
+and v head dim 128, and at a GQA group of 7).
 
     python3 chip_smoke.py
 
@@ -217,6 +220,27 @@ Phases, each printing on lines of its own:
    qwen2.5-3b; (d) the flash kernel at head dim 128, B=1 H=16 KH=2
    S=4096 causal: time, TFLOP/s, bound, plain version, SDPA and the
    float32 route.
+20. the MLA and M-RoPE decoders: (a) the flash kernel on both routes
+   against its plain version at (H, KH, D, DV) (16, 16, 192, 128)
+   (DeepSeek-V2-Lite's prefill), (28, 4, 128, 128) (Qwen2-VL's group of
+   7) and, on the float32 route, (4, 4, 24, 16) (the small DeepSeek's;
+   the bf16 route refuses it with a ValueError naming the pair), S
+   1/100/2048/3000/4096; the bf16 tile edges of phase [5] at (192, 128)
+   with (H, KH) (28, 4) added, and (28, 4) at (128, 128); the (192, 128)
+   kernel at B=1 H=16 KH=16 S=4096 causal: time, TFLOP/s, bound, plain
+   version, SDPA, the float32 route, registers and shared memory, and
+   which of SDPA's backends runs that problem; (b) the small DeepSeek
+   and Qwen2-VL (float32) against the JAX package's prefill and decode
+   logits, served tokens and (Qwen2-VL) a prefill from embeddings with
+   M-RoPE rows that differ (``lm_zoo_mla_mrope_small_golden.npz``); (c)
+   each at full width as in [19c] (27 and 28 flash launches a prefill),
+   DeepSeek's decode through the MoE check with its bf16 decode and
+   forward each measured against the float32 plain route, and
+   Qwen2-VL's 4096-token prefill from seeded embeddings with an image's
+   positions (32 text tokens, a 64 x 64 patch grid merged to 32 x 32,
+   text), kernels vs plain, and the same with three equal rows equal to
+   RoPE positions bit for bit. The float32 copies of the weights are
+   made through the host, one leaf at a time.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -237,6 +261,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -824,12 +849,14 @@ def _distances_to_f32(logits, reference):
     return {route: _rel(x, reference)[2] for route, x in logits.items()}
 
 
-def _flash_inputs(g, B, H, KH, S, D, dtype):
-    """q (B, S, H, D), k/v (B, S, KH, D): the model's layout."""
+def _flash_inputs(g, B, H, KH, S, D, dtype, DV=None):
+    """q (B, S, H, D), k (B, S, KH, D), v (B, S, KH, DV) (DV = D unless
+    given): the model's layout."""
     import torch
 
-    return tuple(torch.randn(B, S, h, D, generator=g, device="cuda")
-                 .to(dtype) for h in (H, KH, KH))
+    return tuple(torch.randn(B, S, h, d, generator=g, device="cuda")
+                 .to(dtype) for h, d in ((H, D), (KH, D),
+                                         (KH, D if DV is None else DV)))
 
 
 def _lru_inputs(g, B, S, C):
@@ -1102,6 +1129,18 @@ def phase_lm_golden(path=None, label="[6] small RecurrentGemma",
             errs.append(float(np.abs(ld.cpu().numpy()
                                      - golden.decode_logits[i]).max()))
         check(bool(torch.isfinite(lp).all()), "finite golden logits")
+        if golden.embeddings is not None:  # a prefill from embeddings
+            e = golden.embeddings
+            cache = model.init_cache(
+                B, int(e["cache_len"]),
+                dtype=getattr(torch, golden.cache_dtype), device="cuda")
+            le, _ = model.prefill(
+                params, cache,
+                embeddings=torch.as_tensor(e["inputs"], device="cuda"),
+                positions=torch.as_tensor(e["positions"], device="cuda"))
+            errs.append(float(np.abs(le.cpu().numpy() - e["logits"]).max()))
+            print(f"  {cfg.name}: prefill from embeddings with (3, B, S) "
+                  f"positions whose rows differ: logits err {errs[-1]:.3e}")
     server = SlotServer(model, params, n_slots=golden.slots,
                         max_len=golden.max_len)
     reqs = [Request(rid=i, prompt=p, max_new=golden.max_new)
@@ -1466,16 +1505,18 @@ def time_lm_kernels():
     return {"flash": flash, "rg_lru": time_lru(g)}
 
 
-def time_flash(g, B, H, KH, S, D, W):
+def time_flash(g, B, H, KH, S, D, W, DV=None):
     """The flash kernel at one shape in bf16 (the tensor-core route) and
     float32 (the CUDA-core route), its plain version, one SDPA call of
-    the same function on each problem, and the bounds."""
+    the same function on each problem, and the bounds; v's head dim is
+    DV (D unless given)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
+    DV = D if DV is None else DV
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16, DV)
     with torch.no_grad():
         ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, window=W), 20)
         plain = cuda_ms(lambda: _plain_flash(q, k, v, window=W), 3)
@@ -1498,7 +1539,7 @@ def time_flash(g, B, H, KH, S, D, W):
 
         def heads(t):
             t = t.transpose(1, 2).contiguous()
-            return (t.expand(B, H, S, D) if KH == 1
+            return (t.expand(B, H, S, t.shape[-1]) if KH == 1
                     else t.repeat_interleave(H // KH, dim=1))
 
         def sdpa_args(q, k, v):
@@ -1529,15 +1570,18 @@ def time_flash(g, B, H, KH, S, D, W):
                          - fa_ops.flash_attention(q, k, v, window=W).float())
                         .abs().max())
     check(lib_err <= TOL["bfloat16"], f"SDPA vs flash kernel: {lib_err}")
-    # live (q, k) pairs per head
+    # live (q, k) pairs per head; 2 D flops a pair for the score, 2 DV
+    # for the weighted sum; q, k, v read once, the output (B, S, H, DV)
+    # written once
     pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
-    flops = 4 * D * pairs * H * B
-    nbytes = 2 * q.nbytes + k.nbytes + v.nbytes
+    flops = 2 * (D + DV) * pairs * H * B
+    nbytes = q.nbytes + q.nbytes // D * DV + k.nbytes + v.nbytes
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     f32_bound = f32_bound_ms(flops, 2 * nbytes)
-    attrs = fa_ops.tensor_core_attributes(D)
-    flash = {"shape": f"B={B} H={H} KH={KH} S={S} D={D} window={W} "
+    attrs = fa_ops.tensor_core_attributes(D, DV)
+    dims = f"D={D}" if DV == D else f"D={D} DV={DV}"
+    flash = {"shape": f"B={B} H={H} KH={KH} S={S} {dims} window={W} "
                       f"bfloat16", "ms": ms, "plain_ms": plain,
              "library_ms": library, "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1545,7 +1589,7 @@ def time_flash(g, B, H, KH, S, D, W):
              "tflop_per_s": flops / ms / 1e9, "f32_ms": f32_ms,
              "f32_tflop_per_s": flops / f32_ms / 1e9,
              "f32_bound_ms": f32_bound, "f32_library_ms": f32_library,
-             "design": fa_ops.route(q.dtype, D), "attributes": attrs,
+             "design": fa_ops.route(q.dtype, D, DV), "attributes": attrs,
              "library_vs_kernel": lib_err,
              "library_call": f"{next(iter(how))}, {library_call}",
              "library_times_ms": library_times}
@@ -1561,8 +1605,8 @@ def time_flash(g, B, H, KH, S, D, W):
           f"own bound {f32_bound:.4f} ms (operations at the float32 rate, "
           f"{F32_FLOP_PER_S / 1e12:g} TFLOP/s); SDPA on the float32 problem "
           f"{f32_library:.4f} ms")
-    print(f"  flash bfloat16 kernel at D={D}: {attrs['registers']} registers "
-          f"a thread, {attrs['local_bytes']} local bytes, "
+    print(f"  flash bfloat16 kernel at {dims}: {attrs['registers']} "
+          f"registers a thread, {attrs['local_bytes']} local bytes, "
           f"{attrs['static_smem_bytes'] + attrs['dynamic_smem_bytes']} "
           f"bytes of shared memory a block")
     del q, k, v, qt, ke, ve
@@ -4295,9 +4339,11 @@ ZOO_ARCHS = ("smollm-135m", "qwen2.5-3b", "olmo-1b", "gemma3-4b",
              "granite-moe-1b-a400m")
 ZOO_PROFILED = ("smollm-135m", "qwen2.5-3b")
 # the flash kernel at the zoo's attention shapes, (H, KH, D, window):
-# smollm, qwen2.5, olmo, gemma3's local and global layers, granite
+# smollm, qwen2.5, olmo, gemma3's local and global layers, granite, and
+# Qwen2-VL's group of 7
 ZOO_FLASH = ((9, 3, 64, 0), (16, 2, 128, 0), (16, 16, 128, 0),
-             (8, 4, 256, 1024), (8, 4, 256, 0), (16, 8, 64, 0))
+             (8, 4, 256, 1024), (8, 4, 256, 0), (16, 8, 64, 0),
+             (28, 4, 128, 0))
 ZOO_FLASH_S = (1, 100, 2048, 3000, 4096)
 # the timed D = 128 shape, (B, H, KH, S, D, window): qwen2.5-3b's prefill
 ZOO_D128 = (1, 16, 2, 4096, 128, 0)
@@ -4345,7 +4391,8 @@ def phase_zoo_kernels():
     return worst
 
 
-def _moe_decode_check(model, params, prompt, cache_dtype, tol, label):
+def _moe_decode_check(model, params, prompt, cache_dtype, tol, label,
+                      stash=None):
     """Decode after prefill vs the no-cache forward for an MoE model,
     where a forward over more tokens may drop routing choices that a
     decode step (one token, never past capacity) keeps: the forward over
@@ -4353,7 +4400,9 @@ def _moe_decode_check(model, params, prompt, cache_dtype, tol, label):
     layer, f; the longest prefix p0 below f - MOE_DECODE_STEPS whose
     prefill drops no choice is prefilled (halving until none drops), and
     decode steps fed the prompt's next tokens are held to the forward's
-    logits at positions p0 .. p0 + MOE_DECODE_STEPS - 1, all before f."""
+    logits at positions p0 .. p0 + MOE_DECODE_STEPS - 1, all before f.
+    A dict ``stash`` receives the positions and both sets of logits (on
+    the host)."""
     import torch
 
     from repro_torch.models import moe
@@ -4395,6 +4444,9 @@ def _moe_decode_check(model, params, prompt, cache_dtype, tol, label):
     got = torch.stack(got)
     check(bool(torch.isfinite(got).all()), "finite decode logits")
     err = _rel(got, want)
+    if stash is not None:
+        stash.update(p0=p0, steps=steps, decode=got.float().cpu(),
+                     forward=want.float().cpu())
     print(f"  {label}: the forward over {N} tokens dropped {dropped} "
           f"choices, the first at position {first}; prefill of {p0} tokens "
           f"(0 dropped), {steps} decode steps vs the forward at positions "
@@ -4459,10 +4511,74 @@ def _prefill_drops(keeps):
     return out
 
 
-def phase_zoo_full(arch):
+def _decode_vs_f32(model32, params32, prompt, stash, label):
+    """The bf16 decode's and the bf16 no-cache forward's logits of
+    ``_moe_decode_check`` (``stash``), each against the float32 plain
+    route's forward at the same positions: whether the absorbed decode,
+    which takes the q.k product through the 512-wide latent, leaves the
+    bf16 model further from float32 than the forward does."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    toks = torch.as_tensor(prompt, device="cuda").long()[None]
+    p0, steps = stash["p0"], stash["steps"]
+    with plain_versions():
+        hidden, _, _ = tfm.forward(params32, model32.cfg, tokens=toks,
+                                   skip_unembed=True)
+    ref = tfm.unembed(params32, model32.cfg, hidden[:, p0:p0 + steps])[0]
+    del hidden
+    out = {name: _rel(stash[name].to(ref.device), ref)
+           for name in ("decode", "forward")}
+    print(f"  {label}: at positions {p0}..{p0 + steps - 1}, against the "
+          f"float32 plain route's forward: bf16 decode relative L2 "
+          f"{out['decode'][2]:.2e}, bf16 forward {out['forward'][2]:.2e} "
+          f"(measured, not gated)")
+    return out
+
+
+def _float32_in_place(tree):
+    """The tree with every leaf in float32 on the card, converted one leaf
+    at a time, largest first: a model of 31.4 GB in bf16 (62.8 GB in
+    float32) never holds both copies. The bf16 leaves wait on the host
+    first, so that the card starts empty: a bf16 init leaves its segments
+    shared with the float32 draws it rounded, and at DeepSeek-V2-Lite's
+    size 27 GB of them stayed reserved but unusable. Where the card has
+    room for the float32 copy beside the bf16 weights (every arch but
+    DeepSeek), the leaves stay on it."""
+    import torch
+
+    # (node, key) of every leaf, found by a loop: a recursive closure
+    # would keep this list, and the weights, alive in a reference cycle
+    # past the return
+    slots, stack = [], [tree]
+    while stack:
+        node = stack.pop()
+        for key in (node if isinstance(node, dict) else range(len(node))):
+            if isinstance(node[key], torch.Tensor):
+                slots.append((node, key))
+            else:
+                stack.append(node[key])
+    slots.sort(key=lambda nk: -nk[0][nk[1]].numel())
+    device = slots[0][0][slots[0][1]].device
+    torch.cuda.empty_cache()
+    f32_bytes = 4 * sum(node[key].numel() for node, key in slots)
+    if f32_bytes > torch.cuda.mem_get_info(device)[0]:
+        for node, key in slots:
+            node[key] = node[key].cpu()
+        torch.cuda.empty_cache()
+    for node, key in slots:
+        node[key] = node[key].to(device).float()
+        torch.cuda.empty_cache()  # the bf16 copy's segment
+    return tree
+
+
+def phase_zoo_full(arch, extra=None):
     """(c) One arch of the zoo at full width, bf16, weights from seed 0 on
     the card, serving eight requests through SlotServer; then the same
-    weights in float32 for the sharp checks."""
+    weights in float32 for the sharp checks. ``extra(model, params, tol,
+    label)``, where given, adds the arch's own checks on each type's
+    weights."""
     import contextlib as ctx
     import dataclasses
 
@@ -4476,7 +4592,7 @@ def phase_zoo_full(arch):
     from repro_torch.models.model_zoo import build_model
 
     cfg = get_config(arch)
-    is_moe = "moe_attn" in cfg.layer_kinds
+    is_moe = any(k in tfm.MOE_KINDS for k in cfg.layer_kinds)
     print(f"  {cfg.name} at full width: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, H {cfg.n_heads} / KH {cfg.n_kv_heads}, hd "
           f"{cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.dtype}"
@@ -4491,7 +4607,7 @@ def phase_zoo_full(arch):
     print(f"    weights: {n_params / 1e9:.3f} B parameters, "
           f"{n_bytes / 1e9:.2f} GB on the card, drawn in "
           f"{time.perf_counter() - t0:.1f} s")
-    n_attn = sum(k in ("attn", "local_attn", "moe_attn")
+    n_attn = sum(k in tfm.ATTN_KINDS + tfm.MLA_KINDS
                  for k in cfg.layer_kinds)
     requests = make_requests(len(FULL_LENGTHS), cfg.vocab_size,
                              FULL_MAX_NEW, seed=0, lengths=FULL_LENGTHS)
@@ -4548,8 +4664,9 @@ def phase_zoo_full(arch):
     if is_moe:
         row["prefill_drops"] = _prefill_drops(keeps)
         row["router_repeats"] = _router_repeats(params, cfg)
+        n_moe = sum(k in tfm.MOE_KINDS for k in cfg.layer_kinds)
         print(f"    routing choices dropped per prefill (of S x "
-              f"{cfg.moe.top_k} x {cfg.n_layers}): "
+              f"{cfg.moe.top_k} x {n_moe}): "
               + ", ".join(f"S={s} {n}"
                           for s, n in row["prefill_drops"].items()))
         del keeps
@@ -4569,10 +4686,12 @@ def phase_zoo_full(arch):
         checks["bf16_kernels_vs_plain"] = _kernels_vs_plain(
             model, params, [by_len[n].prompt for n in FULL_CHECK_LENGTHS],
             FULL_BF16_REL_TOL, f"  {arch} bf16")
+        stash = {} if cfg.mla is not None else None
         if is_moe:
             checks["bf16_decode"] = _moe_decode_check(
                 model, params, ring_req.prompt, torch.bfloat16,
-                FULL_BF16_REL_TOL, f"  {arch} bf16 MoE decode check")
+                FULL_BF16_REL_TOL, f"  {arch} bf16 MoE decode check",
+                stash=stash)
             err = checks["bf16_decode"]["err"]
         else:
             err = checks["bf16_decode"] = _ring_check(
@@ -4582,11 +4701,13 @@ def phase_zoo_full(arch):
         if arch in ZOO_PROFILED:
             row["profile"] = profile_lm(model, params, server,
                                         by_len[4096])
+        if extra is not None:
+            checks.update(extra(model, params, FULL_BF16_REL_TOL, "bf16"))
         del server
         torch.cuda.empty_cache()
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         model32 = build_model(cfg32)
-        params32 = tfm.tree_map(lambda t: t.float(), params)
+        params32 = _float32_in_place(params)
         del params
         torch.cuda.empty_cache()
         checks["f32_kernels_vs_plain"] = _kernels_vs_plain(
@@ -4602,6 +4723,12 @@ def phase_zoo_full(arch):
                 model32, params32, ring_req, torch.float32,
                 FULL_F32_REL_TOL, f"  {arch} f32 ring check")
         check(err[2] <= FULL_F32_REL_TOL, f"{arch}: f32 decode check")
+        if stash:
+            checks["bf16_decode_vs_f32"] = _decode_vs_f32(
+                model32, params32, ring_req.prompt, stash,
+                f"  {arch} bf16 absorbed decode")
+        if extra is not None:
+            checks.update(extra(model32, params32, FULL_F32_REL_TOL, "f32"))
         del params32
     torch.cuda.empty_cache()
     row["checks"] = {k: ({str(s): e for s, e in v.items()}
@@ -4637,6 +4764,252 @@ def phase_zoo():
           "warm-up)")
     g = torch.Generator(device="cuda").manual_seed(5)
     out["d128"] = time_flash(g, *ZOO_D128)
+    return out
+
+
+# ------------------------------- the MLA and M-RoPE decoders (phase [20])
+MLA_ARCHS = ("deepseek-v2-lite-16b", "qwen2-vl-7b")
+# the flash kernel at their attention shapes, (H, KH, D, DV): DeepSeek's
+# prefill (latent attention, q/k 128 + 64 wide, v 128), Qwen2-VL's group
+# of 7, and the small DeepSeek's (16 + 8, 16), which the float32 route
+# alone takes (the tensor-core route refuses it)
+MLA_FLASH = ((16, 16, 192, 128), (28, 4, 128, 128), (4, 4, 24, 16))
+MLA_FLASH_S = ZOO_FLASH_S
+# the tile edges at (192, 128), with the (H, KH) of phase [5] and
+# Qwen2-VL's (28, 4); (28, 4) also at (128, 128)
+MLA_EDGE_PAIRS = (((192, 128), EDGE_HEADS + ((28, 4),)),
+                  ((128, 128), ((28, 4),)))
+# the timed (192, 128) shape, (B, H, KH, S, D, window, DV): DeepSeek's
+# 4096-token prefill
+MLA_TIMED = (1, 16, 16, 4096, 192, 0, 128)
+# Qwen2-VL's image prompt: 32 text tokens, a 64 x 64 patch grid merged
+# 2 x 2 into 32 x 32 tokens (t fixed, h and w along the grid), then text
+# from the largest position + 1 on all three rows, to 4096 tokens
+VL_TEXT_BEFORE = 32
+VL_GRID = 64
+VL_MERGE = 2
+VL_PROMPT = 4096
+
+
+def vl_positions(n_before, grid, merge, length):
+    """(3, length) M-RoPE positions of a prompt of ``n_before`` text
+    tokens, one image of ``grid`` x ``grid`` patches merged ``merge`` x
+    ``merge``, and text to ``length`` tokens, as Qwen2-VL's
+    ``get_rope_index`` lays them out."""
+    import torch
+
+    side = grid // merge
+    text = torch.arange(n_before).expand(3, -1)
+    hh, ww = torch.meshgrid(torch.arange(side), torch.arange(side),
+                            indexing="ij")
+    image = n_before + torch.stack([torch.zeros_like(hh).flatten(),
+                                    hh.flatten(), ww.flatten()])
+    start = n_before + side
+    after = start + torch.arange(length - n_before - side * side)
+    return torch.cat([text, image, after.expand(3, -1)], 1)
+
+
+def _mla_tile_edges(g):
+    """The bf16 kernel against the plain version at the tile edges of
+    ``_flash_tile_edges``, at the pairs and (H, KH) of MLA_EDGE_PAIRS."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    tol = TOL["bfloat16"]
+    n, largest = 0, 0.0
+    for (D, DV), heads in MLA_EDGE_PAIRS:
+        for S, T, W, (H, KH) in itertools.product(
+                EDGE_LENGTHS, EDGE_LENGTHS, EDGE_WINDOWS, heads):
+            q = torch.randn(1, S, H, D, generator=g, device="cuda")
+            k = torch.randn(1, T, KH, D, generator=g, device="cuda")
+            v = torch.randn(1, T, KH, DV, generator=g, device="cuda")
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            out = fa_ops.flash_attention(q, k, v, window=W)
+            expect = _plain_flash(q, k, v, window=W)
+            rows = torch.arange(S, device="cuda")
+            rows = rows < T + W - 1 if W > 0 else rows >= 0
+            label = f"S={S} T={T} window={W} H={H} KH={KH} D={D} DV={DV}"
+            check(out.shape == (1, S, H, DV), f"flash shape, {label}")
+            err = float((out.float() - expect.float())[:, rows].abs().max())
+            check(err <= tol, f"flash kernel vs plain, {label}: {err}")
+            check(not out[:, ~rows].any(),
+                  f"flash rows with no live key are 0, {label}")
+            largest = max(largest, err)
+            n += 1
+    print(f"  flash bfloat16 tile edges at (D, DV) (192, 128) and "
+          f"(128, 128): {n} cases (S, T {'/'.join(map(str, EDGE_LENGTHS))},"
+          f" window 0/1/64/65, (H, KH) {MLA_EDGE_PAIRS[0][1]} and (28, 4)),"
+          f" largest error {largest:.3e} (tol {tol:g}) ok")
+    return largest, n
+
+
+def phase_mla_kernels():
+    """(a) The flash kernel at the MLA and M-RoPE decoders' shapes, both
+    routes where the route takes the pair, against the plain version at
+    the kernel tolerances; the tile edges at (192, 128); the (192, 128)
+    kernel's resources and time."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tol, largest, n = TOL[name], 0.0, 0
+            for (H, KH, D, DV), S in itertools.product(MLA_FLASH,
+                                                       MLA_FLASH_S):
+                q, k, v = _flash_inputs(g, 1, H, KH, S, D, dtype, DV)
+                label = f"H={H} KH={KH} D={D} DV={DV} S={S} {name}"
+                if (D, DV) not in fa_ops.PAIRS[fa_ops.route(dtype, 16)]:
+                    try:
+                        fa_ops.flash_attention(q, k, v)
+                    except ValueError as e:
+                        check(f"({D}, {DV})" in str(e),
+                              f"the refusal names the pair, {label}")
+                    else:
+                        check(False, f"flash refuses {label}")
+                    continue
+                out = fa_ops.flash_attention(q, k, v)
+                expect = _plain_flash(q, k, v)
+                err = float((out.float() - expect.float()).abs().max())
+                check(out.shape == (1, S, H, DV) and out.dtype == dtype,
+                      f"flash shapes and type, {label}")
+                check(err <= tol, f"flash kernel vs plain, {label}: {err}")
+                largest = max(largest, err)
+                if (1, H, KH, S, D, 0, DV) == MLA_TIMED:
+                    worst[f"{name}_main"] = err
+                n += 1
+                del q, k, v, out, expect
+            worst[name] = largest
+            print(f"  flash {name} at the MLA and M-RoPE shapes: {n} cases "
+                  f"((H, KH, D, DV) {MLA_FLASH}, S {MLA_FLASH_S}; the "
+                  f"tensor-core route refuses (24, 16) with a ValueError "
+                  f"naming the pair), largest error {largest:.3e} (tol "
+                  f"{tol:g}) ok")
+        worst["edges"], worst["edge_cases"] = _mla_tile_edges(g)
+    torch.cuda.empty_cache()
+    print("  the flash kernel at (192, 128), DeepSeek-V2-Lite's 4096-token "
+          "prefill (CUDA events after warm-up)")
+    worst["timing"] = time_flash(g, *MLA_TIMED)
+    worst["sdpa_backend"] = _sdpa_backend(g, *MLA_TIMED)
+    return worst
+
+
+def _sdpa_backend(g, B, H, KH, S, D, W, DV):
+    """Which of SDPA's backends a causal call on the timed problem runs:
+    the backends whose output, when each alone is allowed, equals the
+    default call's bit for bit, and each backend's time (None where it
+    refuses the problem, as FlashAttention-2 refuses unequal q and v head
+    dims). (The profiler records no kernel in a short session this late
+    in the run.)"""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = (t.transpose(1, 2).contiguous() for t in _flash_inputs(
+        g, B, H, KH, S, D, torch.bfloat16, DV))
+    check(W == 0 and H == KH, "the backend probe takes causal MHA")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    times, ran = {}, []
+    with torch.no_grad(), warnings.catch_warnings():
+        # SDPA warns of each backend that refuses the problem
+        warnings.simplefilter("ignore", UserWarning)
+        default = sdpa()
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel(backend):
+                    same = torch.equal(sdpa(), default)
+                    times[backend.name] = cuda_ms(sdpa, 5)
+            except RuntimeError:
+                times[backend.name] = None
+                continue
+            if same:
+                ran.append(backend.name)
+    print(f"  SDPA at D={D} DV={DV}: the default call equals {ran} bit for "
+          f"bit; each backend alone, ms (None: refused): {times}")
+    del q, k, v, default
+    return {"default_equals": ran, "backend_ms": times}
+
+
+def _vl_checks(model, params, tol, label):
+    """Qwen2-VL's own checks: a 4096-token prefill from seeded embeddings
+    with the image layout's (3, 1, S) positions, kernels vs plain; and the
+    same embeddings with three equal position rows against (1, S) RoPE
+    positions, equal bit for bit."""
+    import torch
+
+    from repro_torch.models.transformer import compute_dtype
+
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(8)
+    emb = torch.randn(1, VL_PROMPT, cfg.d_model, generator=g, device="cuda")
+    emb = emb.to(compute_dtype(cfg))
+    pos3 = vl_positions(VL_TEXT_BEFORE, VL_GRID, VL_MERGE,
+                        VL_PROMPT)[:, None].to("cuda")
+    check(bool((pos3[0] != pos3[1]).any() and (pos3[1] != pos3[2]).any()),
+          "the image's position rows differ")
+
+    def prefill(positions, plain=False):
+        cache = model.init_cache(1, FULL_MAX_LEN, device="cuda")
+        with plain_versions() if plain else contextlib.nullcontext():
+            logits, _ = model.prefill(params, cache, embeddings=emb,
+                                      positions=positions)
+        return logits
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = {"kernels": prefill(pos3), "plain": prefill(pos3, plain=True)}
+        err = _rel(out["kernels"], out["plain"])
+        arange = torch.arange(VL_PROMPT, device="cuda")[None]
+        same = torch.equal(prefill(arange.expand(3, 1, -1)),
+                           prefill(arange))
+    check(bool(torch.isfinite(out["kernels"]).all()), "finite VL logits")
+    print(f"    {cfg.name} {label}: prefill of {VL_PROMPT} embeddings "
+          f"({VL_TEXT_BEFORE} text, a {VL_GRID}x{VL_GRID} patch grid as "
+          f"{(VL_GRID // VL_MERGE) ** 2} tokens, then text; t/h/w rows "
+          f"differ), kernels vs plain: max err {err[0]:.3e} of max |logit| "
+          f"{err[1]:.1f}, relative L2 {err[2]:.2e} (tol {tol:g}); three "
+          f"equal rows == RoPE positions bit for bit: {same}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(err[2] <= tol, f"{cfg.name} {label}: embeddings prefill, "
+                         f"kernels vs plain")
+    check(same, f"{cfg.name} {label}: M-RoPE with equal rows equals RoPE")
+    return {f"{label}_embeddings_kernels_vs_plain": err,
+            f"{label}_equal_rows_equal_rope": same}
+
+
+def phase_mla():
+    import torch
+
+    from repro_torch.models.params import LM_MLA_MROPE_GOLDEN_PATH
+
+    print(f"[20] the MLA and M-RoPE decoders: {', '.join(MLA_ARCHS)}; the "
+          f"flash kernel at (D, DV) (192, 128) new and at Qwen2-VL's group "
+          f"of 7, the small models vs the JAX package's outputs, each at "
+          f"full width serving {len(FULL_LENGTHS)} requests (prompts "
+          f"{FULL_LENGTHS}, {FULL_SLOTS} slots, max_new {FULL_MAX_NEW})")
+    out = {"kernel_errors": phase_mla_kernels()}
+    out["golden"] = {
+        arch: phase_lm_golden(LM_MLA_MROPE_GOLDEN_PATH, f"  small {arch}",
+                              prefix=f"{arch}/")
+        for arch in MLA_ARCHS}
+    out["full"], out["launches"] = {}, {}
+    for arch in MLA_ARCHS:
+        t0 = time.perf_counter()
+        extra = _vl_checks if arch == "qwen2-vl-7b" else None
+        out["full"][arch], out["launches"][arch] = phase_zoo_full(arch,
+                                                                  extra)
+        out["full"][arch]["seconds"] = time.perf_counter() - t0
+        print(f"    -- {arch}: {out['full'][arch]['seconds']:.1f} s")
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4776,6 +5149,9 @@ def main() -> int:
     # it and reads it after
     zoo = timed("LM zoo", seconds, phase_zoo)
     d128 = zoo["d128"]
+    # the MLA and M-RoPE decoders: likewise, each arch's serving run
+    mla = timed("MLA and M-RoPE decoders", seconds, phase_mla)
+    mla_timing = mla["kernel_errors"]["timing"]
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -4816,6 +5192,8 @@ def main() -> int:
         "design": flash["design"],
         "f32_ms": flash["f32_ms"],
         "head_dims": list(fa_ops.HEAD_DIMS),
+        "head_dim_pairs": {k: [list(p) for p in v]
+                           for k, v in fa_ops.PAIRS.items()},
         "launches_zoo": zoo["launches"],
         "zoo_max_abs_err": {k: zoo["kernel_errors"][k]
                             for k in ("float32", "bfloat16")},
@@ -4825,6 +5203,18 @@ def main() -> int:
                      "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "library_call", "library_times_ms", "tflop_per_s", "f32_ms", "f32_bound_ms",
                      "f32_library_ms", "attributes")}},
+        "mla_192_128": {
+            "shape": mla_timing["shape"],
+            "max_abs_err": mla["kernel_errors"]["bfloat16_main"],
+            "f32_max_abs_err": mla["kernel_errors"]["float32_main"],
+            "launches_mla": mla["launches"],
+            **{k: mla_timing[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_call", "library_times_ms", "tflop_per_s", "f32_ms",
+                "f32_bound_ms", "f32_library_ms", "attributes")},
+            "sdpa_backend": mla["kernel_errors"]["sdpa_backend"]},
+        "mla_max_abs_err": {k: mla["kernel_errors"][k]
+                            for k in ("float32", "bfloat16", "edges")},
     }, {
         "name": "rg_lru_scan",
         "route": "cuda",
@@ -4897,9 +5287,9 @@ def main() -> int:
         "fleet_tier": {**fleet_tier, "launches": fleet_launches},
         "model_plane": {**model_plane, "launches": plane_launches},
         "search": {**search, "launches": search_launches},
-        "lm_zoo": zoo},
+        "lm_zoo": zoo, "mla_mrope": mla},
         indent=1, default=str))
-    print(f"[20] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[21] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

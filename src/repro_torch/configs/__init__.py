@@ -26,7 +26,8 @@ ARCHS = (
 
 #: The architectures whose serving path the port runs.
 PORTED = ("smollm-135m", "qwen2.5-3b", "olmo-1b", "gemma3-4b",
-          "granite-moe-1b-a400m", "recurrentgemma-9b", "xlstm-1.3b")
+          "granite-moe-1b-a400m", "recurrentgemma-9b", "xlstm-1.3b",
+          "deepseek-v2-lite-16b", "qwen2-vl-7b")
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
 
@@ -36,7 +37,7 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch '{name}'; known: {', '.join(ARCHS)}")
     if name not in PORTED:
         raise KeyError(f"arch '{name}' is not ported yet; it comes with "
-                       f"the rest of the LM zoo (queue 1 item 6 of "
+                       f"the encoder-decoder slice (queue 1 item 6h of "
                        f"ROADMAP.md). Ported: {', '.join(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

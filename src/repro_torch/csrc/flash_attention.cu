@@ -10,12 +10,16 @@
 // output in q's type (float32 or bfloat16). A row with no live key gives 0
 // (l is clamped to 1e-30, as on the TPU). Any S and T: ragged tails are
 // masked here, nothing is padded (the TPU kernel asks S % 512 == 0 past 512).
-// The tensors are in the model's layout, q/out (B, S, H, D) and k/v
-// (B, T, KH, D), so a head's rows are D contiguous elements H*D (or KH*D)
-// apart and the caller transposes and copies nothing (the TPU kernel takes
-// (B, H, S, D)). Offsets inside one batch row are 32-bit (S*H*D and T*KH*D
-// below 2^31): with 64-bit row strides ptxas holds the D = 256 instances to
-// 128 registers and the kernel runs about 14 % slower.
+// The tensors are in the model's layout, q (B, S, H, D), k (B, T, KH, D),
+// v (B, T, KH, DV) and out (B, S, H, DV), so a head's rows are D (or DV)
+// contiguous elements H*D (or KH*D, KH*DV, H*DV) apart and the caller
+// transposes and copies nothing (the TPU kernel takes (B, H, S, D)). DV is
+// D but for DeepSeek-V2's latent attention, whose q/k rows are 192 wide
+// (128 + 64 rotary) and whose v rows are 128 (the TPU kernel sizes v and
+// the output by D, and cannot run it). Offsets inside one batch row are
+// 32-bit (S*H*D and T*KH*D below 2^31): with 64-bit row strides ptxas
+// holds the D = 256 instances to 128 registers and the kernel runs about
+// 14 % slower.
 //
 // Two kernels, chosen by the input type:
 //   - float32: the CUDA-core kernel below (`flash_fwd_kernel`), whose checks
@@ -90,20 +94,20 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
 
 // The float32 route: the CUDA-core kernel.
 //
-// What bounds it: operations. Per (q, k) pair the kernel does 2*D flops for
-// the score and 2*D for the weighted sum, against 2*D elements of K and V
-// that are re-read from shared memory by every query row. At the full-width
-// prefill (S = 4096, window 2048, H = 16, D = 256) that is about 103 GFLOP
-// per call against about 71 MB of device memory: compute-bound on the
-// tensor cores' 989 TFLOP/s. This first design is deliberately plain:
+// What bounds it: operations. Per (q, k) pair the kernel does 2*DQK flops
+// for the score and 2*DV for the weighted sum, against DQK + DV elements of
+// K and V that are re-read from shared memory by every query row. At the
+// full-width prefill (S = 4096, window 2048, H = 16, D = 256) that is about
+// 103 GFLOP per call against about 71 MB of device memory: compute-bound on
+// the tensor cores' 989 TFLOP/s. This first design is deliberately plain:
 // CUDA-core FMAs, no mma/wgmma, no TMA. What it does:
 //   - one block of 256 threads per (64 query rows, head, batch row); K and V
 //     come in tiles of 64 keys, and only the tiles that hold a live key for
 //     some row of the block are visited (the TPU kernel's pl.when skip);
 //   - Q, K, V and the probability tile P sit in shared memory as float32
-//     with a row pitch of D + 1, so the 16 lanes that read 16 different
-//     key rows hit 16 different banks; at D = 256 that is 214 KB, one block
-//     per SM;
+//     with a row pitch of DQK + 1 (Q, K) and DV + 1 (V), so the 16 lanes
+//     that read 16 different key rows hit 16 different banks; at D = 256
+//     that is 214 KB, one block per SM;
 //   - thread (ty, tx) of a 16 x 16 grid owns query rows 4*ty..4*ty+3 and
 //     key columns tx + 16*j of the score tile, and the output columns
 //     tx + 16*c of the same rows, so the online-softmax row statistics are
@@ -111,36 +115,42 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
 //     rescales only its own accumulator;
 //   - blocks are issued last query block first: under a causal mask without
 //     a window those have the most tiles, and the short ones fill the tail.
+// The value head dim DV may differ from the query/key head dim DQK
+// (DeepSeek-V2's latent attention: 192 and 128); the output has DV columns.
 // mma.sync / wgmma, TMA loads into a ring of tiles and serving all the query
 // heads of one kv head from one K/V tile (MQA) are later changes.
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int heads,
                      int kv_heads, int q_len, int k_len, int causal,
                      int window, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int kOut = D / 16;  // output columns per thread
+  constexpr int LDQ = DQK + 1;
+  constexpr int LDV = DV + 1;
+  constexpr int kOut = DV / 16;  // output columns per thread
+  static_assert(DQK % 4 == 0 && DV % 16 == 0, "head dims");
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sK = sQ + kBQ * LD;
-  float* sV = sK + kBK * LD;
-  float* sP = sV + kBK * LD;  // kBQ x (kBK + 1)
+  float* sK = sQ + kBQ * LDQ;
+  float* sV = sK + kBK * LDQ;
+  float* sP = sV + kBK * LDV;  // kBQ x (kBK + 1)
 
   const int qb = gridDim.x - 1 - blockIdx.x;  // longest blocks first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (heads / kv_heads);
   const int q0 = qb * kBQ;
-  const int q_stride = heads * D;  // between positions
-  const int k_stride = kv_heads * D;
-  const T* qh = q + (long long)b * q_len * q_stride + (long long)h * D;
-  const T* kh = k + (long long)b * k_len * k_stride + (long long)kvh * D;
-  const T* vh = v + (long long)b * k_len * k_stride + (long long)kvh * D;
+  const int q_stride = heads * DQK;  // between positions
+  const int k_stride = kv_heads * DQK;
+  const int v_stride = kv_heads * DV;
+  const int o_stride = heads * DV;
+  const T* qh = q + (long long)b * q_len * q_stride + (long long)h * DQK;
+  const T* kh = k + (long long)b * k_len * k_stride + (long long)kvh * DQK;
+  const T* vh = v + (long long)b * k_len * v_stride + (long long)kvh * DV;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
 
-  load_tile<T, D>(qh, q_stride, q0, q_len, sQ);
+  load_tile<T, DQK>(qh, q_stride, q0, q_len, sQ);
 
   float acc[kRows][kOut];
   float m[kRows], l[kRows];
@@ -158,8 +168,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is no longer read
-    load_tile<T, D>(kh, k_stride, k0, k_len, sK);
-    load_tile<T, D>(vh, k_stride, k0, k_len, sV);
+    load_tile<T, DQK>(kh, k_stride, k0, k_len, sK);
+    load_tile<T, DV>(vh, v_stride, k0, k_len, sV);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -168,12 +178,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[kRows], kv[kCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = sQ[(ty * kRows + i) * LD + d];
+      for (int i = 0; i < kRows; ++i) qv[i] = sQ[(ty * kRows + i) * LDQ + d];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < kCols; ++j) kv[j] = sK[(tx + 16 * j) * LDQ + d];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -223,14 +233,14 @@ __global__ void __launch_bounds__(kThreads)
         p[i] = sP[(ty * kRows + i) * (kBK + 1) + kk];
 #pragma unroll
       for (int c = 0; c < kOut; ++c) {
-        const float x = sV[kk * LD + tx + 16 * c];
+        const float x = sV[kk * LDV + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(p[i], x, acc[i][c]);
       }
     }
   }
 
-  T* oh = out + (long long)b * q_len * q_stride + (long long)h * D;
+  T* oh = out + (long long)b * q_len * o_stride + (long long)h * DV;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
@@ -238,49 +248,47 @@ __global__ void __launch_bounds__(kThreads)
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
-      oh[row * q_stride + tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+      oh[row * o_stride + tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int heads, int kv_heads, int q_len, int k_len,
                    int causal, int window, float scale, cudaStream_t stream) {
-  const int smem = (int)sizeof(float) * ((kBQ + 2 * kBK) * (D + 1) +
-                                         kBQ * (kBK + 1));
+  const int smem = (int)sizeof(float) * ((kBQ + kBK) * (DQK + 1) +
+                                         kBK * (DV + 1) + kBQ * (kBK + 1));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_kernel<T, DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + kBQ - 1) / kBQ, heads, batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), heads, kv_heads, q_len,
       k_len, causal, window, scale);
   return cudaGetLastError();
 }
 
+// The (q/k, v) head-dim pairs of the float32 route: the square ones, MLA's
+// (192, 128) at full width and (24, 16) in the small test models.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      int batch, int heads, int kv_heads, int q_len, int k_len,
-                     int head_dim, int causal, int window, float scale,
-                     cudaStream_t s) {
-  switch (head_dim) {
-    case 16:
-      return launch<T, 16>(q, k, v, out, batch, heads, kv_heads, q_len, k_len,
-                           causal, window, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, batch, heads, kv_heads, q_len, k_len,
-                           causal, window, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, batch, heads, kv_heads, q_len,
-                            k_len, causal, window, scale, s);
-    case 256:
-      return launch<T, 256>(q, k, v, out, batch, heads, kv_heads, q_len,
-                            k_len, causal, window, scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                     int head_dim, int v_head_dim, int causal, int window,
+                     float scale, cudaStream_t s) {
+#define FLASH_F32_CASE(DQK, DV)                                             \
+  if (head_dim == DQK && v_head_dim == DV)                                  \
+    return launch<T, DQK, DV>(q, k, v, out, batch, heads, kv_heads, q_len, \
+                              k_len, causal, window, scale, s);
+  FLASH_F32_CASE(16, 16)
+  FLASH_F32_CASE(64, 64)
+  FLASH_F32_CASE(128, 128)
+  FLASH_F32_CASE(256, 256)
+  FLASH_F32_CASE(192, 128)
+  FLASH_F32_CASE(24, 16)
+#undef FLASH_F32_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -310,10 +318,15 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 //     computed. Keys past T arrive as zeros (TMA fills out-of-range rows);
 //   - operands stay bf16 in shared memory in the layout wgmma reads: column
 //     blocks of 64 elements (128-byte rows, the 128-byte swizzle) at D of
-//     64, 128 and 256, 32-byte rows with the 32-byte swizzle at D = 16,
-//     written so by TMA itself. Q 64 KB and two stages of K and V 128 KB:
-//     192 KB at D = 256, one block an SM; half of that at D = 128 (Q 32 KB,
-//     the stages 64 KB);
+//     64, 128, 192 and 256, 32-byte rows with the 32-byte swizzle at D = 16,
+//     written so by TMA itself, one box a column block, every box of a
+//     tile completing on the tile's mbarrier with their summed byte count.
+//     Q 64 KB and two stages of K and V 128 KB: 192 KB at D = 256, one
+//     block an SM; half of that at D = 128 (Q 32 KB, the stages 64 KB);
+//   - the value head dim DV may differ from the q/k head dim DQK: at
+//     DeepSeek-V2's latent attention (192, 128) Q K^T runs 12 k-steps over
+//     three column blocks and P V is m64n128k16 over two; Q 48 KB, two K
+//     stages 48 KB, two V stages 32 KB (128 KB); the output has DV columns;
 //   - dead tiles are skipped by the loop bounds (keys from
 //     max(0, q0 - window + 1) to min(T, q0 + 128)); the element-wise mask
 //     runs only on tiles that hold a masked pair for some row of the block
@@ -350,20 +363,27 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kStages = 2;     // K/V tiles in the ring
 constexpr float kNegInf = -1e30f;
 
-// Shared memory of one block at head dim D, in column blocks of CB elements
-// (one swizzled row of RB bytes): Q (kBQ rows x D / CB blocks), kStages K
-// tiles, kStages V tiles (kBK rows x D / CB blocks each), five mbarriers.
-template <int D>
+// Shared memory of one block at head dims (DQK, DV), in column blocks of
+// CK (Q, K) and CV (V) elements (one swizzled row of RBK / RBV bytes): Q
+// (kBQ rows x DQK / CK blocks), kStages K tiles (kBK rows x DQK / CK
+// blocks), kStages V tiles (kBK rows x DV / CV blocks), five mbarriers.
+template <int DQK, int DV>
 struct Layout {
-  static constexpr int CB = D < 64 ? D : 64;
-  static constexpr int RB = 2 * CB;
-  static constexpr int kSwizzle = RB == 128 ? 1 : 3;  // wgmma: 128B, 32B
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = kBK * D * 2;
-  static constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int CK = DQK < 64 ? DQK : 64;
+  static constexpr int CV = DV < 64 ? DV : 64;
+  static constexpr int RBK = 2 * CK;
+  static constexpr int RBV = 2 * CV;
+  static constexpr int kSwizzleK = RBK == 128 ? 1 : 3;  // wgmma: 128B, 32B
+  static constexpr int kSwizzleV = RBV == 128 ? 1 : 3;
+  static constexpr int kQBytes = kBQ * DQK * 2;
+  static constexpr int kKBytes = kBK * DQK * 2;
+  static constexpr int kVBytes = kBK * DV * 2;
+  static constexpr int kBarOffset = kQBytes + kStages * (kKBytes + kVBytes);
   static constexpr int kBytes = kBarOffset + 64 + 1024;  // + 1024-alignment
-  static_assert(RB == 128 || RB == 32, "swizzle rows of 128 or 32 bytes");
-  static_assert(kBQ * (D + 8) <= 2 * kStages * kBK * D,
+  static_assert(DQK % CK == 0 && DV % CV == 0, "whole column blocks");
+  static_assert((RBK == 128 || RBK == 32) && (RBV == 128 || RBV == 32),
+                "swizzle rows of 128 or 32 bytes");
+  static_assert(kBQ * (DV + 8) * 2 <= kStages * (kKBytes + kVBytes),
                 "the output staging fits in the K/V stages");
 };
 
@@ -530,7 +550,7 @@ __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
   wgmma_rs_n256(d, a, desc_b);
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -538,16 +558,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                           bf16* __restrict__ out, int heads, int kv_heads,
                           int q_len, int k_len, int causal, int window,
                           float scale_log2) {
-  using L = Layout<D>;
-  constexpr int CB = L::CB, RB = L::RB;
+  using L = Layout<DQK, DV>;
+  constexpr int CK = L::CK, CV = L::CV, RBK = L::RBK, RBV = L::RBV;
   constexpr int kNT = kBK / 8;  // score n-tiles of 8 keys
-  constexpr int kDT = D / 8;    // output n-tiles of 8 columns
+  constexpr int kDT = DV / 8;   // output n-tiles of 8 columns
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   unsigned char* sQ = base;
   unsigned char* sK = sQ + L::kQBytes;
-  unsigned char* sV = sK + kStages * L::kTileBytes;
+  unsigned char* sV = sK + kStages * L::kKBytes;
   // barrier 0: Q; 1 + s: K of stage s; 1 + kStages + s: V of stage s
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::kBarOffset);
   const uint32_t bar_q = smem_addr(bars);
@@ -576,14 +596,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int k0 = k_begin + j * kBK;
     const uint32_t bk = smem_addr(bars + 1 + s);
     const uint32_t bv = smem_addr(bars + 1 + kStages + s);
-    mbar_expect_tx(bk, L::kTileBytes);
-    for (int c = 0; c < D / CB; ++c)
-      tma_load(smem_addr(sK + s * L::kTileBytes + c * kBK * RB), &tm_k, bk,
-               c * CB, kvh, k0, b);
-    mbar_expect_tx(bv, L::kTileBytes);
-    for (int c = 0; c < D / CB; ++c)
-      tma_load(smem_addr(sV + s * L::kTileBytes + c * kBK * RB), &tm_v, bv,
-               c * CB, kvh, k0, b);
+    mbar_expect_tx(bk, L::kKBytes);
+    for (int c = 0; c < DQK / CK; ++c)
+      tma_load(smem_addr(sK + s * L::kKBytes + c * kBK * RBK), &tm_k, bk,
+               c * CK, kvh, k0, b);
+    mbar_expect_tx(bv, L::kVBytes);
+    for (int c = 0; c < DV / CV; ++c)
+      tma_load(smem_addr(sV + s * L::kVBytes + c * kBK * RBV), &tm_v, bv,
+               c * CV, kvh, k0, b);
   };
   if (threadIdx.x == 0) {
     for (int i = 0; i < 1 + 2 * kStages; ++i) mbar_init(smem_addr(bars + i));
@@ -593,8 +613,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_q, L::kQBytes);
-    for (int c = 0; c < D / CB; ++c)
-      tma_load(smem_addr(sQ + c * kBQ * RB), &tm_q, bar_q, c * CB, h, q0, b);
+    for (int c = 0; c < DQK / CK; ++c)
+      tma_load(smem_addr(sQ + c * kBQ * RBK), &tm_q, bar_q, c * CK, h, q0, b);
     for (int j = 0; j < kStages && j < n_tiles; ++j) load_tile(j);
   }
 
@@ -612,8 +632,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = j % kStages;
     const int parity = (j / kStages) & 1;
     const int k0 = k_begin + j * kBK;
-    const unsigned char* tK = sK + s * L::kTileBytes;
-    const unsigned char* tV = sV + s * L::kTileBytes;
+    const unsigned char* tK = sK + s * L::kKBytes;
+    const unsigned char* tV = sV + s * L::kVBytes;
     // every pair of the warpgroup's 64 rows with this tile's keys is masked
     const bool dead = g0 >= q_len || (causal && k0 > g0 + 63) ||
                       (window > 0 && g0 - (k0 + kBK - 1) >= window);
@@ -624,21 +644,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     mbar_wait(smem_addr(bars + 1 + s), parity);  // K_j has landed
     if (!dead) {
-      // S = Q K^T: 64 rows x 64 keys per warpgroup, D / 16 k-steps of 32
-      // bytes inside a swizzled row, CB / 16 of them per column block
+      // S = Q K^T: 64 rows x 64 keys per warpgroup, DQK / 16 k-steps of 32
+      // bytes inside a swizzled row, CK / 16 of them per column block
 #pragma unroll
       for (int i = 0; i < 4 * kNT; ++i) pin(sc[i]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int c = kk / (CB / 16);
-        const int off = (kk % (CB / 16)) * 32;
+      for (int kk = 0; kk < DQK / 16; ++kk) {
+        const int c = kk / (CK / 16);
+        const int off = (kk % (CK / 16)) * 32;
         wgmma_ss_n64(
             sc,
-            smem_desc(smem_addr(sQ + c * kBQ * RB + 64 * warpgroup * RB + off),
-                      16, 8 * RB, L::kSwizzle),
-            smem_desc(smem_addr(tK + c * kBK * RB + off), 16, 8 * RB,
-                      L::kSwizzle),
+            smem_desc(
+                smem_addr(sQ + c * kBQ * RBK + 64 * warpgroup * RBK + off), 16,
+                8 * RBK, L::kSwizzleK),
+            smem_desc(smem_addr(tK + c * kBK * RBK + off), 16, 8 * RBK,
+                      L::kSwizzleK),
             kk > 0);
       }
       wgmma_commit();
@@ -699,9 +720,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     mbar_wait(smem_addr(bars + 1 + kStages + s), parity);  // V_j has landed
     if (!dead) {
-      // O += P V: 64 rows x D per warpgroup; a k-step is 16 keys, two
-      // 8-row swizzle atoms (stride 8 RB), the D columns are D / CB column
-      // blocks kBK * RB bytes apart. P enters as bf16 terms: one in a full
+      // O += P V: 64 rows x DV per warpgroup; a k-step is 16 keys, two
+      // 8-row swizzle atoms (stride 8 RBV), the DV columns are DV / CV
+      // column blocks kBK * RBV bytes apart. P enters as bf16 terms: one in a full
       // tile; three (hi + mid + lo, float32 precision) in a tile with a
       // masked pair, which holds every key of a row with fewer than 64
       // live keys, so that such rows, whose outputs are the largest, get
@@ -731,9 +752,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBK / 16; ++kk)
-          wgmma_rs<D>(o, p[kk],
-                      smem_desc(smem_addr(tV + 16 * kk * RB), kBK * RB,
-                                8 * RB, L::kSwizzle));
+          wgmma_rs<DV>(o, p[kk],
+                       smem_desc(smem_addr(tV + 16 * kk * RBV), kBK * RBV,
+                                 8 * RBV, L::kSwizzleV));
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
@@ -746,7 +767,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // out = O / max(l, 1e-30) in bf16, staged through the K/V stages (no
   // longer read, and nothing is in flight) with rows padded by 16 bytes
-  constexpr int P = D + 8;
+  constexpr int P = DV + 8;
   const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
   bf16* stage = reinterpret_cast<bf16*>(sK) + 16 * warp * P;
 #pragma unroll
@@ -757,25 +778,24 @@ __global__ void __launch_bounds__(kThreads, 1)
                                    2 * (lane % 4)) =
           pack_bf16(o[4 * t + 2 * i] * inv[i], o[4 * t + 2 * i + 1] * inv[i]);
   __syncwarp();
-  const int q_stride = heads * D;  // between positions
-  bf16* oh = out + (long long)b * q_len * q_stride + (long long)h * D;
-  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+  const int o_stride = heads * DV;  // between positions
+  bf16* oh = out + (long long)b * q_len * o_stride + (long long)h * DV;
+  constexpr int kChunks = DV / 8;  // 16-byte chunks of a row
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks;
     const int c = i % kChunks;
     if (w0 + r < q_len)
-      *reinterpret_cast<uint4*>(oh + (w0 + r) * q_stride + c * 8) =
+      *reinterpret_cast<uint4*>(oh + (w0 + r) * o_stride + c * 8) =
           *reinterpret_cast<const uint4*>(stage + r * P + c * 8);
   }
 }
 
 // a (batch, len, heads, D) bf16 tensor as a 4-d tensor map whose boxes are
-// CB columns x `rows` positions of one head, swizzled as wgmma reads them;
-// rows past `len` arrive as zeros
-template <int D>
+// CB columns x `rows` positions of one head, swizzled as wgmma reads them
+// (128-byte rows for CB = 64, 32-byte rows for CB = 16); rows past `len`
+// arrive as zeros
 bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int len,
-                int heads, int rows) {
-  using L = Layout<D>;
+                int heads, int D, int CB, int rows) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
@@ -783,118 +803,114 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int len,
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
                                  (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)len * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)L::CB, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)CB, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                L::RB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                             : CU_TENSOR_MAP_SWIZZLE_32B,
+                2 * CB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int heads, int kv_heads, int q_len, int k_len,
                    int causal, int window, float scale, cudaStream_t stream) {
+  using L = Layout<DQK, DV>;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map<D>(&tq, q, batch, q_len, heads, kBQ) ||
-      !tensor_map<D>(&tk, k, batch, k_len, kv_heads, kBK) ||
-      !tensor_map<D>(&tv, v, batch, k_len, kv_heads, kBK))
+  if (!tensor_map(&tq, q, batch, q_len, heads, DQK, L::CK, kBQ) ||
+      !tensor_map(&tk, k, batch, k_len, kv_heads, DQK, L::CK, kBK) ||
+      !tensor_map(&tv, v, batch, k_len, kv_heads, DV, L::CV, kBK))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Layout<D>::kBytes);
+      flash_fwd_bf16_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((q_len + kBQ - 1) / kBQ, heads, batch);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, Layout<D>::kBytes, stream>>>(
+  flash_fwd_bf16_kernel<DQK, DV><<<grid, kThreads, L::kBytes, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), heads, kv_heads, q_len, k_len,
       causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t attributes(int* regs, int* local_bytes, int* static_smem,
                        int* dynamic_smem) {
   cudaFuncAttributes attr;
   const cudaError_t err =
-      cudaFuncGetAttributes(&attr, flash_fwd_bf16_kernel<D>);
+      cudaFuncGetAttributes(&attr, flash_fwd_bf16_kernel<DQK, DV>);
   if (err != cudaSuccess) return err;
   *regs = attr.numRegs;
   *local_bytes = (int)attr.localSizeBytes;
   *static_smem = (int)attr.sharedSizeBytes;
-  *dynamic_smem = Layout<D>::kBytes;
+  *dynamic_smem = Layout<DQK, DV>::kBytes;
   return cudaSuccess;
 }
+
+// The (q/k, v) head-dim pairs of the tensor-core route: the square ones and
+// MLA's (192, 128); rows must be whole 16-byte multiples in swizzle rows of
+// 32 or 128 bytes, so the small models' (24, 16) is refused.
+#define FLASH_BF16_PAIRS(X) \
+  X(16, 16) X(64, 64) X(128, 128) X(256, 256) X(192, 128)
 
 }  // namespace tc
 
 // Launches on `stream` and returns the launch's cudaError_t (0 = queued).
-// q, out (B, S, H, D) and k, v (B, T, KH, D): contiguous, 16-byte aligned,
-// of type float32 (is_bf16 = 0: the CUDA-core kernel) or bfloat16
-// (is_bf16 = 1: the tensor-core kernel); H % KH == 0 (any group, as
-// smollm's 9 / 3); D in {16, 64, 128, 256} (the small test models, smollm's
-// and granite's 64, qwen2.5's and olmo's 128, RecurrentGemma's and gemma3's
-// 256);
-// S*H*D and T*KH*D below 2^31; window <= 0 means no window. A case that
-// the chosen kernel does not take returns cudaErrorInvalidValue: neither
-// kernel stands in for the other.
+// q (B, S, H, head_dim), k (B, T, KH, head_dim), v (B, T, KH, v_head_dim)
+// and out (B, S, H, v_head_dim): contiguous, 16-byte aligned, of type
+// float32 (is_bf16 = 0: the CUDA-core kernel) or bfloat16 (is_bf16 = 1:
+// the tensor-core kernel); H % KH == 0 (any group, as smollm's 9 / 3 or
+// Qwen2-VL's 28 / 4); (head_dim, v_head_dim) one of (16, 16) (the small
+// test models), (64, 64) (smollm's and granite's), (128, 128) (qwen2.5's,
+// olmo's, Qwen2-VL's), (256, 256) (RecurrentGemma's and gemma3's),
+// (192, 128) (DeepSeek-V2-Lite's latent attention) and, on the float32
+// route only, (24, 16) (the small DeepSeek's); S*H and T*KH times either
+// head dim below 2^31; window <= 0 means no window. A case that the chosen
+// kernel does not take returns cudaErrorInvalidValue: neither kernel
+// stands in for the other.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int batch,
                                    int heads, int kv_heads, int q_len,
-                                   int k_len, int head_dim, int causal,
-                                   int window, float scale, int is_bf16,
-                                   void* stream) {
+                                   int k_len, int head_dim, int v_head_dim,
+                                   int causal, int window, float scale,
+                                   int is_bf16, void* stream) {
+  const long long widest = head_dim > v_head_dim ? head_dim : v_head_dim;
   if (batch <= 0 || batch > 65535 || heads <= 0 || heads > 65535 ||
       kv_heads <= 0 || heads % kv_heads != 0 || q_len <= 0 || k_len <= 0 ||
-      (long long)q_len * heads * head_dim >= (1LL << 31) ||
-      (long long)k_len * kv_heads * head_dim >= (1LL << 31))
+      head_dim <= 0 || v_head_dim <= 0 ||
+      (long long)q_len * heads * widest >= (1LL << 31) ||
+      (long long)k_len * kv_heads * widest >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
     return (int)dispatch<float>(q, k, v, out, batch, heads, kv_heads, q_len,
-                                k_len, head_dim, causal, window, scale, s);
-  switch (head_dim) {
-    case 16:
-      return (int)tc::launch<16>(q, k, v, out, batch, heads, kv_heads, q_len,
-                                 k_len, causal, window, scale, s);
-    case 64:
-      return (int)tc::launch<64>(q, k, v, out, batch, heads, kv_heads, q_len,
-                                 k_len, causal, window, scale, s);
-    case 128:
-      return (int)tc::launch<128>(q, k, v, out, batch, heads, kv_heads,
-                                  q_len, k_len, causal, window, scale, s);
-    case 256:
-      return (int)tc::launch<256>(q, k, v, out, batch, heads, kv_heads,
-                                  q_len, k_len, causal, window, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                                k_len, head_dim, v_head_dim, causal, window,
+                                scale, s);
+#define FLASH_BF16_LAUNCH(DQK, DV)                                          \
+  if (head_dim == DQK && v_head_dim == DV)                                  \
+    return (int)tc::launch<DQK, DV>(q, k, v, out, batch, heads, kv_heads,   \
+                                    q_len, k_len, causal, window, scale, s);
+  FLASH_BF16_PAIRS(FLASH_BF16_LAUNCH)
+#undef FLASH_BF16_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core kernel's resources at one head dim: registers a thread,
-// local (spilled) bytes a thread, static and dynamic shared memory a block.
-extern "C" int flash_attention_bf16_attributes(int head_dim, int* regs,
-                                               int* local_bytes,
+// The tensor-core kernel's resources at one head-dim pair: registers a
+// thread, local (spilled) bytes a thread, static and dynamic shared memory a
+// block.
+extern "C" int flash_attention_bf16_attributes(int head_dim, int v_head_dim,
+                                               int* regs, int* local_bytes,
                                                int* static_smem,
                                                int* dynamic_smem) {
-  switch (head_dim) {
-    case 16:
-      return (int)tc::attributes<16>(regs, local_bytes, static_smem,
-                                     dynamic_smem);
-    case 64:
-      return (int)tc::attributes<64>(regs, local_bytes, static_smem,
-                                     dynamic_smem);
-    case 128:
-      return (int)tc::attributes<128>(regs, local_bytes, static_smem,
-                                      dynamic_smem);
-    case 256:
-      return (int)tc::attributes<256>(regs, local_bytes, static_smem,
-                                      dynamic_smem);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_BF16_ATTRIBUTES(DQK, DV)                                  \
+  if (head_dim == DQK && v_head_dim == DV)                              \
+    return (int)tc::attributes<DQK, DV>(regs, local_bytes, static_smem, \
+                                        dynamic_smem);
+  FLASH_BF16_PAIRS(FLASH_BF16_ATTRIBUTES)
+#undef FLASH_BF16_ATTRIBUTES
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,7 +1,9 @@
 """Public wrapper of the flash-attention forward.
 
-:func:`flash_attention` takes the model's layout, q ``(B, S, H, D)`` and
-k/v ``(B, T, KH, D)``, as the reference's ``ops`` does. For CUDA tensors
+:func:`flash_attention` takes the model's layout, q ``(B, S, H, D)``, k
+``(B, T, KH, D)`` and v ``(B, T, KH, DV)``, as the reference's ``ops``
+does; DV is D but in DeepSeek-V2's latent attention (D = 192, DV = 128),
+and the output is ``(B, S, H, DV)``. For CUDA tensors
 it launches a hand-written kernel of ``csrc/flash_attention.cu`` on the
 current stream, which reads that layout in place; for CPU tensors it
 takes the plain version (``ref``, in the TPU kernel's layout
@@ -14,10 +16,13 @@ accumulators, K/V by TMA into a ring of two shared-memory stages),
 float32 to the CUDA-core kernel, whose checks are held at 2e-5, closer
 than tensor cores reach from float32 inputs. Both take any S and T (the
 TPU kernel asks S % 512 == 0 past 512), GQA/MQA with H % KH == 0 (any
-group: smollm's 9 query heads over 3 kv heads, qwen2.5's 16 over 2), D in
-{16, 64, 128, 256}, and one batch row of q or k below 2**31 elements.
-Neither stands in for the other. A row with no live key (only when
-T < S with a window) gives 0 from both kernels; the plain version, as
+group: smollm's 9 query heads over 3 kv heads, qwen2.5's 16 over 2,
+Qwen2-VL's 28 over 4), the head-dim pairs (D, DV) of ``PAIRS`` (the
+float32 route also the small DeepSeek's (24, 16), whose 48-byte rows the
+tensor cores' swizzled tiles do not take: a bfloat16 call at that pair
+raises ``ValueError``), and one batch row of q, k or v below 2**31
+elements. Neither stands in for the other. A row with no live key (only
+when T < S with a window) gives 0 from both kernels; the plain version, as
 the reference's ``ref``, gives the mean of v over all keys there. The
 forward is not differentiable on CUDA yet: a call that would need a
 gradient raises.
@@ -36,23 +41,37 @@ from repro_torch.kernels.flash_attention import ref
 #: Kernel launches so far (a plain count; callers reset it to 0).
 LAUNCHES = 0
 
+#: The square head dims (D = DV) both routes take.
 HEAD_DIMS = (16, 64, 128, 256)
+#: (D, DV) pairs a route takes: the square ones and DeepSeek-V2-Lite's
+#: latent attention (192, 128); the float32 route also the small
+#: DeepSeek's (24, 16).
+PAIRS = {"tensor_core": tuple((d, d) for d in HEAD_DIMS) + ((192, 128),),
+         "cuda_core": tuple((d, d) for d in HEAD_DIMS)
+         + ((192, 128), (24, 16))}
 DTYPES = (torch.float32, torch.bfloat16)
 
 _FN = None
 
 
-def route(dtype: torch.dtype, D: int) -> str:
-    """The kernel a CUDA call with inputs of ``dtype`` and head dim ``D``
-    launches: ``"tensor_core"`` for bfloat16, ``"cuda_core"`` for
-    float32."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes D in {HEAD_DIMS}, got {D}")
+def route(dtype: torch.dtype, D: int, DV: int | None = None) -> str:
+    """The kernel a CUDA call with inputs of ``dtype``, q/k head dim
+    ``D`` and v head dim ``DV`` (default ``D``) launches:
+    ``"tensor_core"`` for bfloat16, ``"cuda_core"`` for float32. Raises
+    ``ValueError`` for a pair that kernel does not take."""
+    DV = D if DV is None else DV
     if dtype == torch.bfloat16:
-        return "tensor_core"
-    if dtype == torch.float32:
-        return "cuda_core"
-    raise TypeError(f"the kernel takes {DTYPES}, got {dtype}")
+        name = "tensor_core"
+    elif dtype == torch.float32:
+        name = "cuda_core"
+    else:
+        raise TypeError(f"the kernel takes {DTYPES}, got {dtype}")
+    if (D, DV) not in PAIRS[name]:
+        others = [p for p in PAIRS[name] if p[0] != p[1]]
+        raise ValueError(f"the {name} kernel ({dtype}) takes D in "
+                         f"{HEAD_DIMS} with DV = D, and (D, DV) in {others}; "
+                         f"got ({D}, {DV})")
+    return name
 
 
 def _kernel():
@@ -61,25 +80,26 @@ def _kernel():
         lib = build.load("flash_attention")
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 8
+                       + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         attrs = lib.flash_attention_bf16_attributes
-        attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 4
+        attrs.argtypes = ([ctypes.c_int] * 2
+                          + [ctypes.POINTER(ctypes.c_int)] * 4)
         attrs.restype = ctypes.c_int
         _FN = (fn, lib.flash_attention_error_string, attrs)
     return _FN
 
 
-def tensor_core_attributes(D: int) -> dict:
+def tensor_core_attributes(D: int, DV: int | None = None) -> dict:
     """Registers and local (spilled) bytes a thread, static and dynamic
-    shared memory a block, of the tensor-core kernel at head dim ``D``
-    (``cudaFuncGetAttributes``)."""
+    shared memory a block, of the tensor-core kernel at head dims ``D``
+    and ``DV`` (default ``D``) (``cudaFuncGetAttributes``)."""
     _, error_string, attrs = _kernel()
     out = [ctypes.c_int() for _ in range(4)]
-    rc = attrs(D, *(ctypes.byref(x) for x in out))
+    rc = attrs(D, D if DV is None else DV, *(ctypes.byref(x) for x in out))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: "
                            f"{error_string(rc).decode()} ({rc})")
@@ -88,16 +108,18 @@ def tensor_core_attributes(D: int) -> dict:
 
 
 def _check(q, k, v, window):
-    if q.dim() != 4 or k.dim() != 4:
-        raise ValueError(f"q must be (B, S, H, D) and k (B, T, KH, D), got "
-                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q must be (B, S, H, D), k (B, T, KH, D) and v "
+                         f"(B, T, KH, DV), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     B, S, H, D = q.shape
-    KH = k.shape[2]
+    KH, DV = k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}: expected (B, T, KH, D)")
-    if v.shape != k.shape:
-        raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
+    if v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"v {tuple(v.shape)} does not match k "
+                         f"{tuple(k.shape)}: expected (B, T, KH, DV)")
     if KH < 1 or H % KH:
         raise ValueError(f"H={H} must be a multiple of KH={KH}")
     if k.shape[1] < 1:
@@ -105,11 +127,11 @@ def _check(q, k, v, window):
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one of {DTYPES}, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes D in {HEAD_DIMS}, got {D}")
-    if max(S * H, k.shape[1] * KH) * D >= 2 ** 31:
+    route(q.dtype, D, DV)  # a pair the route takes
+    if max(S * H, k.shape[1] * KH) * max(D, DV) >= 2 ** 31:
         raise ValueError("the kernel indexes one batch row with 32-bit "
-                         "offsets: S*H*D and T*KH*D must stay below 2**31")
+                         "offsets: S*H and T*KH times D and DV must stay "
+                         "below 2**31")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -128,17 +150,17 @@ def _launch(q, k, v, causal, window, scale):
     global LAUNCHES
     _check(q, k, v, window)
     B, S, H, D = q.shape
-    T, KH = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    T, KH, DV = k.shape[1], k.shape[2], v.shape[3]
+    out = q.new_empty(B, S, H, DV)
     if S == 0 or B == 0:  # nothing to launch
         return out
     fn, error_string, _ = _kernel()
-    tensor_core = route(q.dtype, D) == "tensor_core"
+    tensor_core = route(q.dtype, D, DV) == "tensor_core"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, H, KH, S, T, D, int(causal), int(window), float(scale),
-                int(tensor_core), stream)
+                B, H, KH, S, T, D, DV, int(causal), int(window),
+                float(scale), int(tensor_core), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{error_string(rc).decode()} ({rc})")
@@ -148,8 +170,9 @@ def _launch(q, k, v, causal, window, scale):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
-    """q: (B, S, H, D); k/v: (B, T, KH, D) with H % KH == 0. Returns
-    (B, S, H, D) in q's type."""
+    """q: (B, S, H, D); k: (B, T, KH, D); v: (B, T, KH, DV) with
+    H % KH == 0. Returns (B, S, H, DV) in q's type; the default scale is
+    1/sqrt(D)."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     if q.device.type == "cpu":
         out = ref.attention(q.transpose(1, 2), k.transpose(1, 2),

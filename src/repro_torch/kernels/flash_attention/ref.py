@@ -2,8 +2,10 @@
 
 Mirrors ``repro/kernels/flash_attention/ref.py``: materialized float32
 scores, masked to -1e30, softmax with the sum clamped to 1e-30, output
-in q's type. Layout q (B, H, S, D), k/v (B, KH, T, D) with H % KH == 0;
-query i and key j sit at positions i and j.
+in q's type. Layout q (B, H, S, D), k (B, KH, T, D) and v (B, KH, T, DV)
+with H % KH == 0; query i and key j sit at positions i and j. The output
+takes v's head dim (DeepSeek-V2's latent attention has D = 192 and
+DV = 128; the reference's oracle reshapes it to D and cannot run that).
 
 The CPU tests use it, ``chip_smoke.py`` holds the CUDA kernel against
 it on the card, and the kernel wrapper (``ops``) takes it for tensors
@@ -21,7 +23,8 @@ NEG_INF = -1e30
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               scale: float | None = None):
-    """q: (B, H, S, D); k/v: (B, KH, T, D). Returns (B, H, S, D)."""
+    """q: (B, H, S, D); k: (B, KH, T, D); v: (B, KH, T, DV). Returns
+    (B, H, S, DV); the default scale is 1/sqrt(D)."""
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
     group = H // KH
@@ -39,4 +42,4 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
-    return o.reshape(B, H, S, D).to(q.dtype)
+    return o.reshape(B, H, S, v.shape[-1]).to(q.dtype)

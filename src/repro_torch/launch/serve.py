@@ -8,6 +8,10 @@ fingerprint-scoring modes; the port of ``repro/launch/serve.py``.
         --scale small --device cpu
     python -m repro_torch.launch.serve --arch xlstm-1.3b \
         --scale full --max-len 4112
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \
+        --scale small --device cpu
+    python -m repro_torch.launch.serve --arch qwen2-vl-7b --scale full \
+        --max-len 4112
     python -m repro_torch.launch.serve --fingerprint --rounds 20
     python -m repro_torch.launch.serve --fleet --nodes 16 --rounds 8
     python -m repro_torch.launch.serve --daemon --faults --nodes 6 \
@@ -25,8 +29,10 @@ row into the live cache (``merge_cache_slot``); here the request is
 prefilled as a batch of one straight into the slot's rows of the live
 cache (``transformer.cache_rows``: views at batch axis 1 in the body,
 0 in head and tail), where every layer writes its state in place
-(K/V rings, conv histories, RG-LRU and xLSTM states). Rows are
-independent in every layer, so the tokens are the same.
+(K/V rings, MLA's latent caches, conv histories, RG-LRU and xLSTM
+states). Rows are independent in every layer, so the tokens are the
+same. Qwen2-VL is served from token prompts, as the reference serves it
+(positions (B, S), which its M-RoPE turns as RoPE).
 
 ``--fingerprint`` trains a small Perona model (``_trained_perona``: the
 graphed ``core.trainer.train_perona``, 40 epochs) and streams watchdog

@@ -1,6 +1,7 @@
-"""Self-attention with GQA/MQA, a sliding window and the optional
-RMSNorm of q and k (``qk_norm``): ``repro/models/attention.py``
-(``:37-65``, ``:93-130``, ``:200-357``) in PyTorch.
+"""Self-attention with GQA/MQA, a sliding window, the optional RMSNorm
+of q and k (``qk_norm``) and Qwen2-VL's M-RoPE, and DeepSeek-V2's
+Multi-head Latent Attention (MLA): ``repro/models/attention.py``
+(``:37-86``, ``:93-130``, ``:200-357``, ``:397-476``) in PyTorch.
 
 Prefill (and the no-cache forward) always goes through the kernel
 wrapper ``kernels.flash_attention.ops.flash_attention`` (the CUDA kernel
@@ -11,13 +12,23 @@ reference. The kernel has no logit soft-cap, so a config that sets
 
 KV caches are ``{"k", "v": (B, W, KH, hd), "pos": (B, W)}`` with
 ``pos = -1`` for an empty slot; W is the window for local layers and the
-cache length otherwise. The port stores position p at ring index
-``p mod W`` both when it prefills and when it decodes. (The reference's
+cache length otherwise. The port stores token i of a prefill at ring
+index ``i mod W`` and a decode step's position p at ``p mod W``: the same
+slot for text, whose positions count the tokens. (The reference's
 prefill keeps the last W keys at indices 0..W-1, which disagrees with
 its own decode, ``p mod W``, when a prompt longer than W is not a
 multiple of W; ``ROADMAP.md`` records that fault.) Caches are written in
-place and returned. The chunked path, the int8 KV cache, MLA and
-cross-attention come with later slices.
+place and returned.
+
+MLA keeps a compressed cache ``{"ckv": (B, T, kv_lora_rank), "krope":
+(B, T, rope_dim), "pos": (B, T)}``, laid out as above. Its prefill (and
+the no-cache forward) expands the latent into per-head keys ``(B, S, H,
+nope + rope)`` and values ``(B, S, H, v_dim)`` and sends them through
+the same kernel wrapper with a value head dim unlike the query's (192
+and 128 at full width); a decode step takes the reference's absorbed
+path (``W_uk`` folded into the query, the values read from the latent),
+plain products outside any kernel. The chunked path, the int8 KV cache
+and cross-attention come with later slices.
 """
 
 from __future__ import annotations
@@ -111,7 +122,11 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     if cfg.qk_norm:
         q = nn.apply_norm(params["q_norm"], "rmsnorm", q)
         k = nn.apply_norm(params["k_norm"], "rmsnorm", k)
-    if cfg.rope_style == "rope":
+    if cfg.rope_style == "mrope" and positions.dim() == 3:
+        # (3, B, S) positions take M-RoPE; (B, S) fall back to RoPE
+        q = nn.apply_mrope(q, positions, cfg.rope_theta)
+        k = nn.apply_mrope(k, positions, cfg.rope_theta)
+    elif cfg.rope_style in ("rope", "mrope"):
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
     elif cfg.rope_style != "none":
@@ -126,52 +141,155 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.head_dim)
 
 
-def _fill_cache(cache, k, v, pos2d):
-    """Prefill: the last min(S, W) positions p at ring index p mod W,
-    every other slot empty."""
-    S, W = k.shape[1], cache["k"].shape[1]
+def _fill_cache(cache, leaves, pos2d):
+    """Prefill: the last min(S, W) tokens i of each ``leaves[name]``
+    (B, S, ...) at ring index i mod W of ``cache[name]`` with their
+    positions ``pos2d[:, i]``, every other slot empty. Text positions
+    count the tokens (p = i), so this is the slot p mod W that a decode
+    step writes; the M-RoPE positions of an image repeat its temporal
+    index, and its tokens stay apart by index, as in the reference's
+    prefill."""
+    S, W = pos2d.shape[1], cache["pos"].shape[1]
     n = min(S, W)
-    idx = torch.remainder(pos2d[:, S - n:], W).long()  # (B, n)
-    for name, src in (("k", k), ("v", v)):
+    idx = (torch.arange(S - n, S, device=pos2d.device) % W).expand(
+        pos2d.shape[0], n)  # (B, n)
+    for name, src in leaves.items():
         dst = cache[name]
         dst.zero_()
-        rows = idx[:, :, None, None].expand(-1, -1, *src.shape[2:])
-        dst.scatter_(1, rows, src[:, S - n:].to(dst.dtype))
+        rows = idx.reshape(*idx.shape, *(1,) * (src.dim() - 2))
+        dst.scatter_(1, rows.expand(-1, -1, *src.shape[2:]),
+                     src[:, S - n:].to(dst.dtype))
     cache["pos"].fill_(-1)
     cache["pos"].scatter_(1, idx, pos2d[:, S - n:].to(torch.int32))
 
 
 def attention_block(params, cfg: ModelConfig, x, positions, *, local: bool,
                     mode: str = "train", cache=None):
-    """Returns (output, cache). positions: (B, S) absolute. The cache is
-    written in place in "prefill" and "decode" mode."""
+    """Returns (output, cache). positions: (B, S), or (3, B, S) for
+    M-RoPE, absolute. The cache is written in place in "prefill" and
+    "decode" mode."""
     if cfg.attn_logit_softcap > 0.0:
         raise ValueError("attn_logit_softcap: the flash-attention kernel "
                          "has no logit soft-cap yet (a later slice)")
     B, S, _ = x.shape
+    pos2d = positions[0] if positions.dim() == 3 else positions
     q, k, v = _project_qkv(params, cfg, x, positions)
     window = cfg.local_window if local else 0
     scale = _attn_scale(cfg)
     if mode in ("train", "prefill"):
         # the kernel masks by index in the sequence, as the reference's
-        # pallas route does (positions only turn the RoPE)
+        # pallas route does (positions only turn the RoPE); its default
+        # route masks by position values, which differs where M-RoPE
+        # positions repeat (an image's tokens; ROADMAP.md section 3)
         out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
                                      scale=scale)
         if mode == "prefill" and cache is not None:
-            _fill_cache(cache, k, v, positions)
+            _fill_cache(cache, {"k": k, "v": v}, pos2d)
     elif mode == "decode":
-        if cache is None or S != 1:
-            raise ValueError("decode takes one token and a cache")
-        W = cache["k"].shape[1]
-        slot = torch.remainder(positions[:, 0], W).long()  # (B,)
-        bidx = torch.arange(B, device=x.device)
-        cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["pos"][bidx, slot] = positions[:, 0].to(torch.int32)
+        _write_slot(cache, {"k": k, "v": v}, pos2d)
         out = attend_full(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                          positions, cache["pos"], causal=True,
+                          pos2d, cache["pos"], causal=True,
                           window=window, scale=scale)
     else:
         raise ValueError(mode)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return nn.linear(params["wo"], out), cache
+
+
+def _write_slot(cache, leaves, pos2d):
+    """Decode: the one new position p of each ``leaves[name]`` (B, 1, ...)
+    at ring index p mod W of ``cache[name]``."""
+    if cache is None or pos2d.shape[1] != 1:
+        raise ValueError("decode takes one token and a cache")
+    B, W = pos2d.shape[0], cache["pos"].shape[1]
+    slot = torch.remainder(pos2d[:, 0], W).long()  # (B,)
+    bidx = torch.arange(B, device=pos2d.device)
+    for name, src in leaves.items():
+        cache[name][bidx, slot] = src[:, 0].to(cache[name].dtype)
+    cache["pos"][bidx, slot] = pos2d[:, 0].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2) attention block
+# ---------------------------------------------------------------------------
+
+def mla_init(init: nn.Init, cfg: ModelConfig):
+    """DeepSeek-V2 Multi-head Latent Attention parameters."""
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": nn.linear_init(init, d, H * qk_dim),
+        # joint down-projection: compressed kv + decoupled rope key
+        "w_dkv": nn.linear_init(init, d, m.kv_lora_rank + m.qk_rope_head_dim),
+        "kv_norm": nn.norm_init(init, "rmsnorm", m.kv_lora_rank),
+        "w_uk": nn.linear_init(init, m.kv_lora_rank, H * m.qk_nope_head_dim),
+        "w_uv": nn.linear_init(init, m.kv_lora_rank, H * m.v_head_dim),
+        "wo": nn.linear_init(init, H * m.v_head_dim, d),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int,
+                   dtype=torch.bfloat16, device="cpu"):
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, length, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, length, m.qk_rope_head_dim),
+                             dtype=dtype, device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_block(params, cfg: ModelConfig, x, positions, *, mode="train",
+              cache=None):
+    """Returns (output, cache). positions: (B, S) or (3, B, S) (row 0 is
+    used) absolute. The cache is written in place in "prefill" and
+    "decode" mode."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    pos2d = positions[0] if positions.dim() == 3 else positions
+    scale = 1.0 / math.sqrt(nope + rope)
+
+    q = nn.linear(params["wq"], x).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q.split([nope, rope], -1)
+    q_rope = nn.apply_rope(q_rope, pos2d, cfg.rope_theta)
+    ckv, k_rope = nn.linear(params["w_dkv"], x).split([rank, rope], -1)
+    ckv = nn.apply_norm(params["kv_norm"], "rmsnorm", ckv)
+    k_rope = nn.apply_rope(k_rope[:, :, None, :], pos2d,
+                           cfg.rope_theta)[:, :, 0, :]
+
+    if mode == "decode":
+        _write_slot(cache, {"ckv": ckv, "krope": k_rope}, pos2d)
+        ckv_all = cache["ckv"].to(x.dtype)
+        krope_all = cache["krope"].to(x.dtype)
+        # absorbed decode: score = q_nope W_uk^T ckv + q_rope k_rope, in
+        # the reference's order of products and types
+        wuk = params["w_uk"]["w"].to(x.dtype).reshape(rank, H, nope)
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope, wuk)  # (B,1,H,rank)
+        sc = torch.einsum("bshr,btr->bhst", q_abs, ckv_all) * scale
+        sc = sc + torch.einsum("bshd,btd->bhst", q_rope, krope_all) * scale
+        kpos = cache["pos"][:, None, None, :]
+        mask = (kpos >= 0) & (pos2d[:, None, :, None] - kpos >= 0)
+        probs = _softmax(sc, mask).to(x.dtype)
+        ctx = torch.einsum("bhst,btr->bshr", probs, ckv_all)
+        wuv = params["w_uv"]["w"].to(x.dtype).reshape(rank, H, m.v_head_dim)
+        out = torch.einsum("bshr,rhv->bshv", ctx, wuv)
+    elif mode in ("train", "prefill"):
+        if mode == "prefill" and cache is not None:
+            _fill_cache(cache, {"ckv": ckv, "krope": k_rope}, pos2d)
+        k_nope = nn.linear(params["w_uk"], ckv).reshape(B, S, H, nope)
+        v = nn.linear(params["w_uv"], ckv).reshape(B, S, H, m.v_head_dim)
+        k_full = torch.cat(
+            [k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)], -1)
+        q_full = torch.cat([q_nope, q_rope], -1)
+        # q/k head dim nope + rope (192 at full width), v's v_head_dim (128)
+        out = fa_ops.flash_attention(q_full, k_full, v, causal=True,
+                                     window=0, scale=scale)
+    else:
+        raise ValueError(mode)
+    out = out.reshape(B, S, H * m.v_head_dim)
     return nn.linear(params["wo"], out), cache

@@ -2,8 +2,8 @@
 
 Every field of the reference is kept, so that a configuration crosses
 between the packages field for field; the port serves the layer kinds
-"attn", "local_attn", "moe_attn", "rg_lru", "mlstm" and "slstm" so far
-(``ROADMAP.md`` lists the rest).
+"attn", "local_attn", "moe_attn", "mla_attn", "mla_moe_attn", "rg_lru",
+"mlstm" and "slstm" so far (``ROADMAP.md`` lists the rest).
 
 A model is: [embedding / modality frontend stub] -> head layers (unrolled)
 -> scanned pattern body (n_periods x period) -> tail layers (unrolled)
@@ -17,6 +17,8 @@ Layer kinds:
   "slstm"      xLSTM scalar-memory block (self-contained, no MLP)
   "moe_attn"   full attention + MoE feed-forward
   "dense_attn" full attention + dense MLP (used for MoE archs' dense head)
+  "mla_attn"   DeepSeek-V2 latent attention + dense MLP
+  "mla_moe_attn" DeepSeek-V2 latent attention + MoE feed-forward
 """
 
 from __future__ import annotations

@@ -31,9 +31,10 @@ class Model:
         with torch.no_grad():
             return tfm.model_init(self.cfg, gen)
 
-    def prefill(self, params, cache, *, tokens, positions=None):
+    def prefill(self, params, cache, *, tokens=None, embeddings=None,
+                positions=None):
         return tfm.prefill(params, self.cfg, cache, tokens=tokens,
-                           positions=positions)
+                           embeddings=embeddings, positions=positions)
 
     def decode_step(self, params, tokens, pos, cache):
         return tfm.decode_step(params, self.cfg, tokens, pos, cache)

@@ -214,3 +214,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections=(1, 1, 2)):
+    """Qwen2-VL's M-RoPE: the rotary frequencies split into temporal,
+    height and width groups, each turned by its own row of positions.
+
+    x: (batch, seq, heads, head_dim); positions3: (3, batch, seq).
+    ``sections`` are relative fractions of head_dim/2 for (t, h, w), as
+    in ``repro/models/nn.py::apply_mrope``. Three equal rows give
+    :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    total = sum(sections)
+    splits = [half * s // total for s in sections]
+    splits[-1] = half - sum(splits[:-1])
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (half,)
+    parts, start = [], 0
+    for i, n in enumerate(splits):
+        pos = positions3[i][..., None].float()  # (b, s, 1)
+        parts.append(pos * freqs[start:start + n])
+        start += n
+    ang = torch.cat(parts, -1)  # (b, s, half)
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)

@@ -23,7 +23,14 @@ package's parameters, its prefill and decode logits and the tokens its
 --write``). ``assets/lm_zoo_small_golden.npz`` (``LM_ZOO_GOLDEN_PATH``)
 holds the same for the five small dense and MoE decoders, each under a
 prefix of its arch's name (written by ``tests/test_torch_lm_zoo.py
---write``).
+--write``), and ``assets/lm_zoo_mla_mrope_small_golden.npz``
+(``LM_MLA_MROPE_GOLDEN_PATH``) for the small DeepSeek-V2-Lite and
+Qwen2-VL, the latter with a prefill from ``embeddings`` and (3, B, S)
+positions whose rows differ (``LMGolden.embeddings``; written by
+``tests/test_torch_mla.py --write``).
+
+The MLA leaves (``wq``, ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``,
+``wo``) cross like any other: the tree of ``model_template`` holds them.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -45,6 +52,7 @@ ASSETS = Path(__file__).resolve().parents[1] / "assets"
 LM_GOLDEN_PATH = ASSETS / "recurrentgemma_small_golden.npz"
 XLSTM_GOLDEN_PATH = ASSETS / "xlstm_small_golden.npz"
 LM_ZOO_GOLDEN_PATH = ASSETS / "lm_zoo_small_golden.npz"
+LM_MLA_MROPE_GOLDEN_PATH = ASSETS / "lm_zoo_mla_mrope_small_golden.npz"
 
 #: Ends of the leaf paths the reference reads in float32 whatever the
 #: compute type: norm scales and biases, the RG-LRU ``lambda``, the MoE
@@ -126,6 +134,10 @@ class LMGolden:
     slots: int
     max_len: int
     served: List[List[int]]  # the JAX SlotServer's tokens per request
+    # a prefill from embeddings: {"inputs" (B, S, d), "positions"
+    # (3, B, S), "logits" (B, V), JAX, "cache_len"}; None where the file
+    # holds none
+    embeddings: Optional[Dict[str, np.ndarray]] = None
 
 
 def load_lm_golden(path=LM_GOLDEN_PATH, prefix: str = "") -> LMGolden:
@@ -151,4 +163,6 @@ def load_lm_golden(path=LM_GOLDEN_PATH, prefix: str = "") -> LMGolden:
         prompts=np.split(g["serve/prompts"], cuts),
         max_new=int(g["serve/max_new"]), slots=int(g["serve/slots"]),
         max_len=int(g["serve/max_len"]),
-        served=[[int(t) for t in s] for s in served])
+        served=[[int(t) for t in s] for s in served],
+        embeddings=({k[len("embeddings/"):]: v for k, v in g.items()
+                     if k.startswith("embeddings/")} or None))

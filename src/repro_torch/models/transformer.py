@@ -1,11 +1,19 @@
 """LM assembly: embedding -> head/body/tail layers -> final norm ->
 logits; ``repro/models/transformer.py`` in PyTorch for the layer kinds
-"attn", "local_attn", "moe_attn", "rg_lru", "mlstm" and "slstm". A
-"moe_attn" layer is an attention layer whose feed-forward is the MoE of
-``models.moe``; its load-balancing loss is returned by
-:func:`layer_apply` and summed by :func:`forward`, which returns it
-third as the reference does, and serving ignores it. The xLSTM kinds
-are self-contained blocks: no ``norm2`` / ``mlp``, ``x + block(norm1(x))``.
+"attn", "local_attn", "moe_attn", "mla_attn", "mla_moe_attn", "rg_lru",
+"mlstm" and "slstm". A "moe_attn" layer is an attention layer whose
+feed-forward is the MoE of ``models.moe``; its load-balancing loss is
+returned by :func:`layer_apply` and summed by :func:`forward`, which
+returns it third as the reference does, and serving ignores it. The
+"mla_*" kinds are DeepSeek-V2's latent attention with a dense or an MoE
+feed-forward. The xLSTM kinds are self-contained blocks: no ``norm2`` /
+``mlp``, ``x + block(norm1(x))``.
+
+:func:`forward` and :func:`prefill` take ``tokens`` or, for a
+vision-language model whose frontend is a stub (Qwen2-VL), precomputed
+``embeddings`` (B, S, d_model); positions are (B, S) or, for M-RoPE,
+(3, B, S) (temporal, height, width rows), and :func:`decode_step` gives
+an "mrope" model three equal rows.
 
 Parameters and caches keep the reference's tree: ``params["body"][i]``
 holds layer ``i`` of the period with every leaf stacked over a leading
@@ -33,8 +41,10 @@ from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ModelConfig
 
 ATTN_KINDS = ("attn", "local_attn", "moe_attn")
+MLA_KINDS = ("mla_attn", "mla_moe_attn")
+MOE_KINDS = ("moe_attn", "mla_moe_attn")
 XLSTM_KINDS = ("mlstm", "slstm")
-KINDS = ATTN_KINDS + ("rg_lru",) + XLSTM_KINDS
+KINDS = ATTN_KINDS + MLA_KINDS + ("rg_lru",) + XLSTM_KINDS
 
 # float64 serves the CPU tests' float64 evaluation of the small models
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -68,6 +78,8 @@ def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
     params = {"norm1": nn.norm_init(init, cfg.norm, cfg.d_model)}
     if kind in ATTN_KINDS:
         params["attn"] = attn.attention_init(init, cfg)
+    elif kind in MLA_KINDS:
+        params["attn"] = attn.mla_init(init, cfg)
     elif kind == "rg_lru":
         params["mix"] = rec.griffin_block_init(init, cfg)
     elif kind == "mlstm":
@@ -79,7 +91,7 @@ def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
     else:
         raise ValueError(kind)
     params["norm2"] = nn.norm_init(init, cfg.norm, cfg.d_model)
-    if kind == "moe_attn":
+    if kind in MOE_KINDS:
         params["moe"] = moe_lib.moe_init(init, cfg)
     else:
         params["mlp"] = nn.mlp_init(init, cfg.mlp, cfg.d_model, cfg.d_ff)
@@ -89,7 +101,7 @@ def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
 def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
                 mode: str, cache=None):
     """One layer. Returns (x, cache, aux loss); the aux loss is 0.0 but in
-    "moe_attn" layers."""
+    MoE layers."""
     aux = 0.0
     rm = cfg.residual_multiplier
     h = nn.apply_norm(params["norm1"], cfg.norm, x)
@@ -97,6 +109,9 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
         y, cache = attn.attention_block(params["attn"], cfg, h, positions,
                                         local=(kind == "local_attn"),
                                         mode=mode, cache=cache)
+    elif kind in MLA_KINDS:
+        y, cache = attn.mla_block(params["attn"], cfg, h, positions,
+                                  mode=mode, cache=cache)
     elif kind == "rg_lru":
         y, cache = rec.griffin_block(params["mix"], cfg, h, mode=mode,
                                      cache=cache)
@@ -108,7 +123,7 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
         raise ValueError(kind)
     x = x + y * rm
     h2 = nn.apply_norm(params["norm2"], cfg.norm, x)
-    if kind == "moe_attn":
+    if kind in MOE_KINDS:
         y2, aux = moe_lib.moe_apply(params["moe"], cfg, h2)
     else:
         y2 = nn.apply_mlp(params["mlp"], cfg.mlp, h2)
@@ -121,6 +136,9 @@ def layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
         return attn.init_kv_cache(cfg, batch, length,
                                   local=(kind == "local_attn"), dtype=dtype,
                                   device=device)
+    if kind in MLA_KINDS:
+        return attn.init_mla_cache(cfg, batch, length, dtype=dtype,
+                                   device=device)
     if kind == "rg_lru":
         return rec.init_griffin_cache(cfg, batch, dtype=dtype, device=device)
     if kind == "mlstm":
@@ -231,12 +249,19 @@ def cache_rows(cache, rows: slice):
 # Forward
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ModelConfig, *, tokens, positions=None,
-            mode: str = "train", cache=None, skip_unembed: bool = False):
-    """Decoder forward. tokens (B, S) integers. Returns (logits or the
-    final hidden state, cache, the summed aux loss (0.0 without MoE
-    layers)); the cache (prefill / decode) is written in place."""
-    x = nn.embed(params["embed"], tokens, compute_dtype(cfg))
+def forward(params, cfg: ModelConfig, *, tokens=None, embeddings=None,
+            positions=None, mode: str = "train", cache=None,
+            skip_unembed: bool = False):
+    """Decoder forward from tokens (B, S) integers or embeddings (B, S,
+    d_model). Returns (logits or the final hidden state, cache, the
+    summed aux loss (0.0 without MoE layers)); the cache (prefill /
+    decode) is written in place."""
+    if (tokens is None) == (embeddings is None):
+        raise ValueError("forward takes tokens or embeddings, one of them")
+    if embeddings is None:
+        x = nn.embed(params["embed"], tokens, compute_dtype(cfg))
+    else:
+        x = embeddings.to(compute_dtype(cfg))
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
     B, S = x.shape[:2]
@@ -260,18 +285,24 @@ def unembed(params, cfg: ModelConfig, x):
     return logits / cfg.logits_scaling
 
 
-def prefill(params, cfg: ModelConfig, cache, *, tokens, positions=None):
-    """Run the whole prompt, fill the cache in place; returns
-    (last-position logits (B, V), cache)."""
+def prefill(params, cfg: ModelConfig, cache, *, tokens=None,
+            embeddings=None, positions=None):
+    """Run the whole prompt (tokens or embeddings), fill the cache in
+    place; returns (last-position logits (B, V), cache)."""
     hidden, cache, _ = forward(params, cfg, tokens=tokens,
-                               positions=positions, mode="prefill",
-                               cache=cache, skip_unembed=True)
+                               embeddings=embeddings, positions=positions,
+                               mode="prefill", cache=cache,
+                               skip_unembed=True)
     return unembed(params, cfg, hidden[:, -1:])[:, 0], cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens, pos, cache):
-    """One token for every sequence. tokens (B, 1); pos (B,) absolute."""
+    """One token for every sequence. tokens (B, 1); pos (B,) absolute;
+    an "mrope" model turns it by three equal position rows."""
+    positions = pos[:, None]
+    if cfg.rope_style == "mrope":
+        positions = positions[None].expand(3, *positions.shape)
     logits, cache, _ = forward(params, cfg, tokens=tokens,
-                               positions=pos[:, None], mode="decode",
+                               positions=positions, mode="decode",
                                cache=cache)
     return logits[:, 0], cache
