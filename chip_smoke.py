@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Ten paths are driven: Perona's scoring
+outputs, and time its kernels. Eleven paths are driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
 width (chunkwise mLSTM kernel), Perona's host-loop training and its
@@ -20,7 +20,10 @@ gemma3-4b and granite-moe-1b-a400m, serving at full width (the
 flash-attention kernel, head dims 64, 128 and 256), and DeepSeek-V2-Lite
 (latent attention and MoE) and Qwen2-VL (M-RoPE, embeddings input)
 serving at full width (the flash-attention kernel with q/k head dim 192
-and v head dim 128, and at a GQA group of 7).
+and v head dim 128, and at a GQA group of 7), and whisper-small, an
+encoder-decoder, at full width through its model API (the
+flash-attention kernel without a mask in the encoder and the
+cross-attention).
 
     python3 chip_smoke.py
 
@@ -241,6 +244,25 @@ Phases, each printing on lines of its own:
    text), kernels vs plain, and the same with three equal rows equal to
    RoPE positions bit for bit. The float32 copies of the weights are
    made through the host, one leaf at a time.
+21. whisper-small: (a) the flash kernel without a mask on both routes
+   against its plain version at (H, KH, D) (12, 12, 64), S
+   1/100/448/1500/4096 over T = 1500 keys and over T = S; the bf16 tile
+   edges of phase [5] without a mask (window 0); the kernel at the
+   encoder's problem (B=4 S=T=1500) and the cross-attention's (B=1
+   S=4096 T=1500): time, TFLOP/s, bound, plain version, SDPA without a
+   mask and which backend runs it, the float32 route, registers and
+   shared memory; (b) the small whisper (float32) against the JAX
+   package's encoder output, prefill and decode logits and greedy tokens
+   (``lm_zoo_whisper_small_golden.npz``); (c) whisper-small at full
+   width (bf16, seed-0 weights drawn on the card): 4 rows of seeded
+   frames (4, 1500, 768), a prefill of 4 x 448 tokens, 16 greedy decode
+   steps, a prefill of 1 x 4096 tokens; 36 flash launches a prefill (12
+   encoder layers without a mask, 12 causal self-attentions, 12
+   cross-attentions without a mask), the encoder's time, prefill latency
+   and tokens/s, decode tokens/s, peak memory; kernels vs plain on the
+   encoder output and both prefills' logits, and the decode steps vs a
+   no-cache forward with the same encoder output, in bf16 (1e-1) and
+   float32 (1e-4) as relative L2.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -849,14 +871,16 @@ def _distances_to_f32(logits, reference):
     return {route: _rel(x, reference)[2] for route, x in logits.items()}
 
 
-def _flash_inputs(g, B, H, KH, S, D, dtype, DV=None):
-    """q (B, S, H, D), k (B, S, KH, D), v (B, S, KH, DV) (DV = D unless
-    given): the model's layout."""
+def _flash_inputs(g, B, H, KH, S, D, dtype, DV=None, T=None):
+    """q (B, S, H, D), k (B, T, KH, D), v (B, T, KH, DV) (DV = D and
+    T = S unless given): the model's layout."""
     import torch
 
-    return tuple(torch.randn(B, S, h, d, generator=g, device="cuda")
-                 .to(dtype) for h, d in ((H, D), (KH, D),
-                                         (KH, D if DV is None else DV)))
+    T = S if T is None else T
+    return tuple(torch.randn(B, n, h, d, generator=g, device="cuda")
+                 .to(dtype) for n, h, d in ((S, H, D), (T, KH, D),
+                                            (T, KH, D if DV is None
+                                             else DV)))
 
 
 def _lru_inputs(g, B, S, C):
@@ -982,14 +1006,14 @@ FLASH_HEADS = ((16, 1), (16, 16), (9, 3), (16, 2))
 EDGE_HEADS = ((16, 1), (16, 4), (16, 16), (9, 3), (16, 2))
 
 
-def _flash_tile_edges(g):
+def _flash_tile_edges(g, causal=True, windows=EDGE_WINDOWS):
     """The bf16 kernel against the plain version at every S, T in
-    EDGE_LENGTHS, window in EDGE_WINDOWS, (H, KH) in EDGE_HEADS, D in
-    HEAD_DIMS (B 1), at the bf16 tolerance on the rows with a live key. A
-    row with
-    no live key (i >= T + window - 1, only when T < S) is 0 from the
-    kernel; the plain version, as the reference's oracle, averages v
-    over all keys there, so those rows are checked to be 0."""
+    EDGE_LENGTHS, window in ``windows``, (H, KH) in EDGE_HEADS, D in
+    HEAD_DIMS (B 1), causal or (``causal=False``) with no mask, at the
+    bf16 tolerance on the rows with a live key. A row with no live key
+    (i >= T + window - 1, only when T < S) is 0 from the kernel; the
+    plain version, as the reference's oracle, averages v over all keys
+    there, so those rows are checked to be 0."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -997,17 +1021,18 @@ def _flash_tile_edges(g):
     tol = TOL["bfloat16"]
     n, largest, dead_rows = 0, 0.0, 0
     for S, T, W, (H, KH), D in itertools.product(
-            EDGE_LENGTHS, EDGE_LENGTHS, EDGE_WINDOWS, EDGE_HEADS,
+            EDGE_LENGTHS, EDGE_LENGTHS, windows, EDGE_HEADS,
             fa_ops.HEAD_DIMS):
         q = torch.randn(1, S, H, D, generator=g, device="cuda")
         k, v = (torch.randn(1, T, KH, D, generator=g, device="cuda")
                 for _ in range(2))
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        out = fa_ops.flash_attention(q, k, v, window=W)
-        expect = _plain_flash(q, k, v, window=W)
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=W)
+        expect = _plain_flash(q, k, v, causal=causal, window=W)
         rows = torch.arange(S, device="cuda")
         rows = rows < T + W - 1 if W > 0 else rows >= 0
-        label = f"S={S} T={T} window={W} H={H} KH={KH} D={D} bfloat16"
+        label = (f"S={S} T={T} window={W} H={H} KH={KH} D={D} "
+                 f"{'causal' if causal else 'non-causal'} bfloat16")
         err = float((out.float() - expect.float())[:, rows].abs().max())
         check(err <= tol, f"flash kernel vs plain, {label}: {err}")
         check(not out[:, ~rows].any(), f"flash rows with no live key are "
@@ -1015,10 +1040,11 @@ def _flash_tile_edges(g):
         largest = max(largest, err)
         dead_rows += int((~rows).sum())
         n += 1
-    print(f"  flash bfloat16 tile edges: {n} cases (S, T "
-          f"{'/'.join(map(str, EDGE_LENGTHS))}, window 0/1/64/65, (H, KH) "
-          f"{EDGE_HEADS}, D {fa_ops.HEAD_DIMS}), largest error "
-          f"{largest:.3e} (tol "
+    print(f"  flash bfloat16 tile edges, "
+          f"{'causal' if causal else 'non-causal'}: {n} cases (S, T "
+          f"{'/'.join(map(str, EDGE_LENGTHS))}, window "
+          f"{'/'.join(map(str, windows))}, (H, KH) {EDGE_HEADS}, D "
+          f"{fa_ops.HEAD_DIMS}), largest error {largest:.3e} (tol "
           f"{tol:g}) ok; {dead_rows} rows with no live key are 0")
     return largest, n
 
@@ -1505,41 +1531,45 @@ def time_lm_kernels():
     return {"flash": flash, "rg_lru": time_lru(g)}
 
 
-def time_flash(g, B, H, KH, S, D, W, DV=None):
+def time_flash(g, B, H, KH, S, D, W, DV=None, causal=True, T=None):
     """The flash kernel at one shape in bf16 (the tensor-core route) and
     float32 (the CUDA-core route), its plain version, one SDPA call of
     the same function on each problem, and the bounds; v's head dim is
-    DV (D unless given)."""
+    DV (D unless given), the keys T (S unless given), and ``causal=False``
+    masks nothing."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     DV = D if DV is None else DV
-    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16, DV)
+    T = S if T is None else T
+    mask = dict(causal=causal, window=W)
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16, DV, T)
     with torch.no_grad():
-        ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, window=W), 20)
-        plain = cuda_ms(lambda: _plain_flash(q, k, v, window=W), 3)
+        ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, **mask), 20)
+        plain = cuda_ms(lambda: _plain_flash(q, k, v, **mask), 3)
         # the float32 route (the CUDA-core kernel) at the same shape
         qf, kf, vf = (t.float() for t in (q, k, v))
         f32_ms = cuda_ms(lambda: fa_ops.flash_attention(qf, kf, vf,
-                                                        window=W), 5)
+                                                        **mask), 5)
         # one library call of the same function, SDPA in its own layout
         # (B, H, S, D). A window needs a boolean mask; plain causal
         # attention takes is_causal, which keeps SDPA's flash backend
-        # open, on k/v repeated to the query heads (the copies are not
-        # timed) and on the KH heads as they are (enable_gqa); the faster
-        # of the two is the library's time
+        # open, and attention without a mask takes neither, on k/v
+        # repeated to the query heads (the copies are not timed) and on
+        # the KH heads as they are (enable_gqa); the faster of the two is
+        # the library's time
         if W > 0:
             pos = torch.arange(S, device="cuda")
             rel = pos[:, None] - pos[None, :]
             how = {"attn_mask": (rel >= 0) & (rel < W)}
         else:
-            how = {"is_causal": True}
+            how = {"is_causal": causal}
 
         def heads(t):
             t = t.transpose(1, 2).contiguous()
-            return (t.expand(B, H, S, t.shape[-1]) if KH == 1
+            return (t.expand(B, H, T, t.shape[-1]) if KH == 1
                     else t.repeat_interleave(H // KH, dim=1))
 
         def sdpa_args(q, k, v):
@@ -1567,13 +1597,17 @@ def time_flash(g, B, H, KH, S, D, W, DV=None):
         library, library_call, library_times = sdpa_ms(q, k, v)
         qt, ke, ve = sdpa_args(q, k, v)
         lib_err = float((sdpa(qt, ke, ve).transpose(1, 2).float()
-                         - fa_ops.flash_attention(q, k, v, window=W).float())
+                         - fa_ops.flash_attention(q, k, v, **mask).float())
                         .abs().max())
     check(lib_err <= TOL["bfloat16"], f"SDPA vs flash kernel: {lib_err}")
     # live (q, k) pairs per head; 2 D flops a pair for the score, 2 DV
     # for the weighted sum; q, k, v read once, the output (B, S, H, DV)
     # written once
-    pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
+    if causal:
+        pairs = sum(min(i + 1, W, T) if W > 0 else min(i + 1, T)
+                    for i in range(S))
+    else:
+        pairs = S * T
     flops = 2 * (D + DV) * pairs * H * B
     nbytes = q.nbytes + q.nbytes // D * DV + k.nbytes + v.nbytes
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -1581,8 +1615,10 @@ def time_flash(g, B, H, KH, S, D, W, DV=None):
     f32_bound = f32_bound_ms(flops, 2 * nbytes)
     attrs = fa_ops.tensor_core_attributes(D, DV)
     dims = f"D={D}" if DV == D else f"D={D} DV={DV}"
-    flash = {"shape": f"B={B} H={H} KH={KH} S={S} {dims} window={W} "
-                      f"bfloat16", "ms": ms, "plain_ms": plain,
+    keys = "" if T == S else f" T={T}"
+    flash = {"shape": f"B={B} H={H} KH={KH} S={S}{keys} {dims} window={W}"
+                      f"{'' if causal else ' non-causal'} bfloat16",
+             "ms": ms, "plain_ms": plain,
              "library_ms": library, "bound_ms": max(t_ops, t_bytes),
              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
              "flops": flops, "bytes": nbytes, "pairs_per_head": pairs,
@@ -1591,7 +1627,9 @@ def time_flash(g, B, H, KH, S, D, W, DV=None):
              "f32_bound_ms": f32_bound, "f32_library_ms": f32_library,
              "design": fa_ops.route(q.dtype, D, DV), "attributes": attrs,
              "library_vs_kernel": lib_err,
-             "library_call": f"{next(iter(how))}, {library_call}",
+             "library_call": (f"{next(iter(how))}, {library_call}"
+                              if W > 0 or causal
+                              else f"no mask, {library_call}"),
              "library_times_ms": library_times}
     print(f"  flash {flash['shape']}: kernel ({flash['design']}) {ms:.4f} "
           f"ms, plain {plain:.4f} ms, SDPA {library:.4f} ms "
@@ -4898,23 +4936,24 @@ def phase_mla_kernels():
     return worst
 
 
-def _sdpa_backend(g, B, H, KH, S, D, W, DV):
-    """Which of SDPA's backends a causal call on the timed problem runs:
-    the backends whose output, when each alone is allowed, equals the
-    default call's bit for bit, and each backend's time (None where it
-    refuses the problem, as FlashAttention-2 refuses unequal q and v head
-    dims). (The profiler records no kernel in a short session this late
-    in the run.)"""
+def _sdpa_backend(g, B, H, KH, S, D, W, DV, causal=True, T=None):
+    """Which of SDPA's backends a call on the timed problem (causal, or
+    with no mask) runs: the backends whose output, when each alone is
+    allowed, equals the default call's bit for bit, and each backend's
+    time (None where it refuses the problem, as FlashAttention-2 refuses
+    unequal q and v head dims). (The profiler records no kernel in a
+    short session this late in the run.)"""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     q, k, v = (t.transpose(1, 2).contiguous() for t in _flash_inputs(
-        g, B, H, KH, S, D, torch.bfloat16, DV))
-    check(W == 0 and H == KH, "the backend probe takes causal MHA")
+        g, B, H, KH, S, D, torch.bfloat16, DV, T))
+    check(W == 0 and H == KH, "the backend probe takes MHA without a "
+                              "window")
 
     def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
 
     times, ran = {}, []
     with torch.no_grad(), warnings.catch_warnings():
@@ -4933,8 +4972,10 @@ def _sdpa_backend(g, B, H, KH, S, D, W, DV):
                 continue
             if same:
                 ran.append(backend.name)
-    print(f"  SDPA at D={D} DV={DV}: the default call equals {ran} bit for "
-          f"bit; each backend alone, ms (None: refused): {times}")
+    print(f"  SDPA at B={B} S={S} T={T or S} D={D} DV={DV} "
+          f"{'causal' if causal else 'non-causal'}: the default call "
+          f"equals {ran} bit for bit; each backend alone, ms (None: "
+          f"refused): {times}")
     del q, k, v, default
     return {"default_equals": ran, "backend_ms": times}
 
@@ -5010,6 +5051,372 @@ def phase_mla():
         out["full"][arch]["seconds"] = time.perf_counter() - t0
         print(f"    -- {arch}: {out['full'][arch]['seconds']:.1f} s")
         torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------- whisper-small (phase [21])
+WHISPER = "whisper-small"
+# the flash kernel without a mask at whisper's (H, KH, D): the encoder's
+# S = T = 1500 and the cross-attention's S queries over T = 1500 keys
+WHISPER_HEADS = (12, 12, 64)
+WHISPER_FLASH_S = (1, 100, 448, 1500, 4096)
+WHISPER_FRAMES = 1500
+# the timed problems, (B, H, KH, S, D, window, DV, causal, T): the
+# encoder's self-attention at 4 rows and the cross-attention of a
+# 4096-token prefill
+WHISPER_ENCODER_TIMED = (4, 12, 12, 1500, 64, 0, 64, False, 1500)
+WHISPER_CROSS_TIMED = (1, 12, 12, 4096, 64, 0, 64, False, 1500)
+# the main path: 4 rows of 448 tokens (whisper's own decoder context)
+# and 16 greedy decode steps, then one row of 4096 tokens (S > T in the
+# cross-attention, the longest causal self-attention)
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_DECODE = 4, 448, 16
+WHISPER_LONG = 4096
+WHISPER_PREFILLS = 2
+WHISPER_PARAMS = 263_366_400  # the reference's abstract init
+
+
+def phase_whisper_kernels():
+    """(a) The flash kernel without a mask on both routes against its
+    plain version at whisper's shapes, the bf16 tile edges without a
+    mask, and the two timed problems with SDPA's backend on each."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    H, KH, D = WHISPER_HEADS
+    worst = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            tol, largest, n = TOL[name], 0.0, 0
+            for S in WHISPER_FLASH_S:
+                for T in sorted({WHISPER_FRAMES, S}):
+                    q, k, v = _flash_inputs(g, 1, H, KH, S, D, dtype, T=T)
+                    out = fa_ops.flash_attention(q, k, v, causal=False)
+                    expect = _plain_flash(q, k, v, causal=False)
+                    err = float((out.float() - expect.float()).abs().max())
+                    label = f"H={H} KH={KH} D={D} S={S} T={T} {name}"
+                    check(out.shape == (1, S, H, D) and out.dtype == dtype,
+                          f"flash shapes and type, {label}")
+                    check(err <= tol, f"flash kernel vs plain, non-causal "
+                                      f"{label}: {err}")
+                    largest = max(largest, err)
+                    if (S, T) == (WHISPER_LONG, WHISPER_FRAMES):
+                        worst[f"{name}_cross"] = err
+                    if S == T == WHISPER_FRAMES:
+                        worst[f"{name}_encoder"] = err
+                    n += 1
+                    del q, k, v, out, expect
+            worst[name] = largest
+            print(f"  flash {name} without a mask at whisper's (H, KH, D) "
+                  f"{WHISPER_HEADS}: {n} cases (S {WHISPER_FLASH_S}, T "
+                  f"{WHISPER_FRAMES} and S), largest error {largest:.3e} "
+                  f"(tol {tol:g}) ok")
+        worst["edges"], worst["edge_cases"] = _flash_tile_edges(
+            g, causal=False, windows=(0,))
+    torch.cuda.empty_cache()
+    print("  the flash kernel without a mask at the encoder's and the "
+          "cross-attention's problems (CUDA events after warm-up)")
+    for label, shape in (("encoder", WHISPER_ENCODER_TIMED),
+                         ("cross", WHISPER_CROSS_TIMED)):
+        B, H_, KH_, S, D_, W, DV, causal, T = shape
+        worst[f"timing_{label}"] = time_flash(g, B, H_, KH_, S, D_, W, DV,
+                                              causal=causal, T=T)
+        worst[f"sdpa_backend_{label}"] = _sdpa_backend(
+            g, B, H_, KH_, S, D_, W, DV, causal=causal, T=T)
+    return worst
+
+
+def whisper_golden_errors(golden, device="cuda"):
+    """The small whisper of the golden file, from its stored parameters
+    in float32 on ``device``: max |error| of the encoder output, the
+    prefill logits and each decode step's logits against the JAX
+    package's (the file's cache type), and whether a greedy decode's
+    tokens equal JAX's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import cast_params
+
+    cfg = golden.config
+    model = build_model(cfg)
+    params = cast_params(golden.params, cfg, device)
+    frames = torch.as_tensor(golden.frames, device=device)
+    prompt = torch.as_tensor(golden.prefill_tokens, device=device).long()
+    B, S = prompt.shape
+    dtype = getattr(torch, golden.cache_dtype)
+
+    def err(x, want):
+        return float(np.abs(x.float().cpu().numpy() - want).max())
+
+    def prefill():
+        cache = model.init_cache(B, golden.cache_len, dtype=dtype,
+                                 device=device)
+        return model.prefill(params, cache, tokens=prompt, frames=frames)
+
+    out = {}
+    with torch.inference_mode():
+        out["encoder"] = err(tfm.run_encoder(params, cfg, frames),
+                             golden.enc_out)
+        lp, cache = prefill()
+        out["prefill"] = err(lp, golden.prefill_logits)
+        out["finite"] = bool(torch.isfinite(lp).all())
+        out["decode"] = []
+        for i, tok in enumerate(golden.decode_tokens):
+            ld, cache = model.decode_step(
+                params, torch.as_tensor(tok, device=device).long()[:, None],
+                torch.full((B,), S + i, device=device), cache)
+            out["decode"].append(err(ld, golden.decode_logits[i]))
+        lp, cache = prefill()
+        got = [lp.argmax(-1)]
+        for i in range(golden.greedy_tokens.shape[1] - 1):
+            ld, cache = model.decode_step(
+                params, got[-1][:, None],
+                torch.full((B,), S + i, device=device), cache)
+            got.append(ld.argmax(-1))
+    out["greedy_equal"] = (torch.stack(got, 1).cpu().numpy().tolist()
+                           == golden.greedy_tokens.tolist())
+    return out
+
+
+def phase_whisper_golden():
+    """(b) The small whisper on the card against the golden file."""
+    from repro_torch.models.params import load_whisper_golden
+
+    golden = load_whisper_golden()
+    out = whisper_golden_errors(golden)
+    worst = max([out["encoder"], out["prefill"]] + out["decode"])
+    print(f"  small whisper on the card (float32, "
+          f"{golden.config.n_encoder_layers} encoder layer over "
+          f"{golden.config.n_audio_frames} frames, {golden.cache_dtype} "
+          f"caches) vs the JAX package's outputs: encoder output err "
+          f"{out['encoder']:.3e}, prefill logits {out['prefill']:.3e}, "
+          f"decode steps {max(out['decode']):.3e} (atol "
+          f"{LM_GOLDEN_ATOL:g}); greedy tokens equal JAX's: "
+          f"{out['greedy_equal']}")
+    check(out["finite"], "finite small whisper logits")
+    check(worst <= LM_GOLDEN_ATOL, f"small whisper vs golden: {out}")
+    check(out["greedy_equal"], "small whisper's greedy tokens equal JAX's")
+    return out
+
+
+def _whisper_inputs(cfg):
+    """Seeded frames (WHISPER_BATCH, 1500, d_model) in the compute type
+    and token prompts, WHISPER_BATCH rows of WHISPER_PROMPT and one of
+    WHISPER_LONG, on the card."""
+    import torch
+
+    from repro_torch.models.transformer import compute_dtype
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    frames = torch.randn(WHISPER_BATCH, cfg.n_audio_frames, cfg.d_model,
+                         generator=g, device="cuda").to(compute_dtype(cfg))
+    short = torch.randint(0, cfg.vocab_size, (WHISPER_BATCH, WHISPER_PROMPT),
+                          generator=g, device="cuda")
+    long = torch.randint(0, cfg.vocab_size, (1, WHISPER_LONG), generator=g,
+                         device="cuda")
+    return frames, short, long
+
+
+def _whisper_prefill(model, params, frames, prompt, cache_dtype=None,
+                     plain=False):
+    """(last-position logits, cache) of one prefill through the kernels
+    or (``plain``) their plain versions."""
+    kw = {} if cache_dtype is None else {"dtype": cache_dtype}
+    cache = model.init_cache(prompt.shape[0], FULL_MAX_LEN, device="cuda",
+                             **kw)
+    with plain_versions() if plain else contextlib.nullcontext():
+        return model.prefill(params, cache, tokens=prompt, frames=frames)
+
+
+def _whisper_checks(model, params, frames, short, long, greedy, tol,
+                    label, cache_dtype):
+    """Kernels vs plain versions on the encoder output and both
+    prefills' logits, and the greedy decode after the batched prefill vs
+    a no-cache forward with the same encoder output, as relative L2."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg
+    out = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        enc = tfm.encode(params, cfg, frames)
+        with plain_versions():
+            enc_plain = tfm.encode(params, cfg, frames)
+        out["encoder_kernels_vs_plain"] = _rel(enc, enc_plain)
+        del enc_plain
+        for name, rows, prompt in (("short", frames, short),
+                                   ("long", frames[:1], long)):
+            got = {plain: _whisper_prefill(model, params, rows, prompt,
+                                           plain=plain)[0]
+                   for plain in (False, True)}
+            check(bool(torch.isfinite(got[False]).all()),
+                  f"{label}: finite prefill logits")
+            out[f"prefill_{name}_kernels_vs_plain"] = _rel(got[False],
+                                                          got[True])
+        # decode step i feeds greedy[:, i] at position P + i: the logits
+        # the forward over the prompt and those tokens gives at P + i
+        _, cache = _whisper_prefill(model, params, frames, short,
+                                    cache_dtype)
+        P = short.shape[1]
+        steps = []
+        for i in range(greedy.shape[1]):
+            ld, cache = model.decode_step(
+                params, greedy[:, i:i + 1],
+                torch.full((short.shape[0],), P + i, device="cuda"), cache)
+            steps.append(ld)
+        del cache
+        hidden, _, _ = tfm.forward(params, cfg,
+                                   tokens=torch.cat([short, greedy], 1),
+                                   enc_out=enc, skip_unembed=True)
+        ref = tfm.unembed(params, cfg, hidden[:, P:])
+        out["decode_vs_forward"] = _rel(torch.stack(steps, 1), ref)
+        del hidden, ref, enc
+    for key, err in out.items():
+        print(f"    {label} {key.replace('_', ' ')}: max err {err[0]:.3e} "
+              f"of max |x| {err[1]:.1f}, relative L2 {err[2]:.2e} (tol "
+              f"{tol:g})")
+        check(err[2] <= tol, f"whisper {label}: {key} {err}")
+    print(f"    {label} checks: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_whisper_full():
+    """(c) whisper-small at full width, bf16 weights from seed 0 on the
+    card: the main path (a batched prefill of 4 x 448 tokens over 4 rows
+    of frames, 16 greedy decode steps, a prefill of 4096 tokens) with its
+    flash launches counted; then the checks in bf16 and, on the same
+    weights, in float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config(WHISPER)
+    print(f"  {cfg.name} at full width: {cfg.n_encoder_layers} encoder "
+          f"layers over {cfg.n_audio_frames} frames, {cfg.n_layers} decoder "
+          f"layers with cross-attention, d_model {cfg.d_model}, H "
+          f"{cfg.n_heads}, hd {cfg.head_dim}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"    weights: {n_params:,} parameters, {n_bytes / 1e9:.3f} GB on "
+          f"the card, drawn in {time.perf_counter() - t0:.1f} s")
+    check(n_params == WHISPER_PARAMS, f"whisper-small has {WHISPER_PARAMS} "
+                                      f"parameters, got {n_params}")
+    frames, short, long = _whisper_inputs(cfg)
+    per_prefill = cfg.n_encoder_layers + 2 * cfg.n_layers
+    row = {"arch": WHISPER, "parameters": n_params, "weight_bytes": n_bytes,
+           "launches_per_prefill": per_prefill}
+    with torch.inference_mode():
+        _whisper_prefill(model, params, frames[:1], short[:1, :64])  # warm
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa_ops.LAUNCHES = 0  # the whisper main path starts here
+        t0 = time.perf_counter()
+        logits, cache = _whisper_prefill(model, params, frames, short)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = logits.argmax(-1)
+        greedy = []
+        for i in range(WHISPER_DECODE):
+            greedy.append(tok)
+            logits, cache = model.decode_step(
+                params, tok[:, None],
+                torch.full((WHISPER_BATCH,), WHISPER_PROMPT + i,
+                           device="cuda"), cache)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del cache
+        long_logits, long_cache = _whisper_prefill(model, params,
+                                                   frames[:1], long)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = fa_ops.LAUNCHES  # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        del long_cache
+        greedy = torch.stack(greedy, 1)
+        check(bool(torch.isfinite(logits).all()
+                   and torch.isfinite(long_logits).all()),
+              "whisper: finite logits")
+        check(tuple(long_logits.shape) == (1, cfg.vocab_size),
+              "whisper: logits (B, V)")
+        check(launches == WHISPER_PREFILLS * per_prefill,
+              f"whisper: {launches} flash launches, expected {per_prefill} "
+              f"per prefill x {WHISPER_PREFILLS}")
+        encoder_ms = cuda_ms(lambda: tfm.encode(params, cfg, frames), 5)
+        encoder_one_ms = cuda_ms(lambda: tfm.encode(params, cfg,
+                                                    frames[:1]), 5)
+    short_key = f"{WHISPER_BATCH}x{WHISPER_PROMPT}"
+    long_key = f"1x{WHISPER_LONG}"
+    row.update({
+        "launches": launches, "peak_memory_bytes": peak,
+        "encoder_ms": {str(WHISPER_BATCH): encoder_ms, "1": encoder_one_ms},
+        "prefill_latency_s": {short_key: t1 - t0, long_key: t3 - t2},
+        "prefill_tokens_per_s": {
+            short_key: WHISPER_BATCH * WHISPER_PROMPT / (t1 - t0),
+            long_key: WHISPER_LONG / (t3 - t2)},
+        "decode_steps": WHISPER_DECODE, "decode_s": t2 - t1,
+        "decode_tokens_per_s": WHISPER_BATCH * WHISPER_DECODE / (t2 - t1),
+    })
+    print(f"    main path: flash launches {launches} ({per_prefill} per "
+          f"prefill: {cfg.n_encoder_layers} encoder without a mask, "
+          f"{cfg.n_layers} causal self-attention, {cfg.n_layers} "
+          f"cross-attention without a mask); peak memory "
+          f"{peak / 1e9:.2f} GB")
+    print(f"    encoder (CUDA events): {encoder_ms:.3f} ms at B="
+          f"{WHISPER_BATCH}, {encoder_one_ms:.3f} ms at B=1")
+    print(f"    prefill {short_key} with frames: {(t1 - t0) * 1e3:.1f} ms, "
+          f"{row['prefill_tokens_per_s'][short_key]:.0f} tokens/s; "
+          f"{long_key}: {(t3 - t2) * 1e3:.1f} ms, "
+          f"{row['prefill_tokens_per_s'][long_key]:.0f} tokens/s; decode "
+          f"{WHISPER_DECODE} steps x {WHISPER_BATCH} rows in "
+          f"{(t2 - t1) * 1e3:.1f} ms, {row['decode_tokens_per_s']:.1f} "
+          f"tokens/s")
+    checks = {"bf16": _whisper_checks(model, params, frames, short, long,
+                                      greedy, FULL_BF16_REL_TOL, "bf16",
+                                      torch.bfloat16)}
+    model32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    params32 = _float32_in_place(params)
+    del params
+    torch.cuda.empty_cache()
+    checks["f32"] = _whisper_checks(model32, params32, frames.float(),
+                                    short, long, greedy, FULL_F32_REL_TOL,
+                                    "f32", torch.float32)
+    del params32, frames
+    torch.cuda.empty_cache()
+    row["checks"] = checks
+    return row
+
+
+def phase_whisper():
+    print(f"[21] {WHISPER}: the flash kernel without a mask (the encoder's "
+          f"self-attention and the cross-attention), the small model vs "
+          f"the JAX package's outputs, and the model at full width: "
+          f"{WHISPER_BATCH} rows of {WHISPER_FRAMES} frames, a prefill of "
+          f"{WHISPER_BATCH}x{WHISPER_PROMPT} tokens, {WHISPER_DECODE} "
+          f"greedy decode steps, a prefill of 1x{WHISPER_LONG}")
+    out = {"kernel_errors": phase_whisper_kernels()}
+    out["golden"] = phase_whisper_golden()
+    t0 = time.perf_counter()
+    out["full"] = phase_whisper_full()
+    out["full"]["seconds"] = time.perf_counter() - t0
+    print(f"    -- {WHISPER}: {out['full']['seconds']:.1f} s")
     return out
 
 
@@ -5152,6 +5559,10 @@ def main() -> int:
     # the MLA and M-RoPE decoders: likewise, each arch's serving run
     mla = timed("MLA and M-RoPE decoders", seconds, phase_mla)
     mla_timing = mla["kernel_errors"]["timing"]
+    # whisper-small: its main path sets the flash count to 0 before it
+    # and reads it after
+    whisper = timed("whisper-small", seconds, phase_whisper)
+    wk = whisper["kernel_errors"]
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -5215,6 +5626,21 @@ def main() -> int:
             "sdpa_backend": mla["kernel_errors"]["sdpa_backend"]},
         "mla_max_abs_err": {k: mla["kernel_errors"][k]
                             for k in ("float32", "bfloat16", "edges")},
+        "non_causal": {
+            "launches_whisper": whisper["full"]["launches"],
+            "launches_per_prefill": whisper["full"]["launches_per_prefill"],
+            "max_abs_err": {k: wk[k] for k in (
+                "float32", "bfloat16", "edges", "bfloat16_encoder",
+                "bfloat16_cross", "float32_encoder", "float32_cross")},
+            **{label: {
+                "shape": wk[f"timing_{label}"]["shape"],
+                **{k: wk[f"timing_{label}"][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library_call", "library_times_ms", "tflop_per_s",
+                    "f32_ms", "f32_bound_ms", "f32_library_ms",
+                    "attributes")},
+                "sdpa_backend": wk[f"sdpa_backend_{label}"]}
+               for label in ("encoder", "cross")}},
     }, {
         "name": "rg_lru_scan",
         "route": "cuda",
@@ -5287,9 +5713,9 @@ def main() -> int:
         "fleet_tier": {**fleet_tier, "launches": fleet_launches},
         "model_plane": {**model_plane, "launches": plane_launches},
         "search": {**search, "launches": search_launches},
-        "lm_zoo": zoo, "mla_mrope": mla},
+        "lm_zoo": zoo, "mla_mrope": mla, "whisper": whisper},
         indent=1, default=str))
-    print(f"[21] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[22] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

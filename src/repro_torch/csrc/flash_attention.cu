@@ -1,10 +1,15 @@
-// Causal / sliding-window GQA attention, forward, for Hopper (sm_90a).
+// Causal, sliding-window or unmasked GQA attention, forward, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` / `flash_attention_fwd` of
 // src/repro/kernels/flash_attention/kernel.py:28-129. For every batch row b,
 // query head h (kv head h / (H / KH)) and query position i < S:
 //   s_j = scale * <q[b,i,h,:], k[b,j,kvh,:]>  for the keys j < T that are
-//         live: j <= i when causal, i - j < window when window > 0;
+//         live: j <= i when causal, i - j < window when window > 0; every
+//         j < T when neither (causal = 0: whisper's encoder, S = T = 1500,
+//         and its cross-attention, S queries over T = 1500 keys, S > T
+//         included), where the loops visit every key tile and only the
+//         ragged last one (1500 = 23 * 64 + 28) is masked, by j < T;
 //   out[b,i,h,:] = sum_j softmax_j(s) v[b,j,kvh,:]
 // with the softmax state (m, l) and the accumulator in float32 and the
 // output in q's type (float32 or bfloat16). A row with no live key gives 0

@@ -15,7 +15,9 @@ serving runs) goes to the tensor-core kernel (``wgmma`` with float32
 accumulators, K/V by TMA into a ring of two shared-memory stages),
 float32 to the CUDA-core kernel, whose checks are held at 2e-5, closer
 than tensor cores reach from float32 inputs. Both take any S and T (the
-TPU kernel asks S % 512 == 0 past 512), GQA/MQA with H % KH == 0 (any
+TPU kernel asks S % 512 == 0 past 512), ``causal=False`` (no mask:
+whisper's encoder at S = T = 1500 and its cross-attention, S queries
+over T = 1500 keys, S > T included), GQA/MQA with H % KH == 0 (any
 group: smollm's 9 query heads over 3 kv heads, qwen2.5's 16 over 2,
 Qwen2-VL's 28 over 4), the head-dim pairs (D, DV) of ``PAIRS`` (the
 float32 route also the small DeepSeek's (24, 16), whose 48-byte rows the

@@ -32,7 +32,12 @@ cache (``transformer.cache_rows``: views at batch axis 1 in the body,
 (K/V rings, MLA's latent caches, conv histories, RG-LRU and xLSTM
 states). Rows are independent in every layer, so the tokens are the
 same. Qwen2-VL is served from token prompts, as the reference serves it
-(positions (B, S), which its M-RoPE turns as RoPE).
+(positions (B, S), which its M-RoPE turns as RoPE). An encoder-decoder
+(whisper-small) is refused with a ``ValueError``: the reference's
+``SlotServer`` passes no frames to its prefill and fails on it, so the
+port serves it through ``Model.prefill(..., frames=)`` and
+``Model.decode_step`` alone, and ``--arch whisper-small`` ends in that
+error.
 
 ``--fingerprint`` trains a small Perona model (``_trained_perona``: the
 graphed ``core.trainer.train_perona``, 40 epochs) and streams watchdog
@@ -97,6 +102,7 @@ class SlotServer:
 
     def __init__(self, model, params, *, n_slots: int = 4,
                  max_len: int = 512):
+        self.check_config(model.cfg)
         self.model = model
         self.params = params
         self.device = params["embed"]["table"].device
@@ -110,6 +116,16 @@ class SlotServer:
         self.last_token = np.zeros(n_slots, np.int64)
         self.decode_s = 0.0  # host clock over all decode steps
         self.decode_tokens = 0  # tokens handed to live requests by decode
+
+    @staticmethod
+    def check_config(cfg):
+        """Raises ``ValueError`` for an encoder-decoder configuration."""
+        if cfg.n_encoder_layers:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: the reference's "
+                f"SlotServer passes no frames to its prefill and cannot "
+                f"serve it; drive it through Model.prefill(params, cache, "
+                f"tokens=, frames=) and Model.decode_step")
 
     def _prefill_slot(self, slot: int, request: Request):
         """Prefill one sequence as a batch of one, into ``slot``'s rows
@@ -588,6 +604,10 @@ def _serve_lm(args) -> dict:
     cfg = get_config(args.arch)
     if args.scale == "small":
         cfg = cfg.scaled_down(max_seq=args.max_len)
+    try:
+        SlotServer.check_config(cfg)
+    except ValueError as e:  # before any weight is drawn
+        raise SystemExit(f"[serve] {e}") from None
     model = build_model(cfg)
     params = model.init(args.seed, device=device)
     requests = make_requests(args.requests, cfg.vocab_size, args.max_new,

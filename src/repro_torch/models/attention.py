@@ -1,7 +1,8 @@
 """Self-attention with GQA/MQA, a sliding window, the optional RMSNorm
-of q and k (``qk_norm``) and Qwen2-VL's M-RoPE, and DeepSeek-V2's
-Multi-head Latent Attention (MLA): ``repro/models/attention.py``
-(``:37-86``, ``:93-130``, ``:200-357``, ``:397-476``) in PyTorch.
+of q and k (``qk_norm``) and Qwen2-VL's M-RoPE, whisper's bidirectional
+and cross-attention, and DeepSeek-V2's Multi-head Latent Attention
+(MLA): ``repro/models/attention.py`` (``:37-86``, ``:93-130``,
+``:200-390``, ``:397-476``) in PyTorch.
 
 Prefill (and the no-cache forward) always goes through the kernel
 wrapper ``kernels.flash_attention.ops.flash_attention`` (the CUDA kernel
@@ -27,8 +28,17 @@ nope + rope)`` and values ``(B, S, H, v_dim)`` and sends them through
 the same kernel wrapper with a value head dim unlike the query's (192
 and 128 at full width); a decode step takes the reference's absorbed
 path (``W_uk`` folded into the query, the values read from the latent),
-plain products outside any kernel. The chunked path, the int8 KV cache
-and cross-attention come with later slices.
+plain products outside any kernel.
+
+Whisper's encoder attends without a mask (``attention_block(...,
+causal=False)``), and its decoder's cross-attention takes every query
+over the 1500 keys projected from the encoder output
+(``encode_cross_kv``, ``cross_attention_block``): both through the same
+kernel wrapper with ``causal=False`` at prefill, and a decode step's
+cross-attention over the cached encoder k/v with materialized scores.
+Learned positions (``rope_style="learned"``) are added at the embedding
+and turn nothing here. The chunked path and the int8 KV cache come with
+later slices.
 """
 
 from __future__ import annotations
@@ -129,9 +139,9 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     elif cfg.rope_style in ("rope", "mrope"):
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope_style != "none":
-        raise ValueError(f"rope_style {cfg.rope_style!r} comes with a "
-                         f"later slice")
+    elif cfg.rope_style not in ("none", "learned"):
+        # "learned": the positions were added at the embedding (whisper)
+        raise ValueError(f"the port has no rope_style {cfg.rope_style!r}")
     return q, k, v
 
 
@@ -164,10 +174,11 @@ def _fill_cache(cache, leaves, pos2d):
 
 
 def attention_block(params, cfg: ModelConfig, x, positions, *, local: bool,
-                    mode: str = "train", cache=None):
+                    mode: str = "train", cache=None, causal: bool = True):
     """Returns (output, cache). positions: (B, S), or (3, B, S) for
     M-RoPE, absolute. The cache is written in place in "prefill" and
-    "decode" mode."""
+    "decode" mode. ``causal=False`` (whisper's encoder) masks nothing;
+    it takes no cache."""
     if cfg.attn_logit_softcap > 0.0:
         raise ValueError("attn_logit_softcap: the flash-attention kernel "
                          "has no logit soft-cap yet (a later slice)")
@@ -181,7 +192,7 @@ def attention_block(params, cfg: ModelConfig, x, positions, *, local: bool,
         # pallas route does (positions only turn the RoPE); its default
         # route masks by position values, which differs where M-RoPE
         # positions repeat (an image's tokens; ROADMAP.md section 3)
-        out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                      scale=scale)
         if mode == "prefill" and cache is not None:
             _fill_cache(cache, {"k": k, "v": v}, pos2d)
@@ -207,6 +218,50 @@ def _write_slot(cache, leaves, pos2d):
     for name, src in leaves.items():
         cache[name][bidx, slot] = src[:, 0].to(cache[name].dtype)
     cache["pos"][bidx, slot] = pos2d[:, 0].to(torch.int32)
+
+
+def attention_block_bidirectional(params, cfg: ModelConfig, x, positions):
+    """Encoder self-attention: no mask, no cache."""
+    return attention_block(params, cfg, x, positions, local=False,
+                           mode="train", cache=None, causal=False)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def encode_cross_kv(params, cfg: ModelConfig, enc_out):
+    """k/v (B, T, KH, hd) of the encoder output ``enc_out`` (B, T, d)."""
+    B, T, _ = enc_out.shape
+    KH, hd = cfg.n_kv_heads, cfg.head_dim
+    k = nn.linear(params["wk"], enc_out).reshape(B, T, KH, hd)
+    v = nn.linear(params["wv"], enc_out).reshape(B, T, KH, hd)
+    return {"k": k, "v": v}
+
+
+def cross_attention_block(params, cfg: ModelConfig, x, enc_kv, *,
+                          mode: str = "train"):
+    """Every query of x (B, S, d) over every key of ``enc_kv`` (k/v
+    (B, T, KH, hd)): through the kernel wrapper without a mask in
+    "train" and "prefill" mode (k/v freshly projected, contiguous), with
+    materialized scores over the cross cache in "decode" mode."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = nn.linear(params["wq"], x).reshape(B, S, H, hd)
+    k, v = enc_kv["k"].to(q.dtype), enc_kv["v"].to(q.dtype)
+    scale = _attn_scale(cfg)
+    if mode in ("train", "prefill"):
+        out = fa_ops.flash_attention(q, k, v, causal=False, window=0,
+                                     scale=scale)
+    elif mode == "decode":
+        T = k.shape[1]
+        out = attend_full(q, k, v,
+                          torch.arange(S, device=x.device).expand(B, S),
+                          torch.arange(T, device=x.device).expand(B, T),
+                          causal=False, window=0, scale=scale)
+    else:
+        raise ValueError(mode)
+    return nn.linear(params["wo"], out.reshape(B, S, H * hd))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,8 @@
 """Model configuration of the LM zoo, a copy of ``repro/models/config.py``.
 
 Every field of the reference is kept, so that a configuration crosses
-between the packages field for field; the port serves the layer kinds
-"attn", "local_attn", "moe_attn", "mla_attn", "mla_moe_attn", "rg_lru",
-"mlstm" and "slstm" so far (``ROADMAP.md`` lists the rest).
+between the packages field for field; the port serves every layer kind
+below but "dense_attn", which no configuration uses.
 
 A model is: [embedding / modality frontend stub] -> head layers (unrolled)
 -> scanned pattern body (n_periods x period) -> tail layers (unrolled)
@@ -19,6 +18,9 @@ Layer kinds:
   "dense_attn" full attention + dense MLP (used for MoE archs' dense head)
   "mla_attn"   DeepSeek-V2 latent attention + dense MLP
   "mla_moe_attn" DeepSeek-V2 latent attention + MoE feed-forward
+  "enc_attn"   bidirectional self-attention + MLP (whisper's encoder)
+  "xattn"      causal self-attention + cross-attention over the encoder
+               output + MLP (whisper's decoder)
 """
 
 from __future__ import annotations

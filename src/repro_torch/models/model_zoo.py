@@ -4,7 +4,10 @@ A :class:`Model` bundles a configuration with the functions of
 ``transformer``: ``init`` (seeded, on the generator's device),
 ``prefill``, ``decode_step`` and ``init_cache``. Caches default to
 bfloat16 whatever the compute type, as in the reference
-(``Model.init_cache``); the Griffin state ``h`` is float32.
+(``Model.init_cache``); the Griffin state ``h`` is float32. Whisper
+(an encoder-decoder) is driven through ``prefill(params, cache,
+tokens=, frames=)`` and ``decode_step``, the API the reference serves
+it by.
 """
 
 from __future__ import annotations
@@ -32,9 +35,10 @@ class Model:
             return tfm.model_init(self.cfg, gen)
 
     def prefill(self, params, cache, *, tokens=None, embeddings=None,
-                positions=None):
+                positions=None, frames=None):
         return tfm.prefill(params, self.cfg, cache, tokens=tokens,
-                           embeddings=embeddings, positions=positions)
+                           embeddings=embeddings, positions=positions,
+                           frames=frames)
 
     def decode_step(self, params, tokens, pos, cache):
         return tfm.decode_step(params, self.cfg, tokens, pos, cache)

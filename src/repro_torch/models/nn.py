@@ -3,7 +3,8 @@
 Parameters keep the reference's layout, so that they cross between the
 packages without a transpose: a linear layer is ``{"w": (d_in, d_out)}``
 and computes ``y = x @ w + b``; a gated MLP is ``{"wi": (d, 2, d_ff),
-"wo": (d_ff, d)}``; an embedding is ``{"table": (vocab, d)}``.
+"wo": (d_ff, d)}``, the gelu MLP two biased linears ``{"in", "out"}``;
+an embedding is ``{"table": (vocab, d)}``.
 
 The reference keeps every parameter in float32 and casts it to the
 compute type (``cfg.dtype``) at each use. The port holds the parameters
@@ -169,15 +170,18 @@ def apply_norm(params, kind: str, x, eps: float = 1e-6):
 
 
 # ---------------------------------------------------------------------------
-# Gated MLPs
+# MLPs: gated (swiglu, geglu) and whisper's gelu
 # ---------------------------------------------------------------------------
 
 def mlp_init(init: Init, kind: str, d_model: int, d_ff: int):
-    if kind not in ("swiglu", "geglu"):
-        raise ValueError(f"the port has swiglu and geglu so far, not "
-                         f"{kind!r}")
-    return {"wi": init.param((d_model, 2, d_ff), scale=fanin_scale(d_model)),
-            "wo": init.param((d_ff, d_model), scale=fanin_scale(d_ff))}
+    if kind in ("swiglu", "geglu"):
+        return {"wi": init.param((d_model, 2, d_ff),
+                                 scale=fanin_scale(d_model)),
+                "wo": init.param((d_ff, d_model), scale=fanin_scale(d_ff))}
+    if kind == "gelu":  # two biased linears (whisper)
+        return {"in": linear_init(init, d_model, d_ff, bias=True),
+                "out": linear_init(init, d_ff, d_model, bias=True)}
+    raise ValueError(f"the port has no MLP {kind!r}")
 
 
 def gelu(x):
@@ -186,6 +190,8 @@ def gelu(x):
 
 
 def apply_mlp(params, kind: str, x):
+    if kind == "gelu":
+        return linear(params["out"], gelu(linear(params["in"], x)))
     wi = params["wi"].to(x.dtype)
     d, _, d_ff = wi.shape
     # (d, 2, d_ff) as (d, 2*d_ff): columns [0, d_ff) gate, [d_ff, 2 d_ff) up
@@ -241,3 +247,15 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, dim: int, device=None) -> torch.Tensor:
+    """(n, dim) float32 table: sin at the even columns, cos at the odd,
+    of position x 10000^(-2i/dim) (whisper's encoder positions)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device) * (-math.log(10000.0) / dim))
+    pe = torch.zeros((n, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe

@@ -31,6 +31,18 @@ positions whose rows differ (``LMGolden.embeddings``; written by
 
 The MLA leaves (``wq``, ``w_dkv``, ``kv_norm``, ``w_uk``, ``w_uv``,
 ``wo``) cross like any other: the tree of ``model_template`` holds them.
+So do whisper's: ``pos_embed/table``, the encoder's one tree of leaves
+stacked over its layers (``encoder/attn/wq/w`` is ``(n_encoder_layers,
+d, d)``), ``enc_norm``, and each decoder layer's ``norm_x`` and
+``xattn``. LayerNorm biases (``.../bias``) stay float32, as the
+reference reads them; the linear biases (``.../b``) take the compute
+type, as the reference's ``linear`` casts them.
+
+:func:`load_whisper_golden` reads ``assets/lm_zoo_whisper_small_golden.npz``
+(``WHISPER_GOLDEN_PATH``, written by ``tests/test_torch_whisper.py
+--write``): the small whisper (``scaled_down(dtype="float32")``) with the
+JAX package's parameters, seeded frames and tokens, and the JAX outputs
+of its encoder, prefill, three decode steps and a greedy decode.
 """
 
 from __future__ import annotations
@@ -53,10 +65,11 @@ LM_GOLDEN_PATH = ASSETS / "recurrentgemma_small_golden.npz"
 XLSTM_GOLDEN_PATH = ASSETS / "xlstm_small_golden.npz"
 LM_ZOO_GOLDEN_PATH = ASSETS / "lm_zoo_small_golden.npz"
 LM_MLA_MROPE_GOLDEN_PATH = ASSETS / "lm_zoo_mla_mrope_small_golden.npz"
+WHISPER_GOLDEN_PATH = ASSETS / "lm_zoo_whisper_small_golden.npz"
 
 #: Ends of the leaf paths the reference reads in float32 whatever the
 #: compute type: norm scales and biases, the RG-LRU ``lambda``, the MoE
-#: router.
+#: router (a linear's bias ``b`` is not among them).
 F32_LEAVES = ("scale", "bias", "lambda", "router/w")
 
 
@@ -166,3 +179,34 @@ def load_lm_golden(path=LM_GOLDEN_PATH, prefix: str = "") -> LMGolden:
         served=[[int(t) for t in s] for s in served],
         embeddings=({k[len("embeddings/"):]: v for k, v in g.items()
                      if k.startswith("embeddings/")} or None))
+
+
+@dataclasses.dataclass
+class WhisperGolden:
+    config: ModelConfig
+    params: Any  # the reference's tree of float32 CPU tensors
+    frames: np.ndarray  # (B, n_audio_frames, d_model)
+    enc_out: np.ndarray  # (B, n_audio_frames, d_model), JAX's run_encoder
+    prefill_tokens: np.ndarray  # (B, S)
+    prefill_logits: np.ndarray  # (B, V), JAX
+    cache_len: int
+    cache_dtype: str  # of the caches behind every logit here
+    decode_tokens: np.ndarray  # (steps, B), fed one step at a time
+    decode_logits: np.ndarray  # (steps, B, V), JAX, positions S, S+1, ...
+    # (B, 1 + n) argmax of the prefill's logits, then of each of n decode
+    # steps fed the previous argmax, after a fresh prefill
+    greedy_tokens: np.ndarray
+
+
+def load_whisper_golden(path=WHISPER_GOLDEN_PATH) -> WhisperGolden:
+    with np.load(path, allow_pickle=False) as z:
+        g = {k: z[k] for k in z.files}
+    config = config_from_json(str(g["config"]))
+    flat = {k[len("params/"):]: v for k, v in g.items()
+            if k.startswith("params/")}
+    return WhisperGolden(
+        config=config, params=restore(flat, config), frames=g["frames"],
+        enc_out=g["enc_out"], prefill_tokens=g["prefill/tokens"],
+        prefill_logits=g["prefill/logits"], cache_len=int(g["cache_len"]),
+        cache_dtype=str(g["cache_dtype"]), decode_tokens=g["decode/tokens"],
+        decode_logits=g["decode/logits"], greedy_tokens=g["greedy/tokens"])

@@ -1,8 +1,9 @@
 """LM assembly: embedding -> head/body/tail layers -> final norm ->
 logits; ``repro/models/transformer.py`` in PyTorch for the layer kinds
 "attn", "local_attn", "moe_attn", "mla_attn", "mla_moe_attn", "rg_lru",
-"mlstm" and "slstm". A "moe_attn" layer is an attention layer whose
-feed-forward is the MoE of ``models.moe``; its load-balancing loss is
+"mlstm", "slstm" and whisper's "enc_attn" and "xattn". A "moe_attn"
+layer is an attention layer whose feed-forward is the MoE of
+``models.moe``; its load-balancing loss is
 returned by :func:`layer_apply` and summed by :func:`forward`, which
 returns it third as the reference does, and serving ignores it. The
 "mla_*" kinds are DeepSeek-V2's latent attention with a dense or an MoE
@@ -22,6 +23,16 @@ per-layer trees. Caches do the same, so a body cache leaf is ``(n_periods,
 B, ...)`` (batch axis 1) and a head/tail cache leaf is ``(B, ...)`` (batch
 axis 0). The reference scans the body with ``lax.scan``; here a Python
 loop over ``n_periods`` takes views ``leaf[p]`` of the stacked leaves.
+
+Whisper is an encoder-decoder: :func:`run_encoder` takes precomputed
+frame embeddings (B, 1500, d_model) (the conv frontend is a stub, as in
+the reference) through ``params["encoder"]``, one layer tree whose
+leaves are stacked over ``n_encoder_layers``, and ``enc_norm``; its
+decoder layers ("xattn") add a cross-attention over k/v projected from
+the encoder output, which :func:`prefill` (given ``frames``) writes into
+each layer's cache ``{"self", "cross"}`` and a decode step reads there.
+Its positions are a learned table (``params["pos_embed"]``) added at the
+embedding.
 
 Layers write their caches in place, so :func:`prefill` and
 :func:`decode_step` update the cache they are given and return it.
@@ -44,7 +55,7 @@ ATTN_KINDS = ("attn", "local_attn", "moe_attn")
 MLA_KINDS = ("mla_attn", "mla_moe_attn")
 MOE_KINDS = ("moe_attn", "mla_moe_attn")
 XLSTM_KINDS = ("mlstm", "slstm")
-KINDS = ATTN_KINDS + MLA_KINDS + ("rg_lru",) + XLSTM_KINDS
+KINDS = ATTN_KINDS + MLA_KINDS + ("rg_lru",) + XLSTM_KINDS + ("xattn",)
 
 # float64 serves the CPU tests' float64 evaluation of the small models
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -57,9 +68,11 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _check_kinds(cfg: ModelConfig):
     other = sorted(set(cfg.layer_kinds) - set(KINDS))
-    if other or cfg.n_encoder_layers or cfg.rope_style == "learned":
-        raise ValueError(f"{cfg.name}: layer kinds {other} (or an encoder / "
-                         f"learned positions) come with a later slice")
+    if other:
+        raise ValueError(f"{cfg.name}: the port has no layer kinds {other}")
+    if ("xattn" in cfg.layer_kinds) != bool(cfg.n_encoder_layers):
+        raise ValueError(f"{cfg.name}: cross-attention layers and an "
+                         f"encoder come together")
 
 
 def tree_map(fn, tree):
@@ -76,7 +89,7 @@ def tree_map(fn, tree):
 
 def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
     params = {"norm1": nn.norm_init(init, cfg.norm, cfg.d_model)}
-    if kind in ATTN_KINDS:
+    if kind in ATTN_KINDS + ("enc_attn", "xattn"):
         params["attn"] = attn.attention_init(init, cfg)
     elif kind in MLA_KINDS:
         params["attn"] = attn.mla_init(init, cfg)
@@ -90,6 +103,9 @@ def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
         return params
     else:
         raise ValueError(kind)
+    if kind == "xattn":
+        params["norm_x"] = nn.norm_init(init, cfg.norm, cfg.d_model)
+        params["xattn"] = attn.attention_init(init, cfg)
     params["norm2"] = nn.norm_init(init, cfg.norm, cfg.d_model)
     if kind in MOE_KINDS:
         params["moe"] = moe_lib.moe_init(init, cfg)
@@ -99,16 +115,25 @@ def layer_init(init: nn.Init, cfg: ModelConfig, kind: str):
 
 
 def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
-                mode: str, cache=None):
+                mode: str, cache=None, enc_out=None):
     """One layer. Returns (x, cache, aux loss); the aux loss is 0.0 but in
-    MoE layers."""
+    MoE layers. An "xattn" layer's cache is ``{"self": kv cache,
+    "cross": {"k", "v"}}``; it takes ``enc_out`` (B, T, d), the encoder
+    output, in "train" and "prefill" mode, where a prefill writes the
+    cross k/v into the cache in place, and reads them there in "decode"
+    mode."""
     aux = 0.0
     rm = cfg.residual_multiplier
     h = nn.apply_norm(params["norm1"], cfg.norm, x)
-    if kind in ATTN_KINDS:
-        y, cache = attn.attention_block(params["attn"], cfg, h, positions,
-                                        local=(kind == "local_attn"),
-                                        mode=mode, cache=cache)
+    if kind in ATTN_KINDS + ("xattn",):
+        self_cache = (cache["self"] if kind == "xattn" and cache is not None
+                      else cache)
+        y, _ = attn.attention_block(params["attn"], cfg, h, positions,
+                                    local=(kind == "local_attn"), mode=mode,
+                                    cache=self_cache)
+    elif kind == "enc_attn":
+        y, _ = attn.attention_block_bidirectional(params["attn"], cfg, h,
+                                                  positions)
     elif kind in MLA_KINDS:
         y, cache = attn.mla_block(params["attn"], cfg, h, positions,
                                   mode=mode, cache=cache)
@@ -122,12 +147,31 @@ def layer_apply(params, cfg: ModelConfig, kind: str, x, positions, *,
     else:
         raise ValueError(kind)
     x = x + y * rm
+    if kind == "xattn":
+        x = x + _cross(params, cfg, x, mode, cache, enc_out)
     h2 = nn.apply_norm(params["norm2"], cfg.norm, x)
     if kind in MOE_KINDS:
         y2, aux = moe_lib.moe_apply(params["moe"], cfg, h2)
     else:
         y2 = nn.apply_mlp(params["mlp"], cfg.mlp, h2)
     return x + y2 * rm, cache, aux
+
+
+def _cross(params, cfg: ModelConfig, x, mode, cache, enc_out):
+    """The cross-attention of an "xattn" layer (its residual's term)."""
+    hx = nn.apply_norm(params["norm_x"], cfg.norm, x)
+    if mode in ("train", "prefill"):
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: a {mode} of a decoder with "
+                             f"cross-attention takes the encoder output")
+        xkv = attn.encode_cross_kv(params["xattn"], cfg, enc_out)
+        if mode == "prefill" and cache is not None:
+            for name, t in xkv.items():
+                cache["cross"][name].copy_(t)
+    else:
+        xkv = cache["cross"]
+    return attn.cross_attention_block(params["xattn"], cfg, hx, xkv,
+                                      mode=mode)
 
 
 def layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
@@ -145,6 +189,13 @@ def layer_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
         return rec.init_mlstm_cache(cfg, batch, dtype=dtype, device=device)
     if kind == "slstm":
         return rec.init_slstm_cache(cfg, batch, dtype=dtype, device=device)
+    if kind == "xattn":
+        shape = (batch, cfg.n_audio_frames, cfg.n_kv_heads, cfg.head_dim)
+        return {"self": attn.init_kv_cache(cfg, batch, length, local=False,
+                                           dtype=dtype, device=device),
+                "cross": {name: torch.zeros(shape, dtype=dtype,
+                                            device=device)
+                          for name in ("k", "v")}}
     raise ValueError(kind)
 
 
@@ -184,6 +235,13 @@ def _init(cfg: ModelConfig, init: nn.Init) -> Dict:
     _check_kinds(cfg)
     params: Dict[str, Any] = {
         "embed": nn.embed_init(init, cfg.vocab_size, cfg.d_model)}
+    if cfg.rope_style == "learned":
+        params["pos_embed"] = {"table": init.param(
+            (cfg.max_seq, cfg.d_model), scale=0.02)}
+    if cfg.n_encoder_layers:  # one tree, leaves stacked over the layers
+        params["encoder"] = layer_init(
+            _StackedInit(init, cfg.n_encoder_layers), cfg, "enc_attn")
+        params["enc_norm"] = nn.norm_init(init, cfg.norm, cfg.d_model)
     for group, pattern in (("head", cfg.head_pattern),
                            ("tail", cfg.tail_pattern)):
         if pattern:
@@ -249,13 +307,47 @@ def cache_rows(cache, rows: slice):
 # Forward
 # ---------------------------------------------------------------------------
 
+def run_encoder(params, cfg: ModelConfig, frames):
+    """Whisper's encoder over precomputed frame embeddings (B, T, d) (the
+    conv frontend is a stub, as in the reference): fixed sinusoidal
+    positions, cast to the frames' type before the add, then the
+    ``n_encoder_layers`` "enc_attn" layers and ``enc_norm``."""
+    B, T, D = frames.shape
+    x = frames + nn.sinusoidal_positions(T, D, frames.device)[None].to(
+        frames.dtype)
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    for i in range(cfg.n_encoder_layers):
+        lp = tree_map(lambda a: a[i], params["encoder"])
+        x, _, _ = layer_apply(lp, cfg, "enc_attn", x, positions,
+                              mode="train")
+    return nn.apply_norm(params["enc_norm"], cfg.norm, x)
+
+
+def encode(params, cfg: ModelConfig, frames):
+    """:func:`run_encoder` on frames of ``n_audio_frames`` rows, in the
+    compute type; frames of another length are refused (the cross cache
+    is a fixed buffer of that many rows)."""
+    if frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its prefill "
+                         f"takes frames (B, {cfg.n_audio_frames}, "
+                         f"{cfg.d_model})")
+    if tuple(frames.shape[1:]) != (cfg.n_audio_frames, cfg.d_model):
+        raise ValueError(f"{cfg.name}: frames must be (B, "
+                         f"{cfg.n_audio_frames}, {cfg.d_model}), got "
+                         f"{tuple(frames.shape)}")
+    return run_encoder(params, cfg, frames.to(compute_dtype(cfg)))
+
+
 def forward(params, cfg: ModelConfig, *, tokens=None, embeddings=None,
             positions=None, mode: str = "train", cache=None,
-            skip_unembed: bool = False):
+            enc_out=None, skip_unembed: bool = False):
     """Decoder forward from tokens (B, S) integers or embeddings (B, S,
     d_model). Returns (logits or the final hidden state, cache, the
     summed aux loss (0.0 without MoE layers)); the cache (prefill /
-    decode) is written in place."""
+    decode) is written in place. A decoder with cross-attention takes
+    the encoder output ``enc_out`` in "train" and "prefill" mode; learned
+    positions are added at the embedding, at ``clip(pos, 0, max_seq -
+    1)``, in the compute type."""
     if (tokens is None) == (embeddings is None):
         raise ValueError("forward takes tokens or embeddings, one of them")
     if embeddings is None:
@@ -267,10 +359,14 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeddings=None,
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
+    if cfg.rope_style == "learned":
+        table = params["pos_embed"]["table"]
+        pos2d = positions[0] if positions.dim() == 3 else positions
+        x = x + table[pos2d.clamp(0, table.shape[0] - 1)].to(x.dtype)
     aux_total = 0.0
     for kind, lp, lc in layers(cfg, params, cache):
         x, _, aux = layer_apply(lp, cfg, kind, x, positions, mode=mode,
-                                cache=lc)
+                                cache=lc, enc_out=enc_out)
         aux_total = aux_total + aux
     x = nn.apply_norm(params["final_norm"], cfg.norm, x)
     out = x if skip_unembed else unembed(params, cfg, x)
@@ -286,12 +382,16 @@ def unembed(params, cfg: ModelConfig, x):
 
 
 def prefill(params, cfg: ModelConfig, cache, *, tokens=None,
-            embeddings=None, positions=None):
+            embeddings=None, positions=None, frames=None):
     """Run the whole prompt (tokens or embeddings), fill the cache in
-    place; returns (last-position logits (B, V), cache)."""
+    place; returns (last-position logits (B, V), cache). An
+    encoder-decoder (whisper) takes ``frames`` (B, n_audio_frames,
+    d_model), runs the encoder over them and writes the cross k/v of
+    every layer into the cache."""
+    enc_out = encode(params, cfg, frames) if cfg.n_encoder_layers else None
     hidden, cache, _ = forward(params, cfg, tokens=tokens,
                                embeddings=embeddings, positions=positions,
-                               mode="prefill", cache=cache,
+                               mode="prefill", cache=cache, enc_out=enc_out,
                                skip_unembed=True)
     return unembed(params, cfg, hidden[:, -1:])[:, 0], cache
 

@@ -68,13 +68,17 @@ def test_config_matches_reference():
 
 
 def test_get_config_names_the_later_slice_for_unported_archs():
-    """whisper-small, the one arch left, is refused naming its slice;
-    DeepSeek-V2-Lite and Qwen2-VL are served and equal the reference's."""
-    with pytest.raises(KeyError, match="not ported yet.*queue 1 item 6h "):
-        get_config("whisper-small")
-    for arch in ("deepseek-v2-lite-16b", "qwen2-vl-7b"):
+    """Every arch of the reference's registry is served (``PORTED`` is
+    ``ARCHS``, the reference's names in its order) and equals the
+    reference's config; an unknown arch is refused."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro_torch.configs import ARCHS, PORTED
+
+    assert ARCHS == JAX_ARCHS
+    assert set(PORTED) == set(ARCHS)
+    for arch in ARCHS:
         assert (dataclasses.asdict(get_config(arch))
-                == dataclasses.asdict(jax_get_config(arch)))
+                == dataclasses.asdict(jax_get_config(arch))), arch
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-2")
 
