@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Eleven paths are driven: Perona's scoring
+outputs, and time its kernels. Twelve paths are driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
 width (chunkwise mLSTM kernel), Perona's host-loop training and its
@@ -23,7 +23,10 @@ serving at full width (the flash-attention kernel with q/k head dim 192
 and v head dim 128, and at a GQA group of 7), and whisper-small, an
 encoder-decoder, at full width through its model API (the
 flash-attention kernel without a mask in the encoder and the
-cross-attention).
+cross-attention), and LM training: smollm-135m at full width through
+``launch/train.py::main``, Perona ranking the hosts first, a host
+failure and a restart from a checkpoint (the flash-attention forward
+and its backward kernel, and the edge-softmax kernels).
 
     python3 chip_smoke.py
 
@@ -31,7 +34,7 @@ Phases, each printing on lines of its own:
 
 0. the card: name and power limit, torch and CUDA versions;
 1. build: the CUDA kernels from ``src/repro_torch/csrc`` with nvcc, one
-   process per source, all started together;
+   process per source (five), all started together;
 2. the edge-softmax kernel against its plain PyTorch version on the
    card, at the main path's shapes ((H, hd) (4, 8), and the HPO's (2, 16)
    and (8, 4)), ragged N, single heads and fully masked rows;
@@ -263,6 +266,33 @@ Phases, each printing on lines of its own:
    encoder output and both prefills' logits, and the decode steps vs a
    no-cache forward with the same encoder output, in bf16 (1e-1) and
    float32 (1e-4) as relative L2.
+22. LM training: (a) the flash backward kernel (``flash_attention`` under
+   autograd on the card) against the plain version's autograd, dq, dk
+   and dv at |a - b| <= TOL (1 + |b|), the cotangent zeroed at rows with
+   no live key for the plain version: (H, KH) (9, 3)/(16, 2)/(16, 16)/
+   (8, 4), D 16/64/128/256, causal with window 0 and 1024 and without a
+   mask over T = S and T = 1500, S 1/777/4096, f32 and bf16; 576 bf16
+   tile edges (S 31..191 around multiples of 32 and 64, T = S and about
+   S / 2, windows 0/1/65, no mask); 5 launches bit for bit at smollm's
+   training problem; (b) the five small decoders against
+   ``lm_train_small_golden.npz``: their ``TokenPipeline`` batches bit for
+   bit, the loss terms (1e-5), every gradient leaf at each of 3 steps
+   (1e-4 of the leaf's largest) and the port's AdamW under
+   ``cosine_schedule`` fed the JAX gradients (1e-5), the flash launches
+   a step; the full-vocabulary batches (49,152, B 8, S 2048) bit for
+   bit; (c) ``launch.train.main`` on smollm-135m at full width (bf16
+   seed-0 weights, B 8 x S 2048, 30 steps, host-1 failing at step 12, a
+   checkpoint every 10): 31 finite losses falling, one restart, 60
+   forward and 30 backward flash launches a step, every kernel of the
+   path launched; step time (CUDA events), tokens/s, peak memory,
+   ``batch_at``'s time, a profiled step's top entries and idle share;
+   the loss and every gradient leaf through the kernels against the
+   plain versions on one batch, bf16 (1e-1) and float32 (1e-4) relative
+   L2; (d) the backward at smollm's problem (B 8 H 9 KH 3 S 2048 D 64)
+   and at D = 128 (B 1 H 16 KH 2 S 4096), causal: time, bound (2.5x the
+   forward's FLOPs at the bf16 rate; the f32 route at the f32 rate),
+   plain version, SDPA's backward with ``is_causal`` (k/v repeated or
+   ``enable_gqa``, the faster) and the backend nearest its gradients.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -276,6 +306,7 @@ non-zero when no CUDA device is available.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import re
@@ -473,7 +504,8 @@ def phase_build():
     from repro_torch.kernels import build
 
     print("[1] build")
-    built = build.build("edge_softmax", "flash_attention", "rg_lru", "mlstm")
+    built = build.build("edge_softmax", "flash_attention",
+                        "flash_attention_bwd", "rg_lru", "mlstm")
     for name, b in built.items():
         print(f"  {name}: {b.seconds:.2f} s nvcc -> {b.path.name}")
         for line in b.log.splitlines():
@@ -1448,7 +1480,7 @@ def _top_device(prof, n=10):
 
 
 # the port's kernels, as the profiler names them (csrc/*.cu)
-PORT_KERNELS = ("rg_lru_scan_kernel", "flash_fwd", "mlstm_",
+PORT_KERNELS = ("rg_lru_scan_kernel", "flash_fwd", "flash_bwd", "mlstm_",
                 "edge_softmax_fwd", "edge_softmax_bwd")
 
 
@@ -5420,6 +5452,558 @@ def phase_whisper():
     return out
 
 
+# ------------------------------------------- LM training (phase [22])
+# (a) the flash backward kernel against the plain version's autograd:
+# the (H, KH) of the zoo's training shapes at every square head dim, in
+# the four modes of the forward's path (causal without a window and with
+# gemma3's 1024; no mask over T = S and over whisper's 1500 keys)
+FLASH_BWD_HEADS = ((9, 3), (16, 2), (16, 16), (8, 4))
+FLASH_BWD_MODES = ((True, 0, None), (True, 1024, None), (False, 0, None),
+             (False, 0, 1500))
+FLASH_BWD_S = (1, 777, 4096)
+# bf16 tile edges around the backward's tiles (64 query rows, 64 or 32
+# keys), T = S and T about S / 2 (rows with no live key under a window)
+FLASH_BWD_EDGE_S = (31, 32, 33, 63, 64, 65, 127, 129, 191)
+FLASH_BWD_EDGE_MODES = ((True, 0), (True, 1), (True, 65), (False, 0))
+FLASH_BWD_EDGE_HEADS = ((9, 3), (8, 4))
+# the timed problems (B, H, KH, S, D), causal: smollm-135m's training
+# step and the D = 128 problem of phase [19d]
+FLASH_BWD_SMOLLM = (8, 9, 3, 2048, 64)
+FLASH_BWD_D128 = (1, 16, 2, 4096, 128)
+# the backward's FLOPs as a multiple of the forward's (FlashAttention-2's
+# count: dV, dP, dS and dQ, dK products, five matmuls to the forward's
+# two), for its bound
+FLASH_BWD_FLOP_RATIO = 2.5
+# (b) card vs the JAX package's CPU outputs, float32 on both sides: the
+# loss terms relative (absolute below 1), every gradient leaf as max
+# |a - b| over max |b|, the parameters after the golden's AdamW steps
+LM_LOSS_RTOL = 1e-5
+LM_GRAD_RTOL = 1e-4
+LM_PARAMS_ATOL = 1e-5
+# (c) smollm-135m at full width through launch/train.py::main: 30 steps
+# of B 8 x S 2048, a failure of host-1 at step 12, a checkpoint every 10
+LM_TRAIN_CKPT = ROOT / "build" / "chip_lm_ckpt"
+LM_TRAIN_ARGV = ["--arch", "smollm-135m", "--scale", "full", "--steps", "30",
+                 "--batch", "8", "--seq", "2048", "--fail-at", "12",
+                 "--checkpoint-every", "10", "--ckpt-dir",
+                 str(LM_TRAIN_CKPT)]
+LM_TRAIN_LOSSES, LM_TRAIN_FAIL = 31, 12  # 30 steps, step 11 run twice
+LM_TRAIN_LAYERS = 30  # smollm-135m's attention layers
+
+
+def live_rows(S, T, causal, window, device="cuda"):
+    """(S,) bool: the query rows with a live key. A row's nearest key is
+    min(i, T - 1) under the causal mask and T - 1 without it; with a
+    window it is live when i - that key < window."""
+    import torch
+
+    i = torch.arange(S, device=device)
+    if window <= 0:
+        return torch.ones(S, dtype=torch.bool, device=device)
+    nearest = torch.clamp(i, max=T - 1) if causal else torch.full_like(
+        i, T - 1)
+    return i - nearest < window
+
+
+def flash_bwd_errors(q, k, v, dout, causal, window):
+    """The backward kernel's gradients (through ``flash_attention`` under
+    autograd on the card) against the plain version's autograd with the
+    cotangent zeroed at rows with no live key (the kernels give 0 there,
+    the plain version the mean of v, whose gradient the kernels do not
+    have): (max |a - b| / (1 + |b|), max |a - b|) over dq, dk and dv; the
+    first is the reference's kernel check, ``atol = rtol = TOL``."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    live = live_rows(q.shape[1], k.shape[1], causal, window)
+    mode = dict(causal=causal, window=window)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa_ops.flash_attention(*leaves, **mode),
+                              leaves, dout)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(_plain_flash(*leaves, **mode), leaves,
+                               dout * live[None, :, None, None].to(dout.dtype))
+    scaled = absolute = 0.0
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              "flash backward shapes and type")
+        diff = (a.float() - b.float()).abs()
+        scaled = max(scaled, float((diff / (1 + b.float().abs())).max()))
+        absolute = max(absolute, float(diff.max()))
+    return scaled, absolute
+
+
+def phase_lm_train_kernel():
+    """(a) The backward kernel against the plain version on the card."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+
+    def case(dtype, B, H, KH, S, T, D, causal, W):
+        q, k, v = _flash_inputs(g, B, H, KH, S, D, dtype, None, T)
+        dout = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+        return flash_bwd_errors(q, k, v, dout, causal, W)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol, largest, n = TOL[name], 0.0, 0
+        for (H, KH), D, (causal, W, T), S in itertools.product(
+                FLASH_BWD_HEADS, fa_ops.HEAD_DIMS, FLASH_BWD_MODES, FLASH_BWD_S):
+            T = S if T is None else T
+            err, _ = case(dtype, 1, H, KH, S, T, D, causal, W)
+            label = (f"H={H} KH={KH} D={D} S={S} T={T} "
+                     f"{'causal' if causal else 'non-causal'} window={W} "
+                     f"{name}")
+            check(err <= tol, f"flash backward vs plain, {label}: {err}")
+            largest, n = max(largest, err), n + 1
+        worst[name] = largest
+        print(f"  flash backward {name}: {n} cases ((H, KH) {FLASH_BWD_HEADS}, D "
+              f"{fa_ops.HEAD_DIMS}, (causal, window, T) {FLASH_BWD_MODES}, S "
+              f"{FLASH_BWD_S}), largest |a - b| / (1 + |b|) over dq, dk, dv "
+              f"{largest:.3e} (tol {tol:g}) ok")
+        torch.cuda.empty_cache()
+    tol, largest, n, dead = TOL["bfloat16"], 0.0, 0, 0
+    for S, half, (causal, W), (H, KH), D in itertools.product(
+            FLASH_BWD_EDGE_S, (False, True), FLASH_BWD_EDGE_MODES, FLASH_BWD_EDGE_HEADS,
+            fa_ops.HEAD_DIMS):
+        T = (S + 1) // 2 if half else S
+        err, _ = case(torch.bfloat16, 1, H, KH, S, T, D, causal, W)
+        label = (f"S={S} T={T} window={W} H={H} KH={KH} D={D} "
+                 f"{'causal' if causal else 'non-causal'} bfloat16")
+        check(err <= tol, f"flash backward vs plain, {label}: {err}")
+        largest, n = max(largest, err), n + 1
+        dead += int((~live_rows(S, T, causal, W)).sum())
+    worst["edges"] = largest
+    print(f"  flash backward bfloat16 tile edges: {n} cases (S "
+          f"{FLASH_BWD_EDGE_S}, T = S and (S + 1) // 2, (causal, window) "
+          f"{FLASH_BWD_EDGE_MODES}, (H, KH) {FLASH_BWD_EDGE_HEADS}, D "
+          f"{fa_ops.HEAD_DIMS}), largest {largest:.3e} (tol {tol:g}) ok; "
+          f"{dead} rows with no live key give no gradient")
+    B, H, KH, S, D = FLASH_BWD_SMOLLM
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
+    dout = torch.randn(B, S, H, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        out = fa_ops.flash_attention(q, k, v)
+    first = fa_ops.flash_attention_bwd(q, k, v, out, dout)
+    for _ in range(4):
+        again = fa_ops.flash_attention_bwd(q, k, v, out, dout)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              "the flash backward is deterministic")
+    worst["main"], worst["main_abs"] = flash_bwd_errors(q, k, v, dout, True,
+                                                        0)
+    print(f"  flash backward at smollm-135m's training problem (B={B} H={H}"
+          f" KH={KH} S={S} D={D} causal bfloat16): 5 launches equal bit for "
+          f"bit; vs plain {worst['main']:.3e} (max abs err "
+          f"{worst['main_abs']:.3e})")
+    del q, k, v, dout, out, first, again
+    torch.cuda.empty_cache()
+    return worst
+
+
+def lm_train_golden_errors(golden, device="cuda"):
+    """(b) One small decoder of ``lm_train_small_golden.npz`` on
+    ``device``, over the golden's AdamW steps under ``cosine_schedule``:
+    its pipeline's batches equal the golden's bit for bit; the loss terms
+    on the first (LM_LOSS_RTOL); at each step every gradient leaf
+    (LM_GRAD_RTOL of the leaf's largest); and the port's AdamW, fed the
+    JAX gradients of each step, gives the golden's parameters at
+    LM_PARAMS_ATOL. The gradients are taken along that trajectory, which
+    stays within float32 rounding of the reference's: on its own
+    gradients the port's parameters drift from the reference's where |g|
+    is near 0 (Adam moves an element by about lr * m_hat / sqrt(v_hat),
+    whose direction there turns on errors far below the gradient
+    check's), and the later gradients with them. Returns the errors and
+    the flash launches of the first step."""
+    import numpy as np
+
+    from repro_torch.common.tree import flatten, unflatten_as
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.models.params import cast_params
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    cfg = golden.config
+    model = build_model(cfg)
+    params = cast_params(golden.params, cfg, device)
+    a = golden.adamw
+    opt = AdamW(lr=cosine_schedule(a["peak"], int(a["warmup"]),
+                                   int(a["steps"])))
+    st = opt.init(params)
+    steps, B, S = golden.tokens.shape
+    pipe = TokenPipeline(cfg.vocab_size, S, B, seed=0, device=device)
+    out = {"loss": 0.0, "grads": 0.0}
+    for i in range(steps):
+        batch = pipe.batch_at(i)
+        for key in ("tokens", "labels"):
+            check(np.array_equal(batch[key].cpu().numpy(),
+                                 getattr(golden, key)[i]),
+                  f"{cfg.name}: batch_at({i}) {key} equals the golden's")
+        fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+        (loss, met), grads = value_and_grad(model.loss, params, batch)
+        if i == 0:
+            out["launches"] = {"forward": fa_ops.LAUNCHES,
+                               "backward": fa_ops.BWD_LAUNCHES}
+            for name, got in (("loss", loss), ("ce", met["ce"]),
+                              ("aux", met["aux"])):
+                want = getattr(golden, name)
+                err = abs(float(got) - want) / max(abs(want), 1.0)
+                check(err <= LM_LOSS_RTOL, f"{cfg.name}: {name} {float(got)}"
+                                           f" vs the golden's {want}")
+                out["loss"] = max(out["loss"], err)
+        want = {k: w.to(device) for k, w in flatten(golden.grads[i]).items()}
+        got = flatten(grads)
+        check(set(got) == set(want), f"{cfg.name}: the gradient tree")
+        for key, w in want.items():
+            err = float((got[key] - w).abs().max()
+                        / w.abs().max().clamp_min(1e-30))
+            check(err <= LM_GRAD_RTOL, f"{cfg.name}: step {i} grad {key} "
+                                       f"{err}")
+            out["grads"] = max(out["grads"], err)
+        params, st, _ = opt.update(unflatten_as(params, want), st, params)
+    got = flatten(params)
+    out["params"] = max(float((got[k] - w.to(device)).abs().max())
+                        for k, w in flatten(golden.params_after).items())
+    check(out["params"] <= LM_PARAMS_ATOL,
+          f"{cfg.name}: parameters after {steps} AdamW steps on the JAX "
+          f"gradients: {out['params']}")
+    return out
+
+
+def phase_lm_train_golden():
+    from repro_torch.models.params import (load_lm_train_golden,
+                                           load_pipeline_golden)
+
+    out = {}
+    for arch in ZOO_ARCHS:
+        golden = load_lm_train_golden(arch)
+        t0 = time.perf_counter()
+        e = out[arch] = lm_train_golden_errors(golden)
+        print(f"  small {arch}: loss terms {e['loss']:.2e} (rtol "
+              f"{LM_LOSS_RTOL:g}), gradients {e['grads']:.2e} (rtol "
+              f"{LM_GRAD_RTOL:g}, every step), parameters after "
+              f"{golden.tokens.shape[0]} AdamW steps on the JAX gradients "
+              f"{e['params']:.2e} (atol {LM_PARAMS_ATOL:g}); flash launches a "
+              f"step: {e['launches']['forward']} forward, "
+              f"{e['launches']['backward']} backward; "
+              f"{time.perf_counter() - t0:.1f} s")
+    import numpy as np
+
+    from repro_torch.data.tokens import TokenPipeline
+
+    g = load_pipeline_golden()
+    pipe = TokenPipeline(g["vocab"], g["seq"], g["batch"], seed=0)
+    for i, step in enumerate(g["steps"]):
+        batch = pipe.batch_at(step)
+        for key in ("tokens", "labels"):
+            check(np.array_equal(batch[key].cpu().numpy(), g[key][i]),
+                  f"batch_at({step}) {key} at vocab {g['vocab']} equals the "
+                  f"JAX pipeline's")
+    print(f"  TokenPipeline({g['vocab']}, {g['seq']}, {g['batch']}) on the "
+          f"card: batch_at({g['steps']}) equal to the JAX pipeline's bit for "
+          f"bit")
+    return out
+
+
+def _grad_distances(model, params, batch, tol, label):
+    """Loss and gradients through the kernels and through the plain
+    versions on one batch: relative distance of the losses and the
+    largest relative L2 distance of a gradient leaf."""
+    import torch
+
+    from repro_torch.common.tree import flatten
+    from repro_torch.launch.steps import value_and_grad
+
+    (lk, _), gk = value_and_grad(model.loss, params, batch)
+    with plain_versions():
+        (lp, _), gp = value_and_grad(model.loss, params, batch)
+    gk, gp = flatten(gk), flatten(gp)
+    worst, leaf = 0.0, None
+    for key in gp:
+        d = float(torch.linalg.vector_norm((gk[key] - gp[key]).float())
+                  / torch.linalg.vector_norm(gp[key].float()).clamp_min(
+                      1e-30))
+        if d > worst:
+            worst, leaf = d, key
+    loss = abs(float(lk) - float(lp)) / abs(float(lp))
+    print(f"  {label}: loss {float(lk):.5f} (kernels) vs {float(lp):.5f} "
+          f"(plain), relative {loss:.2e}; largest gradient relative L2 "
+          f"{worst:.2e} ({leaf}) (tol {tol:g})")
+    check(loss <= tol and worst <= tol, f"{label}: kernels vs plain")
+    return {"loss": loss, "grads": worst, "leaf": leaf}
+
+
+def phase_lm_train_full():
+    """(c) smollm-135m at full width through ``launch.train.main``."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.common.tree import tree_cast
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels.edge_softmax import ops as es_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    shutil.rmtree(LM_TRAIN_CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    es_ops.LAUNCHES = es_ops.BWD_LAUNCHES = 0  # the main path starts here
+    fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    result = train.main(LM_TRAIN_ARGV)
+    seconds = time.perf_counter() - t0
+    launches = {"edge_softmax_fwd": es_ops.LAUNCHES,
+                "edge_softmax_bwd": es_ops.BWD_LAUNCHES,
+                "flash_fwd": fa_ops.LAUNCHES,
+                "flash_bwd": fa_ops.BWD_LAUNCHES}  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = result["losses"]
+    check(all(v > 0 for v in launches.values()),
+          f"the training path launched every kernel of its path: {launches}")
+    check(len(losses) == LM_TRAIN_LOSSES and result["restarts"] == 1,
+          f"{len(losses)} losses, {result['restarts']} restarts")
+    check(result["final_hosts"] == ["host-0", "host-2", "host-3"],
+          f"hosts after the failure: {result['final_hosts']}")
+    check([(e.step, e.kind, e.detail) for e in result["events"]]
+          == [(LM_TRAIN_FAIL, "failure", "host-1")],
+          f"events: {result['events']}")
+    check(bool(np.all(np.isfinite(losses))), "every loss is finite")
+    check(float(np.mean(losses[-5:])) < losses[0],
+          f"the loss falls: {losses[0]} -> {np.mean(losses[-5:])}")
+    per_step = {k: launches[k] / len(losses)
+                for k in ("flash_fwd", "flash_bwd")}
+    # the forward once and again under remat, the backward once, a layer
+    check(per_step == {"flash_fwd": 2 * LM_TRAIN_LAYERS,
+                       "flash_bwd": LM_TRAIN_LAYERS},
+          f"flash launches a step: {per_step}")
+    step_ms = result["step_ms"]
+    median = statistics.median(step_ms[3:])
+    B, S = 8, 2048
+    out = {"seconds": seconds, "losses": losses, "launches": launches,
+           "launches_per_step": per_step, "step_ms": step_ms,
+           "median_step_ms": median, "tokens_per_s": B * S / median * 1e3,
+           "peak_memory_gb": peak / 1e9,
+           "events": [(e.step, e.kind, e.detail) for e in result["events"]]}
+    print(f"  launch.train.main({' '.join(LM_TRAIN_ARGV)}): {seconds:.1f} s;"
+          f" {len(losses)} losses, {losses[0]:.4f} -> mean of the last five "
+          f"{np.mean(losses[-5:]):.4f}; restarts {result['restarts']}; "
+          f"events {out['events']}; hosts {result['final_hosts']}")
+    print(f"  step time (CUDA events, median of the {len(step_ms) - 3} steps "
+          f"after the first three) {median:.2f} ms, {out['tokens_per_s']:.0f}"
+          f" tokens/s; peak memory {out['peak_memory_gb']:.2f} GB; launches "
+          f"{launches}, flash a step {per_step}")
+    cfg = get_config("smollm-135m")
+    model = build_model(cfg)
+    pipe = TokenPipeline(cfg.vocab_size, S, B, seed=0)
+    times = []
+    for step in range(12):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = pipe.batch_at(step)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    out["batch_at_ms"] = statistics.median(times[2:])
+    print(f"  TokenPipeline.batch_at at B={B} S={S} on the card: "
+          f"{out['batch_at_ms']:.3f} ms (host clock ending in a "
+          f"synchronize, median of 10 after 2)")
+
+    state = result.pop("state")
+    params = state["params"]
+    step = train.make_step(model, AdamW(lr=cosine_schedule(3e-4, 10, 30)))
+    step(params, state["opt"], batch)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        new = step(params, state["opt"], batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    del new, state
+    device_us, top = _top_device(prof)
+    port = _port_device(prof)
+    out["profile"] = {
+        "wall_s": wall, "device_s": device_us / 1e6,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "top": [{"name": k[:90], "us": us, "count": c} for us, c, k in top],
+        "port_kernels": {k: {"us": us, "count": c}
+                         for k, (us, c) in port.items()}}
+    print(f"  profiled step: {wall * 1e3:.1f} ms wall, {device_us / 1e3:.1f} "
+          f"ms of device activity, idle share "
+          f"{out['profile']['device_idle_share']:.4f}; the port's kernels: "
+          + ", ".join(f"{k} {us / 1e3:.3f} ms x{c} ({us / device_us:.2%})"
+                      for k, (us, c) in port.items()) + "; top device "
+          "entries:")
+    for us, c, k in top:
+        print(f"    {us:10.1f} us x{c:4d}  {k[:90]}")
+    torch.cuda.empty_cache()
+    out["vs_plain"] = {"bfloat16": _grad_distances(
+        model, params, batch, FULL_BF16_REL_TOL,
+        "full width bf16, kernels vs plain versions")}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = tree_cast(params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    out["vs_plain"]["float32"] = _grad_distances(
+        build_model(cfg32), params32, batch, FULL_F32_REL_TOL,
+        "full width float32 (the bf16 weights widened), kernels vs plain "
+        "versions")
+    del params32, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_bwd(g, B, H, KH, S, D):
+    """(d) The backward kernel at one causal problem in bf16 and float32,
+    the plain version's autograd, SDPA's backward (the faster of k/v
+    repeated to the query heads and ``enable_gqa=True``, and which of its
+    backends ran), and the bounds: FLASH_BWD_FLOP_RATIO x the forward's FLOPs at
+    the bf16 tensor-core rate (the float32 route at the float32 rate), or
+    q, k, v, the output and its cotangent read once and the three
+    gradients written once."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
+    dout = torch.randn(B, S, H, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        out = fa_ops.flash_attention(q, k, v)
+        ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, dout),
+                     10)
+        qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+        outf = fa_ops.flash_attention(qf, kf, vf)
+        f32_ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(
+            qf, kf, vf, outf, df), 3)
+    del qf, kf, vf, df, outf
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain_out = _plain_flash(*leaves)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        plain_out, leaves, dout, retain_graph=True), 3)
+    del plain_out, leaves
+    torch.cuda.empty_cache()
+
+    def sdpa_grads(gqa, backend=None):
+        qs = q.transpose(1, 2).contiguous().requires_grad_()
+        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+        if not gqa:
+            ks, vs = (t.repeat_interleave(H // KH, dim=1) for t in (ks, vs))
+        ks, vs = ks.requires_grad_(), vs.requires_grad_()
+
+        def ctx():
+            return (sdpa_kernel(backend) if backend
+                    else contextlib.nullcontext())
+
+        with ctx():
+            o = F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True,
+                **({"enable_gqa": True} if gqa else {}))
+        do = dout.transpose(1, 2).contiguous()
+
+        def grads():
+            with ctx():
+                return torch.autograd.grad(o, (qs, ks, vs), do,
+                                           retain_graph=True)
+        return grads
+
+    library_times = {"repeated": cuda_ms(sdpa_grads(False), 5),
+                     "enable_gqa": cuda_ms(sdpa_grads(True), 5)}
+    library_call = min(library_times, key=library_times.get)
+    gqa = library_call == "enable_gqa"
+    # which backend the default call ran: the one whose gradients lie
+    # nearest the default call's (its backward is not bit-reproducible
+    # from call to call, so no backend equals it bit for bit)
+    default = sdpa_grads(gqa)()
+    backends = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                fn = sdpa_grads(gqa, backend)
+                dist = max(float((a.float() - b.float()).abs().max())
+                           for a, b in zip(fn(), default))
+                backends[backend.name] = (cuda_ms(fn, 3), dist)
+            except RuntimeError:
+                backends[backend.name] = (None, None)
+    ran = min((name for name, (_, d) in backends.items() if d is not None),
+              key=lambda name: backends[name][1])
+    del default
+    pairs = S * (S + 1) // 2
+    fwd_flops = 2 * (D + D) * pairs * H * B
+    flops = FLASH_BWD_FLOP_RATIO * fwd_flops
+    # q, out, dout read and dq written; k, v read and dk, dv written
+    nbytes = 3 * q.nbytes + 2 * (k.nbytes + v.nbytes) + dout.nbytes
+    t_ops, t_bytes = (flops / BF16_FLOP_PER_S * 1e3,
+                      nbytes / HBM_BYTES_PER_S * 1e3)
+    row = {"shape": f"B={B} H={H} KH={KH} S={S} D={D} causal bfloat16",
+           "ms": ms, "plain_ms": plain_ms, "library_ms":
+           library_times[library_call],
+           "library_call": f"is_causal, {library_call}",
+           "library_times_ms": library_times, "sdpa_backends_ms": {
+               k: t for k, (t, _) in backends.items()},
+           "sdpa_backend_distance": {k: d for k, (_, d) in backends.items()},
+           "sdpa_backend": ran, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes,
+           "tflop_per_s": flops / ms / 1e9, "f32_ms": f32_ms,
+           "f32_bound_ms": f32_bound_ms(flops, 2 * nbytes)}
+    print(f"  flash backward {row['shape']}: kernel {ms:.4f} ms "
+          f"({row['tflop_per_s']:.1f} TFLOP/s at {FLASH_BWD_FLOP_RATIO:g} x the "
+          f"forward's {fwd_flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, "
+          f"SDPA backward {row['library_ms']:.4f} ms ({row['library_call']}"
+          f": {library_times}; nearest the default call's gradients: {ran}, "
+          f"max |difference| by backend {row['sdpa_backend_distance']}; "
+          f"each backend alone, ms: {row['sdpa_backends_ms']}), bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.1f} "
+          f"GFLOP, {nbytes / 1e6:.1f} MB); the float32 route {f32_ms:.4f} "
+          f"ms against its own bound {row['f32_bound_ms']:.4f} ms")
+    del q, k, v, dout, out
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_lm_train():
+    import torch
+
+    print("[22] LM training: the flash backward kernel vs the plain "
+          "version's autograd, the five small decoders' loss, gradients and "
+          "AdamW steps vs the JAX package's (lm_train_small_golden.npz), "
+          "smollm-135m at full width through launch.train.main (B 8 x S "
+          "2048, 30 steps, a failure at step 12), and the backward's time")
+    out = {}
+    t0 = time.perf_counter()
+    out["kernel_errors"] = phase_lm_train_kernel()
+    print(f"    -- (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["golden"] = phase_lm_train_golden()
+    print(f"    -- (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["full"] = phase_lm_train_full()
+    print(f"    -- (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out["timing"] = {"smollm": time_flash_bwd(g, *FLASH_BWD_SMOLLM),
+                     "d128": time_flash_bwd(g, *FLASH_BWD_D128)}
+    print(f"    -- (d) {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5563,6 +6147,10 @@ def main() -> int:
     # and reads it after
     whisper = timed("whisper-small", seconds, phase_whisper)
     wk = whisper["kernel_errors"]
+    # LM training: its main path, launch.train.main at full width, sets
+    # the counts of its kernels to 0 before it and reads them after
+    lm_train = timed("LM training", seconds, phase_lm_train)
+    bwd = lm_train["timing"]["smollm"]
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -5691,6 +6279,26 @@ def main() -> int:
         "launches_fleet_tier": fleet_launches["backward"],
         "launches_model_plane": plane_launches["backward"],
         "launches_search": search_launches["backward"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/ops.py:42",
+        "launches": lm_train["full"]["launches"]["flash_bwd"],
+        "max_abs_err": lm_train["kernel_errors"]["main_abs"],
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "shape": bwd["shape"],
+        "library_call": bwd["library_call"],
+        "sdpa_backend": bwd["sdpa_backend"],
+        "f32_ms": bwd["f32_ms"],
+        "f32_bound_ms": bwd["f32_bound_ms"],
+        "d128": lm_train["timing"]["d128"],
+        "errors": lm_train["kernel_errors"],
+        "launches_per_step": lm_train["full"]["launches_per_step"],
     }]
     card = card_line()
     REPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -5713,9 +6321,10 @@ def main() -> int:
         "fleet_tier": {**fleet_tier, "launches": fleet_launches},
         "model_plane": {**model_plane, "launches": plane_launches},
         "search": {**search, "launches": search_launches},
-        "lm_zoo": zoo, "mla_mrope": mla, "whisper": whisper},
+        "lm_zoo": zoo, "mla_mrope": mla, "whisper": whisper,
+        "lm_training": lm_train},
         indent=1, default=str))
-    print(f"[22] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[23] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

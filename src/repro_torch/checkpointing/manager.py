@@ -5,7 +5,10 @@ reference's file format, so a checkpoint written by either package
 restores in the other: one ``step_<n>.npz`` per checkpoint holding
 every leaf under its slash-joined path (``{"enc.0.w": t}``, a
 ``PeronaModel`` ``state_dict``, is stored as ``enc/0/w``, as is the
-reference tree's ``{"enc": [{"w": ...}]}``), plus ``meta_<n>.json``; a
+reference tree's ``{"enc": [{"w": ...}]}``; a field of a dataclass,
+the LM training state's ``OptState``, as ``.m`` after its parent, as
+JAX names a registered dataclass's field: ``opt/.m/embed/table``), plus
+``meta_<n>.json``; a
 ``LATEST`` file is swapped in atomically after a successful write, so a
 crash mid-save never corrupts the restore point.
 
@@ -21,6 +24,7 @@ tensor's device and dtype (what the reference's ``jnp.asarray`` plus
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import queue
@@ -31,7 +35,38 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.params import flat_params, unflatten
+
+
+def _leaves(tree, path: str = ""):
+    """(slash-joined path, leaf) of every leaf, in the reference's file
+    names: a dict key's dots become slashes, a list item is its index, a
+    dataclass field is ``.<name>``."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = ((f".{f.name}", getattr(tree, f.name))
+                 for f in dataclasses.fields(tree))
+    elif isinstance(tree, dict):
+        items = ((k.replace(".", "/"), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        yield path, torch.as_tensor(tree)
+        return
+    for k, v in items:
+        yield from _leaves(v, f"{path}/{k}" if path else k)
+
+
+def _rebuild(template, leaves):
+    """``template``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    if dataclasses.is_dataclass(template) and not isinstance(template, type):
+        return dataclasses.replace(template, **{
+            f.name: _rebuild(getattr(template, f.name), leaves)
+            for f in dataclasses.fields(template)})
+    if isinstance(template, dict):
+        return {k: _rebuild(v, leaves) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return [_rebuild(v, leaves) for v in template]
+    return next(leaves)
 
 
 def _host_copy(leaf) -> np.ndarray:
@@ -72,8 +107,7 @@ class CheckpointManager:
         self._raise_pending()
         # a copy: a CPU tensor's numpy() would share its memory; a CUDA
         # tensor's copy has finished when .to returns
-        host = {name.replace(".", "/"): _host_copy(leaf)
-                for name, leaf in flat_params(tree).items()}
+        host = {name: _host_copy(leaf) for name, leaf in _leaves(tree)}
         payload = (step, host, dict(extra or {}))
         if self.async_save:
             self._ensure_worker()
@@ -154,27 +188,20 @@ class CheckpointManager:
         return step if (self.dir / f"step_{step}.npz").exists() else None
 
     def restore(self, template: Any, step: Optional[int] = None):
-        """Restore the leaves of ``template`` (a tree of tensors), each
-        on its template tensor's device and dtype: a flat dict of
-        tensors (a ``state_dict``) comes back with its keys, any other
-        tree as the nested dicts and lists of
-        :func:`~repro_torch.core.params.unflatten`. Returns ``(tree,
-        meta)``, or ``(None, None)`` when there is no checkpoint."""
+        """Restore the leaves of ``template`` (a tree of tensors: dicts,
+        lists and dataclasses), each on its template tensor's device and
+        dtype, in the template's structure (a ``state_dict`` comes back
+        with its keys). Returns ``(tree, meta)``, or ``(None, None)``
+        when there is no checkpoint."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
         with np.load(self.dir / f"step_{step}.npz",
                      allow_pickle=False) as data:
-            flat = {name: torch.from_numpy(
-                        data[name.replace(".", "/")]).to(
-                            device=leaf.device, dtype=leaf.dtype)
-                    for name, leaf in flat_params(template).items()}
-        if isinstance(template, dict) and all(
-                torch.is_tensor(v) for v in template.values()):
-            tree = flat
-        else:
-            tree = unflatten({k.replace(".", "/"): v
-                              for k, v in flat.items()})
+            leaves = [torch.from_numpy(data[name]).to(device=leaf.device,
+                                                      dtype=leaf.dtype)
+                      for name, leaf in _leaves(template)]
+        tree = _rebuild(template, iter(leaves))
         meta_path = self.dir / f"meta_{step}.json"
         extra = (json.loads(meta_path.read_text())["extra"]
                  if meta_path.exists() else {})

@@ -15,7 +15,9 @@ The device half works on int64 tensors that hold uint32 words (masked
 to ``0xFFFFFFFF``; torch's ``uint32`` has no arithmetic). A key is a
 ``(..., 2)`` tensor of words. :func:`threefry2x32`, :func:`fold_in`,
 :func:`random_bits` (JAX's partitionable layout,
-``jax_threefry_partitionable=True``) and the float64 :func:`uniform`
+``jax_threefry_partitionable=True``), :func:`split`, the 32-bit words of
+:func:`random_bits32`, the int32 :func:`randint`, the float64
+:func:`uniform`, the float32 :func:`uniform32` and :func:`bernoulli`
 equal JAX's bit for bit. :func:`normal` is JAX's ``sqrt(2) *
 erf_inv(u)``: :func:`erfinv` is Giles' double-precision polynomial
 with every Horner step an exact fused multiply-add (:func:`fma`,
@@ -141,6 +143,58 @@ def uniform(key: torch.Tensor, shape=(), minval=0.0,
     lo_t = torch.full((), minval, dtype=torch.float64, device=key.device)
     hi_t = torch.full((), maxval, dtype=torch.float64, device=key.device)
     return torch.maximum(lo_t, floats * (hi_t - lo_t) + lo_t)
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, n)`` of one ``(2,)`` key: ``(n, 2)`` keys,
+    key i the hash of the count ``(i >> 32, i & 0xFFFFFFFF)``, both words
+    (the partitionable layout's fold-like split)."""
+    hi, lo = random_bits(key, (n,))
+    return torch.stack([hi, lo], dim=-1)
+
+
+def random_bits32(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """32 random bits a draw (JAX's ``random_bits(key, 32, shape)`` in
+    the partitionable layout): the xor of the two words of draw n's
+    hash, as int64 words in ``[0, 2**32)``."""
+    hi, lo = random_bits(key, shape)
+    return hi ^ lo
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """int32 draws in ``[minval, maxval)`` (JAX's ``_randint`` for
+    int32): two sets of 32-bit words from ``split(key)``, folded as
+    ``(hi % span * (2**32 % span) + lo % span) % span`` in uint32
+    arithmetic (wrapping), plus ``minval``; ``span`` is 1 when
+    ``maxval <= minval``."""
+    minval, maxval = int(minval), int(maxval)
+    if not -2 ** 31 <= minval <= maxval < 2 ** 31 and maxval > minval:
+        raise ValueError(f"randint takes int32 bounds, got [{minval}, "
+                         f"{maxval})")
+    span = maxval - minval if maxval > minval else 1
+    k1, k2 = split(key)
+    higher, lower = random_bits32(k1, shape), random_bits32(k2, shape)
+    multiplier = ((2 ** 16 % span) ** 2 & _MASK) % span
+    offset = (((higher % span) * multiplier) & _MASK) + lower % span
+    offset = (offset & _MASK) % span
+    out = (offset + minval) & _MASK
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
+
+
+def uniform32(key: torch.Tensor, shape=()) -> torch.Tensor:
+    """float32 uniforms in ``[0, 1)`` (JAX's ``_uniform`` for float32):
+    the high 23 of 32 bits as the mantissa of a float in [1, 2), minus
+    1."""
+    bits = (random_bits32(key, shape) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(key: torch.Tensor, p: float, shape=()) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a python float ``p``
+    (float32): a float32 uniform below ``float32(p)``."""
+    return uniform32(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                                 device=key.device)
 
 
 # error-free transforms: an FMA rounded once, on any device

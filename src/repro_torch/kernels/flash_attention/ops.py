@@ -1,4 +1,4 @@
-"""Public wrapper of the flash-attention forward.
+"""Public wrapper of the flash-attention forward and backward.
 
 :func:`flash_attention` takes the model's layout, q ``(B, S, H, D)``, k
 ``(B, T, KH, D)`` and v ``(B, T, KH, DV)``, as the reference's ``ops``
@@ -25,9 +25,20 @@ tensor cores' swizzled tiles do not take: a bfloat16 call at that pair
 raises ``ValueError``), and one batch row of q, k or v below 2**31
 elements. Neither stands in for the other. A row with no live key (only
 when T < S with a window) gives 0 from both kernels; the plain version, as
-the reference's ``ref``, gives the mean of v over all keys there. The
-forward is not differentiable on CUDA yet: a call that would need a
-gradient raises.
+the reference's ``ref``, gives the mean of v over all keys there.
+
+On CUDA the call is differentiable through a ``torch.autograd.Function``
+whose forward launches the forward kernel and saves q, k, v and the
+output, and whose backward launches the hand-written backward of
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`: a pre-pass
+for the log-sum-exp and ``rowsum(dO * O)``, then dK/dV and dQ, float32
+arithmetic on the CUDA cores for both input types). The backward takes
+the square head dims of ``HEAD_DIMS`` (``BWD_PAIRS``) with every mode of
+the forward: a call that needs a gradient at another pair (MLA's
+(192, 128), the small DeepSeek's (24, 16)) raises ``ValueError`` before
+any launch. Its gradient at a row with no live key is 0, as the kernels'
+output there. On the CPU the plain version runs under autograd.
+``BWD_LAUNCHES`` counts backward calls (three kernel launches each).
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from repro_torch.kernels.flash_attention import ref
 
 #: Kernel launches so far (a plain count; callers reset it to 0).
 LAUNCHES = 0
+#: Backward calls so far, three kernel launches each (a plain count).
+BWD_LAUNCHES = 0
 
 #: The square head dims (D = DV) both routes take.
 HEAD_DIMS = (16, 64, 128, 256)
@@ -52,8 +65,11 @@ PAIRS = {"tensor_core": tuple((d, d) for d in HEAD_DIMS) + ((192, 128),),
          "cuda_core": tuple((d, d) for d in HEAD_DIMS)
          + ((192, 128), (24, 16))}
 DTYPES = (torch.float32, torch.bfloat16)
+#: (D, DV) pairs the backward takes, on both input types.
+BWD_PAIRS = tuple((d, d) for d in HEAD_DIMS)
 
 _FN = None
+_BWD = None
 
 
 def route(dtype: torch.dtype, D: int, DV: int | None = None) -> str:
@@ -144,8 +160,7 @@ def _check(q, k, v, window):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the CUDA flash-attention kernel has no backward "
-                           "yet: call it under torch.no_grad()")
+        _check_bwd_pair(q, v)
 
 
 def _launch(q, k, v, causal, window, scale):
@@ -170,6 +185,88 @@ def _launch(q, k, v, causal, window, scale):
     return out
 
 
+def _bwd_kernel():
+    global _BWD
+    if _BWD is None:
+        lib = build.load("flash_attention_bwd")
+        fn = lib.flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _BWD = (fn, lib.flash_attention_bwd_error_string)
+    return _BWD
+
+
+def _check_bwd_pair(q, v):
+    pair = (q.shape[-1], v.shape[-1])
+    if pair not in BWD_PAIRS:
+        raise ValueError(f"the flash-attention kernel has no backward at "
+                         f"(D, DV) = {pair} (it takes {BWD_PAIRS}); a "
+                         f"gradient at this pair comes with a later slice")
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+                        window: int = 0, scale: float | None = None):
+    """(dq, dk, dv) of :func:`flash_attention` for CUDA tensors in the
+    model's layout, given its output ``out`` for these q, k, v and the
+    output's cotangent ``dout`` (B, S, H, D): the backward kernels of
+    ``csrc/flash_attention_bwd.cu``, launched on the current stream,
+    gradients in q's type."""
+    global BWD_LAUNCHES
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    _check(q, k, v, window)
+    _check_bwd_pair(q, v)
+    dout = dout.contiguous()
+    for name, t in (("out", out), ("dout", dout)):
+        if (t.shape != q.shape[:3] + v.shape[3:] or t.dtype != q.dtype
+                or t.device != q.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{tuple(q.shape)} tensor like q, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    B, S, H, D = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B == 0 or S == 0:
+        return dq, dk.zero_(), dv.zero_()
+    scratch = torch.empty(2 * B * H * S, dtype=torch.float32,
+                          device=q.device)
+    fn, error_string = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                scratch.data_ptr(), B, H, KH, S, T, D, int(causal),
+                int(window), float(scale), int(q.dtype == torch.bfloat16),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: "
+                           f"{error_string(rc).decode()} ({rc})")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out = _launch(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mode = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale = ctx.mode
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                         window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: float | None = None):
     """q: (B, S, H, D); k: (B, T, KH, D); v: (B, T, KH, DV) with
@@ -184,4 +281,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not "
                          f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _check(q, k, v, window)  # a pair the backward takes, before a launch
+        return _Flash.apply(q, k, v, causal, window, scale)
     return _launch(q, k, v, causal, window, scale)

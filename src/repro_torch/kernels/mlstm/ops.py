@@ -21,7 +21,9 @@ wrapper pads nothing. The kernel takes chunks of at most 256 rows and
 head dims that are multiples of 32 up to 1024. Fresh state only: no
 path of the port passes a carried state (the reference sends one to its
 oracle), so ``state=`` raises. The forward is not differentiable on
-CUDA yet: a call that would need a gradient raises.
+CUDA yet: a call that would need a gradient raises ``ValueError``
+naming its ROADMAP.md item, so an LM whose layers reach this kernel
+refuses a loss on the card.
 """
 
 from __future__ import annotations
@@ -135,8 +137,10 @@ def _check(q, k, v, log_i, log_f, chunk):
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
                              f"reads rows in 16-byte vectors)")
     if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
-        raise RuntimeError("the CUDA mLSTM kernel has no backward yet: "
-                           "call it under torch.no_grad()")
+        raise ValueError(
+            "the CUDA mLSTM kernel has no backward yet (ROADMAP.md "
+            "queue 2 item 4, with xLSTM's training): call it under "
+            "torch.no_grad()")
 
 
 def _launch(q, k, v, log_i, log_f, chunk):

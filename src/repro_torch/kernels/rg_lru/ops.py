@@ -28,7 +28,8 @@ stream before the kernel. Unlike
 ``repro/kernels/rg_lru/kernel.py`` (which asks ``S % 256 == 0`` past 256
 steps) the kernel takes any S >= 1 and any C, and the wrapper pads
 nothing. The forward is not differentiable on CUDA yet: a call that
-would need a gradient raises.
+would need a gradient raises ``ValueError`` naming its ROADMAP.md item,
+so an LM whose layers reach this kernel refuses a loss on the card.
 """
 
 from __future__ import annotations
@@ -120,8 +121,10 @@ def _check(a, b, h0):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
-        raise RuntimeError("the CUDA RG-LRU kernel has no backward yet: "
-                           "call it under torch.no_grad()")
+        raise ValueError(
+            "the CUDA RG-LRU kernel has no backward yet (ROADMAP.md "
+            "queue 2 item 3, with RecurrentGemma's training): call it under "
+            "torch.no_grad()")
 
 
 def _launch(a, b, h0):

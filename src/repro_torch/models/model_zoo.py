@@ -1,7 +1,8 @@
 """Public model API: ``repro/models/model_zoo.py`` in PyTorch.
 
 A :class:`Model` bundles a configuration with the functions of
-``transformer``: ``init`` (seeded, on the generator's device),
+``transformer``: ``init`` (seeded, on the generator's device), ``loss``
+(``transformer.loss_fn``: (total, {"ce", "aux"}), differentiable),
 ``prefill``, ``decode_step`` and ``init_cache``. Caches default to
 bfloat16 whatever the compute type, as in the reference
 (``Model.init_cache``); the Griffin state ``h`` is float32. Whisper
@@ -33,6 +34,9 @@ class Model:
         gen = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             return tfm.model_init(self.cfg, gen)
+
+    def loss(self, params, batch):
+        return tfm.loss_fn(params, self.cfg, batch)
 
     def prefill(self, params, cache, *, tokens=None, embeddings=None,
                 positions=None, frames=None):

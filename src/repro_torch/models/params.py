@@ -66,6 +66,7 @@ XLSTM_GOLDEN_PATH = ASSETS / "xlstm_small_golden.npz"
 LM_ZOO_GOLDEN_PATH = ASSETS / "lm_zoo_small_golden.npz"
 LM_MLA_MROPE_GOLDEN_PATH = ASSETS / "lm_zoo_mla_mrope_small_golden.npz"
 WHISPER_GOLDEN_PATH = ASSETS / "lm_zoo_whisper_small_golden.npz"
+LM_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_small_golden.npz"
 
 #: Ends of the leaf paths the reference reads in float32 whatever the
 #: compute type: norm scales and biases, the RG-LRU ``lambda``, the MoE
@@ -210,3 +211,53 @@ def load_whisper_golden(path=WHISPER_GOLDEN_PATH) -> WhisperGolden:
         prefill_logits=g["prefill/logits"], cache_len=int(g["cache_len"]),
         cache_dtype=str(g["cache_dtype"]), decode_tokens=g["decode/tokens"],
         decode_logits=g["decode/logits"], greedy_tokens=g["greedy/tokens"])
+
+
+@dataclasses.dataclass
+class LMTrainGolden:
+    config: ModelConfig  # the training configuration (chunked_ce set)
+    params: Any  # the reference's initial tree of float32 CPU tensors
+    tokens: np.ndarray  # (steps, B, S) int32, batch_at(0..steps-1)
+    labels: np.ndarray  # (steps, B, S) int32
+    loss: float  # JAX loss_fn on the first batch
+    ce: float
+    aux: float
+    grads: List[Any]  # each step's, trees of float32 CPU tensors
+    params_after: Any  # after ``steps`` AdamW steps
+    adamw: Dict[str, float]  # {"peak", "warmup", "steps"}: the schedule
+
+
+def load_lm_train_golden(arch: str, path=LM_TRAIN_GOLDEN_PATH
+                         ) -> LMTrainGolden:
+    """One small decoder of the training golden file, with its initial
+    parameters from ``lm_zoo_small_golden.npz``."""
+    prefix = f"{arch}/"
+    with np.load(path, allow_pickle=False) as z:
+        g = {k[len(prefix):]: z[k] for k in z.files if k.startswith(prefix)}
+        adamw = {k: float(z[f"adamw/{k}"])
+                 for k in ("peak", "warmup", "steps")}
+    config = config_from_json(str(g["config"]))
+
+    def tree(name):
+        return restore({k[len(name) + 1:]: v for k, v in g.items()
+                        if k.startswith(name + "/")}, config)
+
+    return LMTrainGolden(
+        config=config, params=load_lm_golden(LM_ZOO_GOLDEN_PATH,
+                                             prefix).params,
+        tokens=g["tokens"], labels=g["labels"], loss=float(g["loss"]),
+        ce=float(g["ce"]), aux=float(g["aux"]),
+        grads=[tree(f"grads/{i}") for i in range(len(g["tokens"]))],
+        params_after=tree("params_after"), adamw=adamw)
+
+
+def load_pipeline_golden(path=LM_TRAIN_GOLDEN_PATH) -> Dict[str, Any]:
+    """The full-vocabulary batches of the training golden file:
+    {"vocab", "seq", "batch", "steps" (list), "tokens" and "labels"
+    (len(steps), B, S) int32}."""
+    with np.load(path, allow_pickle=False) as z:
+        g = {k[len("pipeline/"):]: z[k] for k in z.files
+             if k.startswith("pipeline/")}
+    return {"vocab": int(g["vocab"]), "seq": int(g["seq"]),
+            "batch": int(g["batch"]), "steps": g["steps"].tolist(),
+            "tokens": g["tokens"], "labels": g["labels"]}

@@ -36,7 +36,18 @@ embedding.
 
 Layers write their caches in place, so :func:`prefill` and
 :func:`decode_step` update the cache they are given and return it.
-Training (``loss_fn``) comes with a later slice.
+
+Training: :func:`loss_fn` (the reference's, with its vocab-chunked CE)
+runs the no-cache forward in "train" mode, differentiable end to end
+(on the card the attention's gradient is the flash kernel's backward;
+a config whose layers reach the RG-LRU or mLSTM kernels refuses a
+gradient there with the wrappers' ``ValueError``). Under autograd with
+``cfg.remat != "none"`` each body period runs under
+``torch.utils.checkpoint`` (non-reentrant): only its input is kept, and
+the backward runs the period again (the reference's ``_remat``, a
+``jax.checkpoint`` of the scanned period). ``"dots"``, whose reference
+policy saves the products' outputs, recomputes the whole period here as
+``"full"`` does.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
@@ -271,23 +283,19 @@ def model_cache(cfg: ModelConfig, batch: int, length: int,
     return cache
 
 
-def layers(cfg: ModelConfig, params, cache=None
-           ) -> Iterator[Tuple[str, Dict, Any]]:
-    """(kind, layer params, layer cache or None) in execution order;
-    body entries are views of period p of the stacked leaves."""
-    def group(name, pattern):
-        for i, kind in enumerate(pattern):
-            yield (kind, params[name][i],
-                   None if cache is None else cache[name][i])
-
-    yield from group("head", cfg.head_pattern)
-    for p in range(cfg.n_periods):
-        for i, kind in enumerate(cfg.body_pattern):
-            lp = tree_map(lambda a: a[p], params["body"][i])
-            lc = (None if cache is None
-                  else tree_map(lambda a: a[p], cache["body"][i]))
-            yield kind, lp, lc
-    yield from group("tail", cfg.tail_pattern)
+def _period(params, cfg: ModelConfig, p: int, x, positions, mode, cache,
+            enc_out):
+    """Period ``p`` of the body: views ``leaf[p]`` of the stacked leaves,
+    every layer of ``body_pattern`` in turn. Returns (x, summed aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(cfg.body_pattern):
+        lp = tree_map(lambda a: a[p], params["body"][i])
+        lc = (None if cache is None
+              else tree_map(lambda a: a[p], cache["body"][i]))
+        x, _, a = layer_apply(lp, cfg, kind, x, positions, mode=mode,
+                              cache=lc, enc_out=enc_out)
+        aux = aux + a
+    return x, aux
 
 
 def cache_rows(cache, rows: slice):
@@ -343,7 +351,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeddings=None,
             enc_out=None, skip_unembed: bool = False):
     """Decoder forward from tokens (B, S) integers or embeddings (B, S,
     d_model). Returns (logits or the final hidden state, cache, the
-    summed aux loss (0.0 without MoE layers)); the cache (prefill /
+    summed aux loss (a float32 0-d tensor, 0 without MoE layers)); the
+    cache (prefill /
     decode) is written in place. A decoder with cross-attention takes
     the encoder output ``enc_out`` in "train" and "prefill" mode; learned
     positions are added at the embedding, at ``clip(pos, 0, max_seq -
@@ -363,11 +372,29 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeddings=None,
         table = params["pos_embed"]["table"]
         pos2d = positions[0] if positions.dim() == 3 else positions
         x = x + table[pos2d.clamp(0, table.shape[0] - 1)].to(x.dtype)
-    aux_total = 0.0
-    for kind, lp, lc in layers(cfg, params, cache):
-        x, _, aux = layer_apply(lp, cfg, kind, x, positions, mode=mode,
-                                cache=lc, enc_out=enc_out)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def group(name, pattern, x, aux_total):
+        for i, kind in enumerate(pattern):
+            x, _, aux = layer_apply(params[name][i], cfg, kind, x, positions,
+                                    mode=mode,
+                                    cache=None if cache is None
+                                    else cache[name][i], enc_out=enc_out)
+            aux_total = aux_total + aux
+        return x, aux_total
+
+    x, aux_total = group("head", cfg.head_pattern, x, aux_total)
+    remat = (mode == "train" and cfg.remat != "none"
+             and torch.is_grad_enabled())
+    for p in range(cfg.n_periods):
+        if remat:  # keep the period's input, recompute the rest
+            x, aux = checkpoint(_period, params, cfg, p, x, positions, mode,
+                                cache, enc_out, use_reentrant=False)
+        else:
+            x, aux = _period(params, cfg, p, x, positions, mode, cache,
+                             enc_out)
         aux_total = aux_total + aux
+    x, aux_total = group("tail", cfg.tail_pattern, x, aux_total)
     x = nn.apply_norm(params["final_norm"], cfg.norm, x)
     out = x if skip_unembed else unembed(params, cfg, x)
     return out, cache, aux_total
@@ -379,6 +406,67 @@ def unembed(params, cfg: ModelConfig, x):
     else:
         logits = nn.linear(params["lm_head"], x)
     return logits / cfg.logits_scaling
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels):
+    """Mean CE in float32; logits (..., V), labels (...) integers."""
+    logits = logits.to(torch.float32)
+    m = logits.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    correct = logits.gather(-1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - correct)
+
+
+def _chunk_ce(params, cfg: ModelConfig, hidden, labels):
+    return cross_entropy(unembed(params, cfg, hidden), labels)
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """``repro/models/transformer.py::loss_fn``. batch keys:
+    tokens|embeddings, labels, [positions], [frames]. Returns
+    (total loss, {"ce", "aux"}), float32 0-d tensors; the total is
+    ``ce + aux``.
+
+    With ``cfg.chunked_ce > 0`` dividing S (gemma3 and RecurrentGemma set
+    512), the logits are taken ``chunked_ce`` positions at a time, each
+    chunk's CE under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of the scanned chunk), so no more than one chunk's
+    (B, C, V) float32 logits live at once, in the forward and in the
+    backward; the chunk means are summed and scaled by C / S."""
+    enc_out = None
+    if cfg.n_encoder_layers:
+        enc_out = run_encoder(params, cfg,
+                              batch["frames"].to(compute_dtype(cfg)))
+    kwargs = dict(mode="train", cache=None, enc_out=enc_out)
+    if "positions" in batch:
+        kwargs["positions"] = batch["positions"]
+    if "embeddings" in batch:
+        kwargs["embeddings"] = batch["embeddings"]
+    else:
+        kwargs["tokens"] = batch["tokens"]
+
+    labels = batch["labels"]
+    S = labels.shape[1]
+    if cfg.chunked_ce > 0 and S % cfg.chunked_ce == 0:
+        hidden, _, aux = forward(params, cfg, skip_unembed=True, **kwargs)
+        C = cfg.chunked_ce
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(0, S, C):
+            h_i, y_i = hidden[:, i:i + C], labels[:, i:i + C]
+            if torch.is_grad_enabled():
+                total = total + checkpoint(_chunk_ce, params, cfg, h_i, y_i,
+                                           use_reentrant=False)
+            else:
+                total = total + _chunk_ce(params, cfg, h_i, y_i)
+        ce = total * (C / S)
+    else:
+        logits, _, aux = forward(params, cfg, **kwargs)
+        ce = cross_entropy(logits, labels)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, cache, *, tokens=None,

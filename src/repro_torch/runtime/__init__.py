@@ -1,7 +1,10 @@
-"""Runtime: the Perona degradation watchdog and the straggler monitor.
-The fault-tolerant training loop (``fault``) comes with LM training."""
+"""Runtime: the Perona degradation watchdog, the straggler monitor and
+the fault-tolerant training loop (``fault``)."""
 
+from repro_torch.runtime.fault import (FailureInjector, RuntimeEvent,
+                                       TrainingRuntime)
 from repro_torch.runtime.straggler import StragglerEvent, StragglerMonitor
 from repro_torch.runtime.watchdog import PeronaWatchdog
 
-__all__ = ["PeronaWatchdog", "StragglerEvent", "StragglerMonitor"]
+__all__ = ["FailureInjector", "PeronaWatchdog", "RuntimeEvent",
+           "StragglerEvent", "StragglerMonitor", "TrainingRuntime"]

@@ -174,7 +174,11 @@ def _good(B=2, H=4, KH=2, S=10, D=16):
                       0), "32-bit"),
     (lambda q, k, v: (q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
                       0), "contiguous"),
-    (lambda q, k, v: (q.requires_grad_(), k, v, 0), "no backward"),
+    # a gradient at a pair the backward does not take (the small
+    # DeepSeek's (24, 16)); the square pairs have one
+    (lambda q, k, v: (torch.zeros(2, 10, 4, 24).requires_grad_(),
+                      torch.zeros(2, 10, 2, 24), torch.zeros(2, 10, 2, 16),
+                      0), "no backward"),
 ])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
     with pytest.raises((ValueError, TypeError, RuntimeError), match=match):
