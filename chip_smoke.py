@@ -266,7 +266,10 @@ Phases, each printing on lines of its own:
    encoder output and both prefills' logits, and the decode steps vs a
    no-cache forward with the same encoder output, in bf16 (1e-1) and
    float32 (1e-4) as relative L2.
-22. LM training: (a) the flash backward kernel (``flash_attention`` under
+22. LM training: (a) the backward's routes (bf16 on the tensor cores,
+   float32 on the CUDA cores) at every head dim and each tensor-core
+   kernel's registers, spills and shared memory; the flash backward
+   kernels (``flash_attention`` under
    autograd on the card) against the plain version's autograd, dq, dk
    and dv at |a - b| <= TOL (1 + |b|), the cotangent zeroed at rows with
    no live key for the plain version: (H, KH) (9, 3)/(16, 2)/(16, 16)/
@@ -288,11 +291,15 @@ Phases, each printing on lines of its own:
    ``batch_at``'s time, a profiled step's top entries and idle share;
    the loss and every gradient leaf through the kernels against the
    plain versions on one batch, bf16 (1e-1) and float32 (1e-4) relative
-   L2; (d) the backward at smollm's problem (B 8 H 9 KH 3 S 2048 D 64)
-   and at D = 128 (B 1 H 16 KH 2 S 4096), causal: time, bound (2.5x the
-   forward's FLOPs at the bf16 rate; the f32 route at the f32 rate),
-   plain version, SDPA's backward with ``is_causal`` (k/v repeated or
-   ``enable_gqa``, the faster) and the backend nearest its gradients.
+   L2; the backward's split by kernel (delta, dK/dV, dQ) in the profiled
+   step; (d) the backward, with L from the forward, at smollm's problem
+   (B 8 H 9 KH 3 S 2048 D 64), at D = 128 (B 1 H 16 KH 2 S 4096) and at
+   gemma3-4b's (B 1 H 8 KH 4 S 4096 D 256, window 1024), causal: time,
+   bound (2.5x the forward's FLOPs at the bf16 rate; the f32 route at
+   the f32 rate), plain version, SDPA's backward with ``is_causal`` (k/v
+   repeated or ``enable_gqa``, the faster; the window as a boolean mask)
+   and the backend nearest its gradients; the bf16 forward without and
+   with L at D = 128 and D = 256, in turns.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -1482,23 +1489,31 @@ def _top_device(prof, n=10):
 # the port's kernels, as the profiler names them (csrc/*.cu)
 PORT_KERNELS = ("rg_lru_scan_kernel", "flash_fwd", "flash_bwd", "mlstm_",
                 "edge_softmax_fwd", "edge_softmax_bwd")
+# the flash backward's three kernels, as the profiler names them
+FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
-def _port_device(prof):
-    """Device time (us) and launches of each of PORT_KERNELS' entries,
-    whatever their rank."""
+def _device_by_name(prof, names):
+    """Device time (us) and launches of the kernels whose names hold each
+    of ``names``, whatever their rank."""
     from torch.autograd import DeviceType
 
     out = {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
-        for name in PORT_KERNELS:
+        for name in names:
             if name in evt.key:
                 us, count = out.get(name, (0.0, 0))
                 out[name] = (us + evt.self_device_time_total,
                              count + evt.count)
     return out
+
+
+def _port_device(prof):
+    """Device time (us) and launches of each of PORT_KERNELS' entries,
+    whatever their rank."""
+    return _device_by_name(prof, PORT_KERNELS)
 
 
 def profile_lm(model, params, server, req, host_ops=True):
@@ -5466,14 +5481,27 @@ FLASH_BWD_S = (1, 777, 4096)
 FLASH_BWD_EDGE_S = (31, 32, 33, 63, 64, 65, 127, 129, 191)
 FLASH_BWD_EDGE_MODES = ((True, 0), (True, 1), (True, 65), (False, 0))
 FLASH_BWD_EDGE_HEADS = ((9, 3), (8, 4))
-# the timed problems (B, H, KH, S, D), causal: smollm-135m's training
-# step and the D = 128 problem of phase [19d]
-FLASH_BWD_SMOLLM = (8, 9, 3, 2048, 64)
-FLASH_BWD_D128 = (1, 16, 2, 4096, 128)
+# the timed problems (B, H, KH, S, D, window), causal: smollm-135m's
+# training step, the D = 128 problem of phase [19d] and gemma3-4b's
+# sliding-window layers at D = 256
+FLASH_BWD_SMOLLM = (8, 9, 3, 2048, 64, 0)
+FLASH_BWD_D128 = (1, 16, 2, 4096, 128, 0)
+FLASH_BWD_GEMMA3 = (1, 8, 4, 4096, 256, 1024)
+# the bf16 forward timed with and without its log-sum-exp: phase [19d]'s
+# D = 128 problem and the D = 256 prefill of the kernel table
+# (B, H, KH, S, D, window)
+FLASH_LSE_TIMED = (FLASH_BWD_D128, (1, 16, 1, 4096, 256, 2048))
 # the backward's FLOPs as a multiple of the forward's (FlashAttention-2's
 # count: dV, dP, dS and dQ, dK products, five matmuls to the forward's
-# two), for its bound
+# two), for its bound; the kernels compute S and dP twice (14 D flops a
+# live pair, 16 D at D = 256, against the bound's 10 D)
 FLASH_BWD_FLOP_RATIO = 2.5
+# what the bf16 backward is, for the kernels line
+FLASH_BWD_DESIGN = ("tensor cores: wgmma m64n64 S^T/dP^T and m64nD dV/dK "
+                    "(P^T, dS^T as register A operands), TMA rings of two "
+                    "64-row stages, one warpgroup a block, L kept by the "
+                    "forward; delta pre-pass, dK/dV, dQ (no atomics); dK "
+                    "and dV in separate blocks at D = 256")
 # (b) card vs the JAX package's CPU outputs, float32 on both sides: the
 # loss terms relative (absolute below 1), every gradient leaf as max
 # |a - b| over max |b|, the parameters after the golden's AdamW steps
@@ -5583,15 +5611,14 @@ def phase_lm_train_kernel():
           f"{FLASH_BWD_EDGE_MODES}, (H, KH) {FLASH_BWD_EDGE_HEADS}, D "
           f"{fa_ops.HEAD_DIMS}), largest {largest:.3e} (tol {tol:g}) ok; "
           f"{dead} rows with no live key give no gradient")
-    B, H, KH, S, D = FLASH_BWD_SMOLLM
+    B, H, KH, S, D, _ = FLASH_BWD_SMOLLM
     q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
     dout = torch.randn(B, S, H, D, generator=g, device="cuda").to(
         torch.bfloat16)
-    with torch.no_grad():
-        out = fa_ops.flash_attention(q, k, v)
-    first = fa_ops.flash_attention_bwd(q, k, v, out, dout)
+    out, lse = fa_ops.flash_attention_with_lse(q, k, v)
+    first = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse)
     for _ in range(4):
-        again = fa_ops.flash_attention_bwd(q, k, v, out, dout)
+        again = fa_ops.flash_attention_bwd(q, k, v, out, dout, lse)
         check(all(torch.equal(a, b) for a, b in zip(first, again)),
               "the flash backward is deterministic")
     worst["main"], worst["main_abs"] = flash_bwd_errors(q, k, v, dout, True,
@@ -5600,9 +5627,34 @@ def phase_lm_train_kernel():
           f" KH={KH} S={S} D={D} causal bfloat16): 5 launches equal bit for "
           f"bit; vs plain {worst['main']:.3e} (max abs err "
           f"{worst['main_abs']:.3e})")
-    del q, k, v, dout, out, first, again
+    del q, k, v, dout, out, lse, first, again
     torch.cuda.empty_cache()
     return worst
+
+
+def flash_bwd_routes():
+    """The backward's route at each head dim (bf16 on the tensor cores,
+    float32 on the CUDA cores) and the resources of each tensor-core
+    kernel: registers and local (spilled) bytes a thread, shared memory
+    a block."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    found = {}
+    for D in fa_ops.HEAD_DIMS:
+        routes = {str(dt).split(".")[-1]: fa_ops.bwd_route(dt, D)
+                  for dt in fa_ops.DTYPES}
+        check(routes == {"float32": "cuda_core", "bfloat16": "tensor_core"},
+              f"the backward's routes at D = {D}: {routes}")
+        found[D] = fa_ops.backward_attributes(D)
+        print(f"  flash backward D={D}: routes {routes}; tensor-core kernels "
+              + ", ".join(f"{name} {a['registers']} registers, "
+                          f"{a['local_bytes']} local bytes, "
+                          f"{a['static_smem_bytes'] + a['dynamic_smem_bytes']}"
+                          f" bytes of shared memory"
+                          for name, a in found[D].items()))
+    return found
 
 
 def lm_train_golden_errors(golden, device="cuda"):
@@ -5833,12 +5885,15 @@ def phase_lm_train_full():
     del new, state
     device_us, top = _top_device(prof)
     port = _port_device(prof)
+    split = _device_by_name(prof, FLASH_BWD_KERNELS)
     out["profile"] = {
         "wall_s": wall, "device_s": device_us / 1e6,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "top": [{"name": k[:90], "us": us, "count": c} for us, c, k in top],
         "port_kernels": {k: {"us": us, "count": c}
-                         for k, (us, c) in port.items()}}
+                         for k, (us, c) in port.items()},
+        "flash_bwd_split": {k: {"us": us, "count": c}
+                            for k, (us, c) in split.items()}}
     print(f"  profiled step: {wall * 1e3:.1f} ms wall, {device_us / 1e3:.1f} "
           f"ms of device activity, idle share "
           f"{out['profile']['device_idle_share']:.4f}; the port's kernels: "
@@ -5847,6 +5902,8 @@ def phase_lm_train_full():
           "entries:")
     for us, c, k in top:
         print(f"    {us:10.1f} us x{c:4d}  {k[:90]}")
+    print("  the flash backward in the profiled step: " + ", ".join(
+        f"{k} {us / 1e3:.3f} ms x{c}" for k, (us, c) in split.items()))
     torch.cuda.empty_cache()
     out["vs_plain"] = {"bfloat16": _grad_distances(
         model, params, batch, FULL_BF16_REL_TOL,
@@ -5864,38 +5921,46 @@ def phase_lm_train_full():
     return out
 
 
-def time_flash_bwd(g, B, H, KH, S, D):
-    """(d) The backward kernel at one causal problem in bf16 and float32,
-    the plain version's autograd, SDPA's backward (the faster of k/v
-    repeated to the query heads and ``enable_gqa=True``, and which of its
-    backends ran), and the bounds: FLASH_BWD_FLOP_RATIO x the forward's FLOPs at
-    the bf16 tensor-core rate (the float32 route at the float32 rate), or
-    q, k, v, the output and its cotangent read once and the three
-    gradients written once."""
+def time_flash_bwd(g, B, H, KH, S, D, W):
+    """(d) The backward kernel at one causal problem (window W, 0 for
+    none) in bf16 and float32, with L from the forward, the plain
+    version's autograd, SDPA's backward (the faster of k/v repeated to
+    the query heads and ``enable_gqa=True``, and which of its backends
+    ran; a window takes a boolean mask and the repeated heads), and the
+    bounds: FLASH_BWD_FLOP_RATIO x the forward's FLOPs at the bf16
+    tensor-core rate (the float32 route at the float32 rate), or q, k, v,
+    the output and its cotangent read once and the three gradients
+    written once."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
+    mode = dict(window=W)
     q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
     dout = torch.randn(B, S, H, D, generator=g, device="cuda").to(
         torch.bfloat16)
-    with torch.no_grad():
-        out = fa_ops.flash_attention(q, k, v)
-        ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, dout),
-                     10)
-        qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
-        outf = fa_ops.flash_attention(qf, kf, vf)
-        f32_ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(
-            qf, kf, vf, outf, df), 3)
-    del qf, kf, vf, df, outf
+    out, lse = fa_ops.flash_attention_with_lse(q, k, v, **mode)
+    ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, dout, lse,
+                                                    **mode), 10)
+    qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+    outf, lsef = fa_ops.flash_attention_with_lse(qf, kf, vf, **mode)
+    f32_ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(
+        qf, kf, vf, outf, df, lsef, **mode), 3)
+    del qf, kf, vf, df, outf, lsef
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    plain_out = _plain_flash(*leaves)
+    plain_out = _plain_flash(*leaves, **mode)
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         plain_out, leaves, dout, retain_graph=True), 3)
     del plain_out, leaves
     torch.cuda.empty_cache()
+    if W > 0:
+        pos = torch.arange(S, device="cuda")
+        rel = pos[:, None] - pos[None, :]
+        how = {"attn_mask": (rel >= 0) & (rel < W)}
+    else:
+        how = {"is_causal": True}
 
     def sdpa_grads(gqa, backend=None):
         qs = q.transpose(1, 2).contiguous().requires_grad_()
@@ -5910,7 +5975,7 @@ def time_flash_bwd(g, B, H, KH, S, D):
 
         with ctx():
             o = F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True,
+                qs, ks, vs, **how,
                 **({"enable_gqa": True} if gqa else {}))
         do = dout.transpose(1, 2).contiguous()
 
@@ -5920,8 +5985,9 @@ def time_flash_bwd(g, B, H, KH, S, D):
                                            retain_graph=True)
         return grads
 
-    library_times = {"repeated": cuda_ms(sdpa_grads(False), 5),
-                     "enable_gqa": cuda_ms(sdpa_grads(True), 5)}
+    library_times = {"repeated": cuda_ms(sdpa_grads(False), 5)}
+    if W == 0:
+        library_times["enable_gqa"] = cuda_ms(sdpa_grads(True), 5)
     library_call = min(library_times, key=library_times.get)
     gqa = library_call == "enable_gqa"
     # which backend the default call ran: the one whose gradients lie
@@ -5944,17 +6010,18 @@ def time_flash_bwd(g, B, H, KH, S, D):
     ran = min((name for name, (_, d) in backends.items() if d is not None),
               key=lambda name: backends[name][1])
     del default
-    pairs = S * (S + 1) // 2
+    pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
     fwd_flops = 2 * (D + D) * pairs * H * B
     flops = FLASH_BWD_FLOP_RATIO * fwd_flops
     # q, out, dout read and dq written; k, v read and dk, dv written
     nbytes = 3 * q.nbytes + 2 * (k.nbytes + v.nbytes) + dout.nbytes
     t_ops, t_bytes = (flops / BF16_FLOP_PER_S * 1e3,
                       nbytes / HBM_BYTES_PER_S * 1e3)
-    row = {"shape": f"B={B} H={H} KH={KH} S={S} D={D} causal bfloat16",
+    row = {"shape": f"B={B} H={H} KH={KH} S={S} D={D} window={W} causal "
+                    f"bfloat16",
            "ms": ms, "plain_ms": plain_ms, "library_ms":
            library_times[library_call],
-           "library_call": f"is_causal, {library_call}",
+           "library_call": f"{next(iter(how))}, {library_call}",
            "library_times_ms": library_times, "sdpa_backends_ms": {
                k: t for k, (t, _) in backends.items()},
            "sdpa_backend_distance": {k: d for k, (_, d) in backends.items()},
@@ -5962,7 +6029,8 @@ def time_flash_bwd(g, B, H, KH, S, D):
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "flops": flops, "bytes": nbytes,
            "tflop_per_s": flops / ms / 1e9, "f32_ms": f32_ms,
-           "f32_bound_ms": f32_bound_ms(flops, 2 * nbytes)}
+           "f32_bound_ms": f32_bound_ms(flops, 2 * nbytes),
+           "route": fa_ops.bwd_route(q.dtype, D)}
     print(f"  flash backward {row['shape']}: kernel {ms:.4f} ms "
           f"({row['tflop_per_s']:.1f} TFLOP/s at {FLASH_BWD_FLOP_RATIO:g} x the "
           f"forward's {fwd_flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, "
@@ -5973,9 +6041,37 @@ def time_flash_bwd(g, B, H, KH, S, D):
           f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.1f} "
           f"GFLOP, {nbytes / 1e6:.1f} MB); the float32 route {f32_ms:.4f} "
           f"ms against its own bound {row['f32_bound_ms']:.4f} ms")
-    del q, k, v, dout, out
+    del q, k, v, dout, out, lse
     torch.cuda.empty_cache()
     return row
+
+
+def time_flash_lse(g):
+    """(d) The bf16 forward without L (serving's call) and with it (the
+    autograd forward's) at FLASH_LSE_TIMED, in turns: without, with,
+    with, without."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    rows = {}
+    for B, H, KH, S, D, W in FLASH_LSE_TIMED:
+        q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
+        calls = {"without": lambda: fa_ops.flash_attention(q, k, v, window=W),
+                 "with": lambda: fa_ops.flash_attention_with_lse(
+                     q, k, v, window=W)}
+        with torch.no_grad():
+            times = {name: [] for name in calls}
+            for name in ("without", "with", "with", "without"):
+                times[name].append(cuda_ms(calls[name], 20))
+        shape = f"B={B} H={H} KH={KH} S={S} D={D} window={W} causal bfloat16"
+        rows[shape] = {name: statistics.mean(ts) for name, ts in times.items()}
+        print(f"  flash forward {shape}: without L {rows[shape]['without']:.4f}"
+              f" ms, with L {rows[shape]['with']:.4f} ms (mean of two turns "
+              f"each: {times})")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_lm_train():
@@ -5988,6 +6084,7 @@ def phase_lm_train():
           "2048, 30 steps, a failure at step 12), and the backward's time")
     out = {}
     t0 = time.perf_counter()
+    out["backward_attributes"] = flash_bwd_routes()
     out["kernel_errors"] = phase_lm_train_kernel()
     print(f"    -- (a) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5999,7 +6096,9 @@ def phase_lm_train():
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(7)
     out["timing"] = {"smollm": time_flash_bwd(g, *FLASH_BWD_SMOLLM),
-                     "d128": time_flash_bwd(g, *FLASH_BWD_D128)}
+                     "d128": time_flash_bwd(g, *FLASH_BWD_D128),
+                     "gemma3": time_flash_bwd(g, *FLASH_BWD_GEMMA3)}
+    out["forward_lse"] = time_flash_lse(g)
     print(f"    -- (d) {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -6292,11 +6391,17 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "shape": bwd["shape"],
+        "routes": {"bfloat16": bwd["route"], "float32": "cuda_core"},
+        "design": FLASH_BWD_DESIGN,
         "library_call": bwd["library_call"],
         "sdpa_backend": bwd["sdpa_backend"],
         "f32_ms": bwd["f32_ms"],
         "f32_bound_ms": bwd["f32_bound_ms"],
         "d128": lm_train["timing"]["d128"],
+        "gemma3_d256": lm_train["timing"]["gemma3"],
+        "step_split_us": lm_train["full"]["profile"]["flash_bwd_split"],
+        "attributes": lm_train["backward_attributes"],
+        "forward_with_lse_ms": lm_train["forward_lse"],
         "errors": lm_train["kernel_errors"],
         "launches_per_step": lm_train["full"]["launches_per_step"],
     }]

@@ -26,6 +26,18 @@
 // holds the D = 256 instances to 128 registers and the kernel runs about
 // 14 % slower.
 //
+// The log-sum-exp. When the caller passes a non-null `lse` (the autograd
+// forward does; serving passes null and does no extra work), both kernels
+// also write, for every row, L_i = m_i + log(max(l_i, 1e-30)) as float32
+// (B, H, S): the natural log of the softmax's denominator over the live
+// keys, in the units of the scaled scores scale * <q_i, k_j>, so that
+// P_ij = exp(scale * <q_i, k_j> - L_i) (the backward's P). The float32
+// kernel's m and l are in those units; the bf16 kernel's m is in log2
+// units (scale * log2(e) folded into its exp2f), so it writes
+// (m + log2(max(l, 1e-30))) * ln 2. A row with no live key keeps
+// m = -1e30 and l = 0: its L is about -1e30 (-6.9e29 from the bf16
+// kernel), and the backward masks its pairs explicitly.
+//
 // Two kernels, chosen by the input type:
 //   - float32: the CUDA-core kernel below (`flash_fwd_kernel`), whose checks
 //     against the plain version are held at 2e-5; tensor cores reach that
@@ -127,9 +139,10 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
 template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int heads,
-                     int kv_heads, int q_len, int k_len, int causal,
-                     int window, float scale) {
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int heads, int kv_heads,
+                     int q_len, int k_len, int causal, int window,
+                     float scale) {
   constexpr int LDQ = DQK + 1;
   constexpr int LDV = DV + 1;
   constexpr int kOut = DV / 16;  // output columns per thread
@@ -254,13 +267,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
       oh[row * o_stride + tx + 16 * c] = from_f32<T>(acc[i][c] * inv);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * heads + h) * q_len + row] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int heads, int kv_heads, int q_len, int k_len,
-                   int causal, int window, float scale, cudaStream_t stream) {
+                   float* lse, int batch, int heads, int kv_heads,
+                   int q_len, int k_len, int causal, int window, float scale,
+                   cudaStream_t stream) {
   const int smem = (int)sizeof(float) * ((kBQ + kBK) * (DQK + 1) +
                                          kBK * (DV + 1) + kBQ * (kBK + 1));
   cudaError_t err = cudaFuncSetAttribute(
@@ -270,8 +287,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((q_len + kBQ - 1) / kBQ, heads, batch);
   flash_fwd_kernel<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), heads, kv_heads, q_len,
-      k_len, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, heads, kv_heads,
+      q_len, k_len, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -279,13 +296,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // (192, 128) at full width and (24, 16) in the small test models.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int batch, int heads, int kv_heads, int q_len, int k_len,
-                     int head_dim, int v_head_dim, int causal, int window,
-                     float scale, cudaStream_t s) {
-#define FLASH_F32_CASE(DQK, DV)                                             \
-  if (head_dim == DQK && v_head_dim == DV)                                  \
-    return launch<T, DQK, DV>(q, k, v, out, batch, heads, kv_heads, q_len, \
-                              k_len, causal, window, scale, s);
+                     float* lse, int batch, int heads, int kv_heads,
+                     int q_len, int k_len, int head_dim, int v_head_dim,
+                     int causal, int window, float scale, cudaStream_t s) {
+#define FLASH_F32_CASE(DQK, DV)                                            \
+  if (head_dim == DQK && v_head_dim == DV)                                 \
+    return launch<T, DQK, DV>(q, k, v, out, lse, batch, heads, kv_heads,  \
+                              q_len, k_len, causal, window, scale, s);
   FLASH_F32_CASE(16, 16)
   FLASH_F32_CASE(64, 64)
   FLASH_F32_CASE(128, 128)
@@ -392,177 +409,14 @@ struct Layout {
                 "the output staging fits in the K/V stages");
 };
 
-// d (64 x 64) (+)= a (64 x 16) b (16 x 64): a and b in shared memory,
-// both K-major, float32 accumulators; scale_d == 0 overwrites d instead
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t desc_a,
-                                             uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// d (64 x 16) += a (64 x 16) b (16 x 16): a in registers (bf16 pairs),
-// b in shared memory, MN-major; float32 accumulators
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 64) += a (64 x 16) b (16 x 64): a in registers (bf16 pairs),
-// b in shared memory, MN-major; float32 accumulators
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 128) += a (64 x 16) b (16 x 128): a in registers (bf16 pairs),
-// b in shared memory, MN-major; float32 accumulators
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// d (64 x 256) += a (64 x 16) b (16 x 256): a in registers (bf16 pairs),
-// b in shared memory, MN-major; float32 accumulators
-__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
-                                             uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t desc_b);
-template <>
-__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
-                                             uint64_t desc_b) {
-  wgmma_rs_n16(d, a, desc_b);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
-                                             uint64_t desc_b) {
-  wgmma_rs_n64(d, a, desc_b);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
-                                              uint64_t desc_b) {
-  wgmma_rs_n128(d, a, desc_b);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
-                                              uint64_t desc_b) {
-  wgmma_rs_n256(d, a, desc_b);
-}
-
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
-                          bf16* __restrict__ out, int heads, int kv_heads,
-                          int q_len, int k_len, int causal, int window,
-                          float scale_log2) {
+                          bf16* __restrict__ out, float* __restrict__ lse,
+                          int heads, int kv_heads, int q_len, int k_len,
+                          int causal, int window, float scale_log2) {
   using L = Layout<DQK, DV>;
   constexpr int CK = L::CK, CV = L::CV, RBK = L::RBK, RBV = L::RBV;
   constexpr int kNT = kBK / 8;  // score n-tiles of 8 keys
@@ -770,6 +624,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == 0 && j + kStages < n_tiles) load_tile(j + kStages);
   }
 
+  // L in natural-log units (see the note at the top), by one lane a row
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r_lo + 8 * i < q_len)
+        lse[((long long)b * heads + h) * q_len + r_lo + 8 * i] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
+  }
   // out = O / max(l, 1e-30) in bf16, staged through the K/V stages (no
   // longer read, and nothing is in flight) with rows padded by 16 bytes
   constexpr int P = DV + 8;
@@ -795,48 +657,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// a (batch, len, heads, D) bf16 tensor as a 4-d tensor map whose boxes are
-// CB columns x `rows` positions of one head, swizzled as wgmma reads them
-// (128-byte rows for CB = 64, 32-byte rows for CB = 16); rows past `len`
-// arrive as zeros
-bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int len,
-                int heads, int D, int CB, int rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)len * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)CB, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                2 * CB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                              : CU_TENSOR_MAP_SWIZZLE_32B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int batch, int heads, int kv_heads, int q_len, int k_len,
-                   int causal, int window, float scale, cudaStream_t stream) {
+                   float* lse, int batch, int heads, int kv_heads,
+                   int q_len, int k_len, int causal, int window, float scale,
+                   cudaStream_t stream) {
   using L = Layout<DQK, DV>;
+  // a runtime call first: it makes the device's primary context current
+  // on this thread (autograd's worker, recomputing a checkpointed forward,
+  // may have none yet), which cuTensorMapEncodeTiled needs
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, batch, q_len, heads, DQK, L::CK, kBQ) ||
       !tensor_map(&tk, k, batch, k_len, kv_heads, DQK, L::CK, kBK) ||
       !tensor_map(&tv, v, batch, k_len, kv_heads, DV, L::CV, kBK))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<DQK, DV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-  if (err != cudaSuccess) return err;
   const dim3 grid((q_len + kBQ - 1) / kBQ, heads, batch);
   flash_fwd_bf16_kernel<DQK, DV><<<grid, kThreads, L::kBytes, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), heads, kv_heads, q_len, k_len,
-      causal, window, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<bf16*>(out), lse, heads, kv_heads, q_len,
+      k_len, causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -874,13 +716,14 @@ cudaError_t attributes(int* regs, int* local_bytes, int* static_smem,
 // route only, (24, 16) (the small DeepSeek's); S*H and T*KH times either
 // head dim below 2^31; window <= 0 means no window. A case that the chosen
 // kernel does not take returns cudaErrorInvalidValue: neither kernel
-// stands in for the other.
+// stands in for the other. `lse` is null, or float32 (B, H, S) for the
+// log-sum-exp of every row (see the note at the top).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int batch,
-                                   int heads, int kv_heads, int q_len,
-                                   int k_len, int head_dim, int v_head_dim,
-                                   int causal, int window, float scale,
-                                   int is_bf16, void* stream) {
+                                   const void* v, void* out, void* lse,
+                                   int batch, int heads, int kv_heads,
+                                   int q_len, int k_len, int head_dim,
+                                   int v_head_dim, int causal, int window,
+                                   float scale, int is_bf16, void* stream) {
   const long long widest = head_dim > v_head_dim ? head_dim : v_head_dim;
   if (batch <= 0 || batch > 65535 || heads <= 0 || heads > 65535 ||
       kv_heads <= 0 || heads % kv_heads != 0 || q_len <= 0 || k_len <= 0 ||
@@ -889,14 +732,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       (long long)k_len * kv_heads * widest >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (!is_bf16)
-    return (int)dispatch<float>(q, k, v, out, batch, heads, kv_heads, q_len,
-                                k_len, head_dim, v_head_dim, causal, window,
-                                scale, s);
-#define FLASH_BF16_LAUNCH(DQK, DV)                                          \
-  if (head_dim == DQK && v_head_dim == DV)                                  \
-    return (int)tc::launch<DQK, DV>(q, k, v, out, batch, heads, kv_heads,   \
-                                    q_len, k_len, causal, window, scale, s);
+    return (int)dispatch<float>(q, k, v, out, l, batch, heads, kv_heads,
+                                q_len, k_len, head_dim, v_head_dim, causal,
+                                window, scale, s);
+#define FLASH_BF16_LAUNCH(DQK, DV)                                         \
+  if (head_dim == DQK && v_head_dim == DV)                                 \
+    return (int)tc::launch<DQK, DV>(q, k, v, out, l, batch, heads,        \
+                                    kv_heads, q_len, k_len, causal, window, \
+                                    scale, s);
   FLASH_BF16_PAIRS(FLASH_BF16_LAUNCH)
 #undef FLASH_BF16_LAUNCH
   return (int)cudaErrorInvalidValue;

@@ -28,17 +28,23 @@ when T < S with a window) gives 0 from both kernels; the plain version, as
 the reference's ``ref``, gives the mean of v over all keys there.
 
 On CUDA the call is differentiable through a ``torch.autograd.Function``
-whose forward launches the forward kernel and saves q, k, v and the
-output, and whose backward launches the hand-written backward of
-``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`: a pre-pass
-for the log-sum-exp and ``rowsum(dO * O)``, then dK/dV and dQ, float32
-arithmetic on the CUDA cores for both input types). The backward takes
-the square head dims of ``HEAD_DIMS`` (``BWD_PAIRS``) with every mode of
-the forward: a call that needs a gradient at another pair (MLA's
-(192, 128), the small DeepSeek's (24, 16)) raises ``ValueError`` before
-any launch. Its gradient at a row with no live key is 0, as the kernels'
-output there. On the CPU the plain version runs under autograd.
-``BWD_LAUNCHES`` counts backward calls (three kernel launches each).
+whose forward launches the forward kernel, which also writes each row's
+log-sum-exp L (float32 ``(B, H, S)``; a call without grad writes none),
+and saves q, k, v, the output and L; its backward launches the
+hand-written backward of ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd`: a pre-pass for ``delta = rowsum(dO * O)``,
+then dK/dV and dQ from L). :func:`bwd_route` names its kernels by the
+input type, as :func:`route` does the forward's: bfloat16 goes to the
+tensor-core kernels (``wgmma`` + TMA), float32 to the CUDA-core kernels
+(held at 2e-5). The backward takes the square head dims of
+``HEAD_DIMS`` (``BWD_PAIRS``) with every mode of the forward: a call
+that needs a gradient at another pair (MLA's (192, 128), the small
+DeepSeek's (24, 16)) raises ``ValueError`` before any launch. Its
+gradient at a row with no live key is 0, as the kernels' output there.
+On the CPU the plain version runs under autograd.
+:func:`flash_attention_with_lse` returns the output and L without
+autograd (the plain pair on the CPU). ``BWD_LAUNCHES`` counts backward
+calls.
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ from repro_torch.kernels.flash_attention import ref
 
 #: Kernel launches so far (a plain count; callers reset it to 0).
 LAUNCHES = 0
-#: Backward calls so far, three kernel launches each (a plain count).
+#: Backward calls so far, three kernel launches each on either route
+#: (delta, dK/dV, dQ) (a plain count).
 BWD_LAUNCHES = 0
 
 #: The square head dims (D = DV) both routes take.
@@ -72,18 +79,21 @@ _FN = None
 _BWD = None
 
 
+def _route_name(dtype: torch.dtype) -> str:
+    if dtype == torch.bfloat16:
+        return "tensor_core"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise TypeError(f"the kernel takes {DTYPES}, got {dtype}")
+
+
 def route(dtype: torch.dtype, D: int, DV: int | None = None) -> str:
     """The kernel a CUDA call with inputs of ``dtype``, q/k head dim
     ``D`` and v head dim ``DV`` (default ``D``) launches:
     ``"tensor_core"`` for bfloat16, ``"cuda_core"`` for float32. Raises
     ``ValueError`` for a pair that kernel does not take."""
     DV = D if DV is None else DV
-    if dtype == torch.bfloat16:
-        name = "tensor_core"
-    elif dtype == torch.float32:
-        name = "cuda_core"
-    else:
-        raise TypeError(f"the kernel takes {DTYPES}, got {dtype}")
+    name = _route_name(dtype)
     if (D, DV) not in PAIRS[name]:
         others = [p for p in PAIRS[name] if p[0] != p[1]]
         raise ValueError(f"the {name} kernel ({dtype}) takes D in "
@@ -97,7 +107,7 @@ def _kernel():
     if _FN is None:
         lib = build.load("flash_attention")
         fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -160,29 +170,34 @@ def _check(q, k, v, window):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        _check_bwd_pair(q, v)
+        bwd_route(q.dtype, D, DV)
 
 
-def _launch(q, k, v, causal, window, scale):
+def _launch(q, k, v, causal, window, scale, keep_lse=False):
+    """(out, L): the forward kernel's output and, with ``keep_lse``, each
+    row's log-sum-exp, float32 (B, H, S) (else None)."""
     global LAUNCHES
     _check(q, k, v, window)
     B, S, H, D = q.shape
     T, KH, DV = k.shape[1], k.shape[2], v.shape[3]
     out = q.new_empty(B, S, H, DV)
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if keep_lse else None)
     if S == 0 or B == 0:  # nothing to launch
-        return out
+        return out, lse
     fn, error_string, _ = _kernel()
     tensor_core = route(q.dtype, D, DV) == "tensor_core"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, H, KH, S, T, D, DV, int(causal), int(window),
-                float(scale), int(tensor_core), stream)
+                None if lse is None else lse.data_ptr(), B, H, KH, S, T, D,
+                DV, int(causal), int(window), float(scale),
+                int(tensor_core), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"{error_string(rc).decode()} ({rc})")
     LAUNCHES += 1
-    return out
+    return out, lse
 
 
 def _bwd_kernel():
@@ -190,34 +205,71 @@ def _bwd_kernel():
     if _BWD is None:
         lib = build.load("flash_attention_bwd")
         fn = lib.flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
-        _BWD = (fn, lib.flash_attention_bwd_error_string)
+        attrs = lib.flash_attention_bwd_attributes
+        attrs.argtypes = ([ctypes.c_int] * 2
+                          + [ctypes.POINTER(ctypes.c_int)] * 4)
+        attrs.restype = ctypes.c_int
+        _BWD = (fn, lib.flash_attention_bwd_error_string, attrs)
     return _BWD
 
 
-def _check_bwd_pair(q, v):
-    pair = (q.shape[-1], v.shape[-1])
-    if pair not in BWD_PAIRS:
+def bwd_route(dtype: torch.dtype, D: int, DV: int | None = None) -> str:
+    """The backward kernels a CUDA call with inputs of ``dtype`` and head
+    dims ``D`` and ``DV`` (default ``D``) launches: ``"tensor_core"``
+    for bfloat16 (``wgmma`` + TMA), ``"cuda_core"`` for float32. Raises
+    ``ValueError`` for a pair outside ``BWD_PAIRS``."""
+    DV = D if DV is None else DV
+    name = _route_name(dtype)
+    if (D, DV) not in BWD_PAIRS:
         raise ValueError(f"the flash-attention kernel has no backward at "
-                         f"(D, DV) = {pair} (it takes {BWD_PAIRS}); a "
+                         f"(D, DV) = {(D, DV)} (it takes {BWD_PAIRS}); a "
                          f"gradient at this pair comes with a later slice")
+    return name
 
 
-def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
+#: The backward's kernels, in launch order, as
+#: ``flash_attention_bwd_attributes`` numbers them.
+BWD_KERNELS = ("delta", "dkdv", "dq")
+
+
+def backward_attributes(D: int) -> dict:
+    """Registers and local (spilled) bytes a thread, static and dynamic
+    shared memory a block, of each kernel of the tensor-core backward at
+    head dim ``D`` (``cudaFuncGetAttributes``), by ``BWD_KERNELS``."""
+    _, error_string, attrs = _bwd_kernel()
+    found = {}
+    for i, name in enumerate(BWD_KERNELS):
+        out = [ctypes.c_int() for _ in range(4)]
+        rc = attrs(D, i, *(ctypes.byref(x) for x in out))
+        if rc != 0:
+            raise RuntimeError(f"cudaFuncGetAttributes failed: "
+                               f"{error_string(rc).decode()} ({rc})")
+        found[name] = dict(zip(("registers", "local_bytes",
+                                "static_smem_bytes", "dynamic_smem_bytes"),
+                               (x.value for x in out)))
+    return found
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         window: int = 0, scale: float | None = None):
     """(dq, dk, dv) of :func:`flash_attention` for CUDA tensors in the
-    model's layout, given its output ``out`` for these q, k, v and the
-    output's cotangent ``dout`` (B, S, H, D): the backward kernels of
-    ``csrc/flash_attention_bwd.cu``, launched on the current stream,
-    gradients in q's type."""
+    model's layout, given its output ``out`` for these q, k, v, the
+    log-sum-exp ``lse`` (B, H, S) that the forward kept with it (both
+    from :func:`flash_attention_with_lse`) and the output's cotangent
+    ``dout`` (B, S, H, D): three launches of ``csrc/flash_attention_bwd.cu``
+    on the current stream and on :func:`bwd_route`'s kernels (delta =
+    rowsum(dout * out) into a float32 (B, H, S) scratch, then dK/dV, then
+    dQ), gradients in q's type."""
     global BWD_LAUNCHES
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     _check(q, k, v, window)
-    _check_bwd_pair(q, v)
+    tensor_core = bwd_route(q.dtype, q.shape[-1],
+                            v.shape[-1]) == "tensor_core"
     dout = dout.contiguous()
     for name, t in (("out", out), ("dout", dout)):
         if (t.shape != q.shape[:3] + v.shape[3:] or t.dtype != q.dtype
@@ -228,18 +280,22 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
+    if (lse.shape != (B, H, S) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 {(B, H, S)} "
+                         f"tensor on {q.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B == 0 or S == 0:
         return dq, dk.zero_(), dv.zero_()
-    scratch = torch.empty(2 * B * H * S, dtype=torch.float32,
-                          device=q.device)
-    fn, error_string = _bwd_kernel()
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    fn, error_string, _ = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                scratch.data_ptr(), B, H, KH, S, T, D, int(causal),
-                int(window), float(scale), int(q.dtype == torch.bfloat16),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KH, S, T,
+                D, int(causal), int(window), float(scale), int(tensor_core),
                 stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: "
@@ -249,21 +305,23 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool = True,
 
 
 class _Flash(torch.autograd.Function):
-    """The forward kernel, differentiated by the backward kernels."""
+    """The forward kernel, keeping L, differentiated by the backward
+    kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out = _launch(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _launch(q, k, v, causal, window, scale, keep_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mode = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale = ctx.mode
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, causal=causal,
-                                         window=window, scale=scale)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=causal, window=window,
+                                         scale=scale)
         return dq, dk, dv, None, None, None
 
 
@@ -284,4 +342,24 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         _check(q, k, v, window)  # a pair the backward takes, before a launch
         return _Flash.apply(q, k, v, causal, window, scale)
-    return _launch(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal, window, scale)[0]
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             window: int = 0, scale: float | None = None):
+    """(out, L): :func:`flash_attention`'s output and each row's
+    log-sum-exp, float32 (B, H, S), as :func:`flash_attention_bwd` takes
+    them. CUDA tensors launch the forward kernel with L; CPU tensors take
+    the plain pair (``ref.attention`` and ``ref.attention_lse``). No
+    gradient flows through it."""
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+    mode = dict(causal=causal, window=window, scale=scale)
+    with torch.no_grad():
+        if q.device.type == "cpu":
+            out = flash_attention(q, k, v, **mode)
+            return out, ref.attention_lse(q.transpose(1, 2),
+                                          k.transpose(1, 2), **mode)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                             f"{q.device}")
+        return _launch(q, k, v, causal, window, scale, keep_lse=True)
