@@ -26,7 +26,10 @@ flash-attention kernel without a mask in the encoder and the
 cross-attention), and LM training: smollm-135m at full width through
 ``launch/train.py::main``, Perona ranking the hosts first, a host
 failure and a restart from a checkpoint (the flash-attention forward
-and its backward kernel, and the edge-softmax kernels).
+and its backward kernel, and the edge-softmax kernels), and
+RecurrentGemma's training at every published width through
+``launch/train.py::make_step`` and at small scale through ``main`` (the
+RG-LRU scan's forward and backward kernels and flash's).
 
     python3 chip_smoke.py
 
@@ -273,8 +276,9 @@ Phases, each printing on lines of its own:
    autograd on the card) against the plain version's autograd, dq, dk
    and dv at |a - b| <= TOL (1 + |b|), the cotangent zeroed at rows with
    no live key for the plain version: (H, KH) (9, 3)/(16, 2)/(16, 16)/
-   (8, 4), D 16/64/128/256, causal with window 0 and 1024 and without a
-   mask over T = S and T = 1500, S 1/777/4096, f32 and bf16; 576 bf16
+   (8, 4)/(16, 1), D 16/64/128/256, causal with window 0, 1024 and 2048
+   and without a mask over T = S and T = 1500, S 1/777/4096, f32 and
+   bf16; 576 bf16
    tile edges (S 31..191 around multiples of 32 and 64, T = S and about
    S / 2, windows 0/1/65, no mask); 5 launches bit for bit at smollm's
    training problem; (b) the five small decoders against
@@ -300,6 +304,35 @@ Phases, each printing on lines of its own:
    repeated or ``enable_gqa``, the faster; the window as a boolean mask)
    and the backend nearest its gradients; the bf16 forward without and
    with L at D = 128 and D = 256, in turns.
+23. RecurrentGemma's training: (a) the RG-LRU backward kernel
+   (``ops.linear_scan_bwd``) against ``ref.linear_scan_bwd`` at |a - b|
+   <= TOL (1 + |b|) over da, db and dh0: S 1/31/32/33/63/64/65/1000/4096
+   by C 1/100/128/4096, B 1/4, with and without h0 and g_last (288
+   cases), its order in plain PyTorch measured; 20 launches at B=4
+   S=4096 C=4096 bit for bit; a long-memory case against float64 (e_k <=
+   1.5 e_p); one launch through autograd at B=2 S=4096; the flash
+   backward on both routes at the cell's (B 2, H 16, KH 1, S 4096, D 256,
+   window 2048); (b) the small RecurrentGemma against
+   ``lm_train_recurrentgemma_small_golden.npz`` as [22b], the RG-LRU and
+   flash backwards launched; (c) ``recurrentgemma-9b`` at every published
+   width with its body cut to 2 of 12 periods (8 layers, 2.64 B
+   parameters: its weights, gradients and float32 moments fit the card,
+   the full depth's do not), bf16 seed-0 weights, 12 steps of B 2 x S
+   4096 through ``make_step`` with AdamW (in place) under
+   ``cosine_schedule(3e-4, 10, 12)``: losses finite and falling, the
+   launches a step (RG-LRU 10 forward, 6 backward; flash 4 and 2), step
+   time, tokens/s, peak memory, a profiled step; at the trained weights,
+   B 1 x S 1024, the loss and every gradient through the kernels against
+   the plain versions in float32 (1e-4), and in bf16 each route's
+   distance from the float32 plain route, the kernels' within max(1e-1,
+   1.25 x) the plain versions'; then
+   ``launch.train.main`` on the small RecurrentGemma, 20 steps, a failure
+   at step 12 (21 finite losses, one restart, the backward kernels
+   launched); (d) the RG-LRU backward at B 1 and 2, S 4096, C 4096 (back
+   to back and in a CUDA graph, bound, TB/s, scratch, plain version) and
+   the flash backward at (c)'s problem beside its bound and SDPA's.
+   A script that imports this one and calls ``phase_card()``,
+   ``phase_build()`` and ``phase_rg_train()`` runs it alone.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -1487,8 +1520,8 @@ def _top_device(prof, n=10):
 
 
 # the port's kernels, as the profiler names them (csrc/*.cu)
-PORT_KERNELS = ("rg_lru_scan_kernel", "flash_fwd", "flash_bwd", "mlstm_",
-                "edge_softmax_fwd", "edge_softmax_bwd")
+PORT_KERNELS = ("rg_lru_scan_kernel", "rg_lru_scan_bwd_kernel", "flash_fwd",
+                "flash_bwd", "mlstm_", "edge_softmax_fwd", "edge_softmax_bwd")
 # the flash backward's three kernels, as the profiler names them
 FLASH_BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
 
@@ -5469,12 +5502,13 @@ def phase_whisper():
 
 # ------------------------------------------- LM training (phase [22])
 # (a) the flash backward kernel against the plain version's autograd:
-# the (H, KH) of the zoo's training shapes at every square head dim, in
-# the four modes of the forward's path (causal without a window and with
-# gemma3's 1024; no mask over T = S and over whisper's 1500 keys)
-FLASH_BWD_HEADS = ((9, 3), (16, 2), (16, 16), (8, 4))
-FLASH_BWD_MODES = ((True, 0, None), (True, 1024, None), (False, 0, None),
-             (False, 0, 1500))
+# the (H, KH) of the zoo's and RecurrentGemma's training shapes at every
+# square head dim, in the five modes of the forward's path (causal
+# without a window and with gemma3's 1024 and RecurrentGemma's 2048; no
+# mask over T = S and over whisper's 1500 keys)
+FLASH_BWD_HEADS = ((9, 3), (16, 2), (16, 16), (8, 4), (16, 1))
+FLASH_BWD_MODES = ((True, 0, None), (True, 1024, None), (True, 2048, None),
+                   (False, 0, None), (False, 0, 1500))
 FLASH_BWD_S = (1, 777, 4096)
 # bf16 tile edges around the backward's tiles (64 query rows, 64 or 32
 # keys), T = S and T about S / 2 (rows with no live key under a window)
@@ -5498,8 +5532,9 @@ FLASH_LSE_TIMED = (FLASH_BWD_D128, (1, 16, 1, 4096, 256, 2048))
 FLASH_BWD_FLOP_RATIO = 2.5
 # what the bf16 backward is, for the kernels line
 FLASH_BWD_DESIGN = ("tensor cores: wgmma m64n64 S^T/dP^T and m64nD dV/dK "
-                    "(P^T, dS^T as register A operands), TMA rings of two "
-                    "64-row stages, one warpgroup a block, L kept by the "
+                    "(P^T, dS^T as register A operands, each as two bf16 "
+                    "terms), TMA rings of two 64-row stages, one warpgroup "
+                    "a block, L and the float32 output kept by the "
                     "forward; delta pre-pass, dK/dV, dQ (no atomics); dK "
                     "and dV in separate blocks at D = 256")
 # (b) card vs the JAX package's CPU outputs, float32 on both sides: the
@@ -5539,7 +5574,11 @@ def flash_bwd_errors(q, k, v, dout, causal, window):
     cotangent zeroed at rows with no live key (the kernels give 0 there,
     the plain version the mean of v, whose gradient the kernels do not
     have): (max |a - b| / (1 + |b|), max |a - b|) over dq, dk and dv; the
-    first is the reference's kernel check, ``atol = rtol = TOL``."""
+    first is the reference's kernel check, ``atol = rtol = TOL``. A
+    float32 kernel is held against the plain version evaluated in
+    float64: at a GQA group of 16 a float32 dK or dV sums 16 x 4096
+    terms, where the plain version's own float32 sums are no exact
+    reference at TOL."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -5549,15 +5588,17 @@ def flash_bwd_errors(q, k, v, dout, causal, window):
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     got = torch.autograd.grad(fa_ops.flash_attention(*leaves, **mode),
                               leaves, dout)
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    want = torch.autograd.grad(_plain_flash(*leaves, **mode), leaves,
-                               dout * live[None, :, None, None].to(dout.dtype))
+    wide = torch.float64 if q.dtype == torch.float32 else q.dtype
+    leaves = [t.detach().to(wide).requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        _plain_flash(*leaves, **mode), leaves,
+        dout.to(wide) * live[None, :, None, None].to(wide))
     scaled = absolute = 0.0
     for a, b in zip(got, want):
-        check(a.shape == b.shape and a.dtype == b.dtype,
+        check(a.shape == b.shape and a.dtype == q.dtype,
               "flash backward shapes and type")
-        diff = (a.float() - b.float()).abs()
-        scaled = max(scaled, float((diff / (1 + b.float().abs())).max()))
+        diff = (a.double() - b.double()).abs()
+        scaled = max(scaled, float((diff / (1 + b.double().abs())).max()))
         absolute = max(absolute, float(diff.max()))
     return scaled, absolute
 
@@ -5670,12 +5711,13 @@ def lm_train_golden_errors(golden, device="cuda"):
     is near 0 (Adam moves an element by about lr * m_hat / sqrt(v_hat),
     whose direction there turns on errors far below the gradient
     check's), and the later gradients with them. Returns the errors and
-    the flash launches of the first step."""
+    the flash and RG-LRU launches of the first step."""
     import numpy as np
 
     from repro_torch.common.tree import flatten, unflatten_as
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as lru_ops
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models.model_zoo import build_model
     from repro_torch.models.params import cast_params
@@ -5698,10 +5740,13 @@ def lm_train_golden_errors(golden, device="cuda"):
                                  getattr(golden, key)[i]),
                   f"{cfg.name}: batch_at({i}) {key} equals the golden's")
         fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+        lru_ops.LAUNCHES = lru_ops.BWD_LAUNCHES = 0
         (loss, met), grads = value_and_grad(model.loss, params, batch)
         if i == 0:
             out["launches"] = {"forward": fa_ops.LAUNCHES,
                                "backward": fa_ops.BWD_LAUNCHES}
+            out["lru_launches"] = {"forward": lru_ops.LAUNCHES,
+                                   "backward": lru_ops.BWD_LAUNCHES}
             for name, got in (("loss", loss), ("ce", met["ce"]),
                               ("aux", met["aux"])):
                 want = getattr(golden, name)
@@ -5763,30 +5808,37 @@ def phase_lm_train_golden():
     return out
 
 
+def _flat_grads(model, params, batch, plain=False):
+    """(loss, {leaf: gradient}) through the kernels or their plain
+    versions."""
+    from repro_torch.common.tree import flatten
+    from repro_torch.launch.steps import value_and_grad
+
+    with plain_versions() if plain else contextlib.nullcontext():
+        (loss, _), grads = value_and_grad(model.loss, params, batch)
+    return float(loss), flatten(grads)
+
+
+def _l2(a, b):
+    import torch
+
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
 def _grad_distances(model, params, batch, tol, label):
     """Loss and gradients through the kernels and through the plain
     versions on one batch: relative distance of the losses and the
     largest relative L2 distance of a gradient leaf."""
-    import torch
-
-    from repro_torch.common.tree import flatten
-    from repro_torch.launch.steps import value_and_grad
-
-    (lk, _), gk = value_and_grad(model.loss, params, batch)
-    with plain_versions():
-        (lp, _), gp = value_and_grad(model.loss, params, batch)
-    gk, gp = flatten(gk), flatten(gp)
-    worst, leaf = 0.0, None
-    for key in gp:
-        d = float(torch.linalg.vector_norm((gk[key] - gp[key]).float())
-                  / torch.linalg.vector_norm(gp[key].float()).clamp_min(
-                      1e-30))
-        if d > worst:
-            worst, leaf = d, key
-    loss = abs(float(lk) - float(lp)) / abs(float(lp))
-    print(f"  {label}: loss {float(lk):.5f} (kernels) vs {float(lp):.5f} "
-          f"(plain), relative {loss:.2e}; largest gradient relative L2 "
-          f"{worst:.2e} ({leaf}) (tol {tol:g})")
+    lk, gk = _flat_grads(model, params, batch)
+    lp, gp = _flat_grads(model, params, batch, plain=True)
+    dist = {key: _l2(gk[key], gp[key]) for key in gp}
+    leaf = max(dist, key=dist.get)
+    worst, loss = dist[leaf], abs(lk - lp) / abs(lp)
+    print(f"  {label}: loss {lk:.5f} (kernels) vs {lp:.5f} (plain), "
+          f"relative {loss:.2e}; largest gradient relative L2 {worst:.2e} "
+          f"({leaf}) (tol {tol:g})")
     check(loss <= tol and worst <= tol, f"{label}: kernels vs plain")
     return {"loss": loss, "grads": worst, "leaf": leaf}
 
@@ -6103,6 +6155,511 @@ def phase_lm_train():
     return out
 
 
+# ------------------------------------ RecurrentGemma training (phase [23])
+RG = "recurrentgemma-9b"
+# (a) the RG-LRU backward kernel against ref.linear_scan_bwd at
+# |a - b| <= TOL (1 + |b|): S around the 32-step chunks and long, C
+# around the 128-channel tiles and the model's width
+LRU_BWD_S = (1, 31, 32, 33, 63, 64, 65, 1000, 4096)
+LRU_BWD_C = (1, 100, 128, 4096)
+LRU_BWD_B = (1, 4)
+# timed at the model's width, B 1 and the training cell's B 2
+LRU_BWD_TIMED = ((1, 4096, 4096), (2, 4096, 4096))
+LRU_BWD_DESIGN = ("single-pass chunked scan with a decoupled look-back, "
+                  "walked from the last chunk: tiles of 32 steps x 128 "
+                  "channels (one a thread, a, g and y in registers), tickets "
+                  "chunk-major from the last chunk, aggregates of dh -> a' dh "
+                  "+ g with a'_t = a_{t+1}, the prefix recursion in a fixed "
+                  "order (bit-identical runs); da = dh * y_{t-1}, db = dh, "
+                  "dh0 = a_0 dh_0")
+# the flash backward at RecurrentGemma's local attention, B 2 (the cell's)
+RG_FLASH_BWD = (2, 16, 1, 4096, 256, 2048)  # (B, H, KH, S, D, window)
+# (c) the full-width cell: every published width, the body cut to 2 of its
+# 12 periods (the card's 80 GB hold 2.64 B parameters' weights, gradients
+# and two float32 moments, 31.7 GB, not 8.58 B's 103 GB), plus the tail
+RG_PERIODS = 2
+RG_B, RG_S, RG_STEPS = 2, 4096, 12
+RG_LR = (3e-4, 10, 12)  # cosine_schedule(peak, warmup, steps), AdamW
+RG_TIMED_FROM = 2  # steps after the first two
+RG_CHECK_B, RG_CHECK_S = 1, 1024  # kernels vs plain, bounding the plain loop
+# launches a step: the body's 4 RG-LRU and 2 attention layers run their
+# forward twice (remat), the tail's 2 RG-LRU layers once
+RG_LAUNCHES = {"rg_lru_fwd": 10, "rg_lru_bwd": 6, "flash_fwd": 4,
+               "flash_bwd": 2}
+RG_MAIN_CKPT = ROOT / "build" / "chip_rg_ckpt"
+RG_MAIN_ARGV = ["--arch", RG, "--scale", "small", "--steps", "20",
+                "--fail-at", "12", "--checkpoint-every", "10", "--device",
+                "cuda", "--ckpt-dir", str(RG_MAIN_CKPT)]
+RG_MAIN_LOSSES = 21  # 20 steps, step 11 run twice
+
+
+def _lru_bwd_inputs(g, B, S, C):
+    """The forward's a, b, h0 (``_lru_inputs``), its y from the kernel,
+    and normal cotangents g_y, g_last."""
+    import torch
+
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+
+    a, b, h0 = _lru_inputs(g, B, S, C)
+    y, _ = lru_ops.linear_scan(a, b, h0)
+    g_y = torch.randn(B, S, C, generator=g, device="cuda")
+    g_last = torch.randn(B, C, generator=g, device="cuda")
+    return a, y, h0, g_y, g_last
+
+
+def lru_bwd_errors(a, y, h0, g_y, g_last):
+    """The backward kernel against ``ref.linear_scan_bwd``: (max |a - b| /
+    (1 + |b|), max |a - b|) over da, db and dh0, and the largest
+    difference from its order in plain PyTorch
+    (``ref.linear_scan_bwd_chunked``, measured)."""
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    got = lru_ops.linear_scan_bwd(a, y, h0, g_y, g_last)
+    want = lru_ref.linear_scan_bwd(a, y, h0, g_y, g_last)
+    order = lru_ref.linear_scan_bwd_chunked(a, y, h0, g_y, g_last,
+                                            chunk=lru_ops.TILE_STEPS)
+    check((got[2] is None) == (h0 is None), "dh0 with h0 only")
+    scaled = absolute = chunked = 0.0
+    for x, w, c in zip(got, want, order):
+        if w is None:
+            continue
+        diff = (x - w).abs()
+        scaled = max(scaled, float((diff / (1 + w.abs())).max()))
+        absolute = max(absolute, float(diff.max()))
+        chunked = max(chunked, float((x - c).abs().max()))
+    return scaled, absolute, chunked
+
+
+def _lru_bwd_long_memory(g):
+    """B=1 S=4096 C=4096 with the forward's long-memory inputs
+    (``_lru_long_memory``), h0 and g_last given: the kernel's and the
+    float32 plain version's relative L2 distances from the plain version
+    in float64, over da, db and dh0 (the largest of each)."""
+    import torch
+
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    B, S, C = 1, 4096, 4096
+    base = torch.rand(1, 1, C, generator=g, device="cuda") * 0.0999 + 0.9
+    a = base ** torch.sigmoid(torch.randn(B, S, C, generator=g,
+                                          device="cuda"))
+    b = torch.randn(B, S, C, generator=g, device="cuda")
+    h0 = torch.randn(B, C, generator=g, device="cuda")
+    y, _ = lru_ops.linear_scan(a, b, h0)
+    g_y = torch.randn(B, S, C, generator=g, device="cuda")
+    g_last = torch.randn(B, C, generator=g, device="cuda")
+    args = (a, y, h0, g_y, g_last)
+    exact = lru_ref.linear_scan_bwd(*args, dtype=torch.float64)
+    routes = {"e_k": lru_ops.linear_scan_bwd(*args),
+              "e_p": lru_ref.linear_scan_bwd(*args)}
+    out = {k: max(float((x.double() - w).norm() / w.norm())
+                  for x, w in zip(got, exact))
+           for k, got in routes.items()}
+    out["max_da"] = float(exact[0].abs().max())
+    limit = LRU_F64_MARGIN * out["e_p"]
+    print(f"  rg_lru backward long memory (B=1 S=4096 C=4096, |da| up to "
+          f"{out['max_da']:.1f}): vs float64 e_k {out['e_k']:.3e}, e_p "
+          f"{out['e_p']:.3e}, e_k / e_p {out['e_k'] / out['e_p']:.3f}, "
+          f"limit {limit:.3e}")
+    check(out["e_k"] <= limit, f"rg_lru backward long memory: e_k "
+                               f"{out['e_k']} <= {LRU_F64_MARGIN} e_p")
+    return out
+
+
+def phase_rg_train_kernels():
+    """(a) The RG-LRU backward kernel against its plain version, bit for
+    bit from launch to launch, against float64 with long memory, and
+    through autograd; the flash backward at RecurrentGemma's training
+    problem on both routes."""
+    import torch
+
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    out = {"attributes": lru_ops.attributes(backward=True)}
+    tol, n = TOL["float32"], 0
+    worst = {"scaled": 0.0, "abs": 0.0, "chunked_order": 0.0}
+    for S, C, B, with_h0, with_g_last in itertools.product(
+            LRU_BWD_S, LRU_BWD_C, LRU_BWD_B, (True, False), (True, False)):
+        a, y, h0, g_y, g_last = _lru_bwd_inputs(g, B, S, C)
+        errs = lru_bwd_errors(a, y, h0 if with_h0 else None, g_y,
+                              g_last if with_g_last else None)
+        label = (f"B={B} S={S} C={C} h0={with_h0} g_last={with_g_last}")
+        check(errs[0] <= tol, f"rg_lru backward vs plain, {label}: "
+                              f"{errs[0]}")
+        for key, e in zip(worst, errs):
+            worst[key] = max(worst[key], e)
+        n += 1
+    out["errors"] = worst
+    print(f"  rg_lru backward: {n} cases (S {LRU_BWD_S}, C {LRU_BWD_C}, B "
+          f"{LRU_BWD_B}, h0 and g_last or not), largest |a - b| / (1 + |b|)"
+          f" over da, db, dh0 {worst['scaled']:.3e} (tol {tol:g}), max abs "
+          f"{worst['abs']:.3e}; vs its order in plain PyTorch "
+          f"{worst['chunked_order']:.3e} (measured); registers "
+          f"{out['attributes']['registers']}, local bytes "
+          f"{out['attributes']['local_bytes']}")
+    a, y, _, g_y, _ = _lru_bwd_inputs(g, 4, 4096, 4096)
+    first = lru_ops.linear_scan_bwd(a, y, None, g_y)
+    for i in range(1, LRU_REPEATS):
+        again = lru_ops.linear_scan_bwd(a, y, None, g_y)
+        check(all(torch.equal(x, z) for x, z in zip(first[:2], again[:2])),
+              f"rg_lru backward launch {i} equals launch 0 bit for bit")
+    print(f"  rg_lru backward determinism: {LRU_REPEATS} launches at B=4 "
+          f"S=4096 C=4096 equal bit for bit ok")
+    del a, y, g_y, first, again
+    out["long_memory"] = _lru_bwd_long_memory(g)
+    # through autograd, as the model reaches it: one backward launch
+    a, b, h0 = (t.requires_grad_() for t in _lru_inputs(g, 2, 4096, 4096))
+    before = lru_ops.BWD_LAUNCHES
+    y, h_last = lru_ops.linear_scan(a, b, h0)
+    g_y, g_last = torch.randn_like(y), torch.randn_like(h_last)
+    got = torch.autograd.grad([y, h_last], [a, b, h0], [g_y, g_last])
+    check(lru_ops.BWD_LAUNCHES == before + 1,
+          "autograd launched the backward kernel once")
+    want = lru_ref.linear_scan_bwd(a.detach(), y.detach(), h0.detach(), g_y,
+                                   g_last)
+    out["main"] = max(float(((x - w).abs() / (1 + w.abs())).max())
+                      for x, w in zip(got, want))
+    out["main_abs"] = max(float((x - w).abs().max())
+                          for x, w in zip(got, want))
+    check(out["main"] <= tol, f"rg_lru backward through autograd at B=2 "
+                              f"S=4096 C=4096: {out['main']}")
+    print(f"  rg_lru backward through autograd (B=2 S=4096 C=4096, h0 and "
+          f"g_last): 1 launch, vs plain {out['main']:.3e} (max abs "
+          f"{out['main_abs']:.3e})")
+    del a, b, h0, y, h_last, g_y, g_last, got, want
+    B, H, KH, S, D, W = RG_FLASH_BWD
+    out["flash_bwd"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v = _flash_inputs(g, B, H, KH, S, D, dtype)
+        dout = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+        err, absolute = flash_bwd_errors(q, k, v, dout, True, W)
+        check(err <= TOL[name], f"flash backward at RecurrentGemma's "
+                                f"problem, {name}: {err}")
+        out["flash_bwd"][name] = {"scaled": err, "abs": absolute}
+        print(f"  flash backward at RecurrentGemma's training problem (B={B}"
+              f" H={H} KH={KH} S={S} D={D} window={W} causal {name}): "
+              f"{err:.3e} (tol {TOL[name]:g}), max abs {absolute:.3e}")
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_rg_train_golden():
+    """(b) The small RecurrentGemma against
+    ``lm_train_recurrentgemma_small_golden.npz``, through the kernels."""
+    from repro_torch.models.params import load_lm_train_golden
+
+    golden = load_lm_train_golden(RG)
+    out = lm_train_golden_errors(golden)
+    print(f"  small {RG}: loss terms {out['loss']:.2e} (rtol "
+          f"{LM_LOSS_RTOL:g}), gradients {out['grads']:.2e} (rtol "
+          f"{LM_GRAD_RTOL:g}, every step), parameters after "
+          f"{golden.tokens.shape[0]} AdamW steps on the JAX gradients "
+          f"{out['params']:.2e} (atol {LM_PARAMS_ATOL:g}); launches a step: "
+          f"RG-LRU {out['lru_launches']}, flash {out['launches']}")
+    check(out["lru_launches"]["forward"] > 0
+          and out["lru_launches"]["backward"] > 0
+          and out["launches"]["backward"] > 0,
+          "the small RecurrentGemma launched the RG-LRU forward and backward "
+          "and the flash backward")
+    return out
+
+
+def _rg_launches():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+
+    return {"rg_lru_fwd": lru_ops.LAUNCHES, "rg_lru_bwd": lru_ops.BWD_LAUNCHES,
+            "flash_fwd": fa_ops.LAUNCHES, "flash_bwd": fa_ops.BWD_LAUNCHES}
+
+
+def _zero_rg_launches():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+
+    lru_ops.LAUNCHES = lru_ops.BWD_LAUNCHES = 0
+    fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+
+
+def _rg_vs_plain(model, model32, params, batch):
+    """(c) The loss and every gradient leaf through the kernels against
+    the plain versions on one batch, at the trained weights. In float32
+    (the bf16 weights widened) at FULL_F32_REL_TOL, relative L2: the sharp
+    check. In bf16 some leaves carry about one digit: at these weights (a
+    loss of some 270) the first attention layer's wq gradient sits 0.11
+    from the float32 plain route through either route (measured on the
+    card, NVIDIA H100 80GB HBM3, 700 W), so each bf16 route is held by its
+    distance from the float32 plain route, as the bf16 xLSTM's logits are:
+    the kernels' at most max(FULL_BF16_REL_TOL, XLSTM_F32_MARGIN x) the
+    plain versions', leaf by leaf and on the loss; the bf16 kernels-vs-
+    plain distance is printed."""
+    import torch
+
+    from repro_torch.common.tree import tree_cast
+
+    params32 = tree_cast(params, torch.float32)
+    l32, exact = _flat_grads(model32, params32, batch, plain=True)
+    l32k, g = _flat_grads(model32, params32, batch)
+    del params32
+    f32 = {k: _l2(g[k], exact[k]) for k in exact}
+    del g
+    torch.cuda.empty_cache()
+    out = {"float32": {"loss": abs(l32k - l32) / abs(l32),
+                       "grads": max(f32.values()),
+                       "leaf": max(f32, key=f32.get)}}
+    lk, gk = _flat_grads(model, params, batch)
+    lp, gp = _flat_grads(model, params, batch, plain=True)
+    d_k = {k: _l2(gk[k], exact[k]) for k in exact}
+    d_p = {k: _l2(gp[k], exact[k]) for k in exact}
+    kp = {k: _l2(gk[k], gp[k]) for k in exact}
+    del gk, gp, exact
+    torch.cuda.empty_cache()
+    loss_k, loss_p = abs(lk - l32) / abs(l32), abs(lp - l32) / abs(l32)
+
+    def limit(e_p):
+        return max(FULL_BF16_REL_TOL, XLSTM_F32_MARGIN * e_p)
+
+    worst = max(d_k, key=lambda k: d_k[k] / limit(d_p[k]))
+    out["bfloat16"] = {
+        "loss_k": loss_k, "loss_p": loss_p, "leaf": worst,
+        "e_k": d_k[worst], "e_p": d_p[worst], "max_e_k": max(d_k.values()),
+        "max_e_p": max(d_p.values()), "kernels_vs_plain": max(kp.values()),
+        "kernels_vs_plain_leaf": max(kp, key=kp.get),
+        "loss_kernels_vs_plain": abs(lk - lp) / abs(lp)}
+    b = out["bfloat16"]
+    print(f"  full width at B {RG_CHECK_B} x S {RG_CHECK_S}, kernels vs plain "
+          f"versions: float32 loss {out['float32']['loss']:.2e}, largest "
+          f"gradient relative L2 {out['float32']['grads']:.2e} "
+          f"({out['float32']['leaf']}) (tol {FULL_F32_REL_TOL:g}); bf16 from "
+          f"the float32 plain route: loss {loss_k:.2e} (kernels) vs "
+          f"{loss_p:.2e} (plain), gradients up to {b['max_e_k']:.3e} vs "
+          f"{b['max_e_p']:.3e}, nearest its limit {worst}: e_k "
+          f"{b['e_k']:.3e}, e_p {b['e_p']:.3e}, limit max("
+          f"{FULL_BF16_REL_TOL:g}, {XLSTM_F32_MARGIN:g} e_p); bf16 kernels "
+          f"vs plain (measured) loss {b['loss_kernels_vs_plain']:.2e}, "
+          f"gradients up to {b['kernels_vs_plain']:.3e} "
+          f"({b['kernels_vs_plain_leaf']})")
+    check(out["float32"]["loss"] <= FULL_F32_REL_TOL
+          and out["float32"]["grads"] <= FULL_F32_REL_TOL,
+          "full width float32, kernels vs plain")
+    check(loss_k <= limit(loss_p),
+          f"bf16 loss from float32: kernels {loss_k}, plain {loss_p}")
+    for k in d_k:
+        check(d_k[k] <= limit(d_p[k]), f"bf16 gradient {k} from float32: "
+                                       f"kernels {d_k[k]}, plain {d_p[k]}")
+    return out
+
+
+def phase_rg_train_full():
+    """(c) recurrentgemma-9b at every published width, its body cut to
+    RG_PERIODS periods, trained by ``launch/train.py::make_step``; then
+    ``launch.train.main`` on the small RecurrentGemma across a failure."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    full = get_config(RG)
+    cfg = dataclasses.replace(
+        full, n_periods=RG_PERIODS,
+        n_layers=RG_PERIODS * len(full.body_pattern) + len(full.tail_pattern))
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  {RG} at full width (d_model {cfg.d_model}, lru {cfg.lru_width}"
+          f", {cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+          f"{cfg.local_window}, chunked_ce {cfg.chunked_ce}, remat "
+          f"{cfg.remat}), {cfg.n_layers} of {full.n_layers} layers "
+          f"({cfg.layer_kinds}): {n_params / 1e9:.3f} B parameters, "
+          f"{cfg.dtype}, drawn in {time.perf_counter() - t0:.1f} s")
+    # in place: the functional update would hold two copies of the 21 GB
+    # of float32 moments
+    opt = AdamW(lr=cosine_schedule(*RG_LR), inplace=True)
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step = train.make_step(model, opt)
+    pipe = TokenPipeline(cfg.vocab_size, RG_S, RG_B, seed=0)
+    losses, step_ms = [], []
+    _zero_rg_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    for i in range(RG_STEPS):
+        batch = pipe.batch_at(i)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state["params"], state["opt"], loss = step(state["params"],
+                                                   state["opt"], batch)
+        end.record()
+        losses.append(float(loss))
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    seconds = time.perf_counter() - t0
+    launches = _rg_launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / RG_STEPS for k, v in launches.items()}
+    check(per_step == RG_LAUNCHES, f"launches a step: {per_step}")
+    check(bool(np.all(np.isfinite(losses))), f"finite losses: {losses}")
+    check(float(np.mean(losses[-4:])) < losses[0],
+          f"the loss falls: {losses[0]} -> {np.mean(losses[-4:])}")
+    median = statistics.median(step_ms[RG_TIMED_FROM:])
+    out = {"layers": cfg.n_layers, "params": n_params, "losses": losses,
+           "step_ms": step_ms, "median_step_ms": median,
+           "tokens_per_s": RG_B * RG_S / median * 1e3,
+           "peak_memory_gb": peak / 1e9, "launches": launches,
+           "launches_per_step": per_step, "seconds": seconds}
+    print(f"  {RG_STEPS} steps of B {RG_B} x S {RG_S} through make_step "
+          f"(AdamW, cosine_schedule{RG_LR}) in {seconds:.1f} s: losses "
+          f"{losses[0]:.4f} -> mean of the last four "
+          f"{np.mean(losses[-4:]):.4f}; step (CUDA events, median after "
+          f"{RG_TIMED_FROM}) {median:.2f} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s; peak memory {out['peak_memory_gb']:.2f} GB; launches "
+          f"a step {per_step}")
+
+    batch = pipe.batch_at(RG_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    device_us, top = _top_device(prof)
+    port = _port_device(prof)
+    split = _device_by_name(prof, FLASH_BWD_KERNELS)
+    out["profile"] = {
+        "wall_s": wall, "device_s": device_us / 1e6,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "top": [{"name": k[:90], "us": us, "count": c} for us, c, k in top],
+        "port_kernels": {k: {"us": us, "count": c}
+                         for k, (us, c) in port.items()},
+        "flash_bwd_split": {k: {"us": us, "count": c}
+                            for k, (us, c) in split.items()}}
+    print(f"  profiled step: {wall * 1e3:.1f} ms wall, {device_us / 1e3:.1f} "
+          f"ms of device activity, idle share "
+          f"{out['profile']['device_idle_share']:.4f}; the port's kernels: "
+          + ", ".join(f"{k} {us / 1e3:.3f} ms x{c} ({us / device_us:.2%})"
+                      for k, (us, c) in port.items()) + "; top device "
+          "entries:")
+    for us, c, k in top:
+        print(f"    {us:10.1f} us x{c:4d}  {k[:90]}")
+    params = state.pop("params")
+    del state, batch
+    torch.cuda.empty_cache()
+    check_pipe = TokenPipeline(cfg.vocab_size, RG_CHECK_S, RG_CHECK_B,
+                               seed=0)
+    out["vs_plain"] = _rg_vs_plain(
+        model, build_model(dataclasses.replace(cfg, dtype="float32")),
+        params, check_pipe.batch_at(0))
+    del params
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(RG_MAIN_CKPT, ignore_errors=True)
+    _zero_rg_launches()  # the entry point's run starts here
+    t0 = time.perf_counter()
+    result = train.main(RG_MAIN_ARGV)
+    main_launches = _rg_launches()  # ... and ends here
+    main_losses = result["losses"]
+    check(len(main_losses) == RG_MAIN_LOSSES and result["restarts"] == 1,
+          f"{len(main_losses)} losses, {result['restarts']} restarts")
+    check(bool(np.all(np.isfinite(main_losses))), "every loss is finite")
+    check(main_launches["rg_lru_bwd"] > 0 and main_launches["flash_bwd"] > 0,
+          f"main launched the backward kernels: {main_launches}")
+    out["main"] = {"seconds": time.perf_counter() - t0,
+                   "losses": main_losses, "restarts": result["restarts"],
+                   "launches": main_launches,
+                   "events": [(e.step, e.kind, e.detail)
+                              for e in result["events"]]}
+    print(f"  launch.train.main({' '.join(RG_MAIN_ARGV)}): "
+          f"{out['main']['seconds']:.1f} s; {len(main_losses)} losses, "
+          f"{main_losses[0]:.4f} -> {main_losses[-1]:.4f}; restarts "
+          f"{result['restarts']}; events {out['main']['events']}; launches "
+          f"{main_launches}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_lru_bwd(g):
+    """(d) The backward kernel at LRU_BWD_TIMED (the model passes no h0 and
+    no g_last): back to back and in a CUDA graph, its byte bound (a, g, y
+    read, da, db written: 20 bytes a (b, t, c)), TB/s, scratch, and the
+    plain version's time."""
+    from repro_torch.kernels.rg_lru import ops as lru_ops
+    from repro_torch.kernels.rg_lru import ref as lru_ref
+
+    rows = {}
+    for B, S, C in LRU_BWD_TIMED:
+        a, y, _, g_y, _ = _lru_bwd_inputs(g, B, S, C)
+
+        def call():
+            return lru_ops.linear_scan_bwd(a, y, None, g_y)
+
+        ms = cuda_ms(call, 50)
+        nbytes = 20 * B * S * C
+        row = {"shape": f"B={B} S={S} C={C} float32", "ms": ms,
+               "graph_ms": graph_ms(call),
+               "plain_ms": cuda_ms(
+                   lambda: lru_ref.linear_scan_bwd(a, y, None, g_y), 2),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library_ms": None, "bytes": nbytes,
+               "tb_per_s": nbytes / ms / 1e9,
+               "scratch_bytes": lru_ops.scratch_bytes(B, S, C)}
+        rows[row["shape"]] = row
+        print(f"  rg_lru backward {row['shape']}: kernel {ms:.4f} ms "
+              f"({row['tb_per_s']:.2f} TB/s), in a CUDA graph "
+              f"{row['graph_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_ms'] / ms:.1%}; {nbytes / 1e6:.1f} MB), plain "
+              f"{row['plain_ms']:.2f} ms, scratch "
+              f"{row['scratch_bytes'] / 1e6:.2f} MB; no PyTorch call computes "
+              f"a linear recurrence")
+        del a, y, g_y
+    return rows
+
+
+def phase_rg_train():
+    import torch
+
+    print(f"[23] RecurrentGemma training: the RG-LRU backward kernel vs its "
+          f"plain version, the small RecurrentGemma's loss, gradients and "
+          f"AdamW steps vs the JAX package's "
+          f"(lm_train_recurrentgemma_small_golden.npz), {RG} at full width "
+          f"with {RG_PERIODS} body periods (B {RG_B} x S {RG_S}, "
+          f"{RG_STEPS} steps), launch.train.main across a failure, and the "
+          f"backwards' times")
+    out = {}
+    t0 = time.perf_counter()
+    out["kernel_errors"] = phase_rg_train_kernels()
+    print(f"    -- (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["golden"] = phase_rg_train_golden()
+    print(f"    -- (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["full"] = phase_rg_train_full()
+    print(f"    -- (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    out["timing"] = {"rg_lru_bwd": time_lru_bwd(g),
+                     "flash_bwd": time_flash_bwd(g, *RG_FLASH_BWD)}
+    print(f"    -- (d) {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6250,6 +6807,11 @@ def main() -> int:
     # the counts of its kernels to 0 before it and reads them after
     lm_train = timed("LM training", seconds, phase_lm_train)
     bwd = lm_train["timing"]["smollm"]
+    # RecurrentGemma's training: its full-width steps and its entry point's
+    # run each set the counts of their kernels to 0 before and read them
+    # after
+    rg_train = timed("RecurrentGemma training", seconds, phase_rg_train)
+    lru_bwd = rg_train["timing"]["rg_lru_bwd"]["B=1 S=4096 C=4096 float32"]
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -6404,6 +6966,33 @@ def main() -> int:
         "forward_with_lse_ms": lm_train["forward_lse"],
         "errors": lm_train["kernel_errors"],
         "launches_per_step": lm_train["full"]["launches_per_step"],
+        "recurrentgemma": {
+            **rg_train["timing"]["flash_bwd"],
+            "launches": rg_train["full"]["launches"]["flash_bwd"],
+            "launches_per_step":
+                rg_train["full"]["launches_per_step"]["flash_bwd"],
+            "errors": rg_train["kernel_errors"]["flash_bwd"]},
+    }, {
+        "name": "rg_lru_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/rg_lru.cu",
+        "replaces": "src/repro/kernels/rg_lru/ops.py:31",
+        "launches": rg_train["full"]["launches"]["rg_lru_bwd"],
+        "max_abs_err": rg_train["kernel_errors"]["main_abs"],
+        "ms": lru_bwd["ms"],
+        "plain_ms": lru_bwd["plain_ms"],
+        "bound_ms": lru_bwd["bound_ms"],
+        "bound_by": lru_bwd["bound_by"],
+        "library_ms": lru_bwd["library_ms"],
+        "shape": lru_bwd["shape"],
+        "design": LRU_BWD_DESIGN,
+        "graph_ms": lru_bwd["graph_ms"],
+        "scratch_bytes": lru_bwd["scratch_bytes"],
+        "by_shape": rg_train["timing"]["rg_lru_bwd"],
+        "attributes": rg_train["kernel_errors"]["attributes"],
+        "launches_per_step": rg_train["full"]["launches_per_step"][
+            "rg_lru_bwd"],
+        "launches_main": rg_train["full"]["main"]["launches"]["rg_lru_bwd"],
     }]
     card = card_line()
     REPORT.parent.mkdir(parents=True, exist_ok=True)
@@ -6427,9 +7016,9 @@ def main() -> int:
         "model_plane": {**model_plane, "launches": plane_launches},
         "search": {**search, "launches": search_launches},
         "lm_zoo": zoo, "mla_mrope": mla, "whisper": whisper,
-        "lm_training": lm_train},
+        "lm_training": lm_train, "recurrentgemma_training": rg_train},
         indent=1, default=str))
-    print(f"[23] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[24] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -38,6 +38,12 @@
 // m = -1e30 and l = 0: its L is about -1e30 (-6.9e29 from the bf16
 // kernel), and the backward masks its pairs explicitly.
 //
+// The float32 output. With a non-null `out32` (the autograd forward of the
+// bf16 route passes one) the bf16 kernel also writes O in float32, before
+// its rounding to bf16, into out32 (B, S, H, DV): the backward's delta =
+// rowsum(dO * O) taken from the bf16 O can sit a few 1e-2 of 1 + |g| from
+// the reference's where a row's delta is large against its largest P.
+//
 // Two kernels, chosen by the input type:
 //   - float32: the CUDA-core kernel below (`flash_fwd_kernel`), whose checks
 //     against the plain version are held at 2e-5; tensor cores reach that
@@ -415,8 +421,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           bf16* __restrict__ out, float* __restrict__ lse,
-                          int heads, int kv_heads, int q_len, int k_len,
-                          int causal, int window, float scale_log2) {
+                          float* __restrict__ out32, int heads, int kv_heads,
+                          int q_len, int k_len, int causal, int window,
+                          float scale_log2) {
   using L = Layout<DQK, DV>;
   constexpr int CK = L::CK, CV = L::CV, RBK = L::RBK, RBV = L::RBV;
   constexpr int kNT = kBK / 8;  // score n-tiles of 8 keys
@@ -647,6 +654,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncwarp();
   const int o_stride = heads * DV;  // between positions
   bf16* oh = out + (long long)b * q_len * o_stride + (long long)h * DV;
+  if (out32 != nullptr) {  // O before its rounding, from the registers
+    float* o32 = out32 + (long long)b * q_len * o_stride + (long long)h * DV;
+#pragma unroll
+    for (int t = 0; t < kDT; ++t)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (r_lo + 8 * i < q_len)
+          *reinterpret_cast<float2*>(o32 + (r_lo + 8 * i) * o_stride +
+                                     8 * t + 2 * (lane % 4)) =
+              make_float2(o[4 * t + 2 * i] * inv[i],
+                          o[4 * t + 2 * i + 1] * inv[i]);
+  }
   constexpr int kChunks = DV / 8;  // 16-byte chunks of a row
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks;
@@ -659,9 +678,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int batch, int heads, int kv_heads,
-                   int q_len, int k_len, int causal, int window, float scale,
-                   cudaStream_t stream) {
+                   float* lse, float* out32, int batch, int heads,
+                   int kv_heads, int q_len, int k_len, int causal, int window,
+                   float scale, cudaStream_t stream) {
   using L = Layout<DQK, DV>;
   // a runtime call first: it makes the device's primary context current
   // on this thread (autograd's worker, recomputing a checkpointed forward,
@@ -677,8 +696,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     return cudaErrorInvalidValue;
   const dim3 grid((q_len + kBQ - 1) / kBQ, heads, batch);
   flash_fwd_bf16_kernel<DQK, DV><<<grid, kThreads, L::kBytes, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(out), lse, heads, kv_heads, q_len,
-      k_len, causal, window, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<bf16*>(out), lse, out32, heads, kv_heads,
+      q_len, k_len, causal, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -717,10 +736,12 @@ cudaError_t attributes(int* regs, int* local_bytes, int* static_smem,
 // head dim below 2^31; window <= 0 means no window. A case that the chosen
 // kernel does not take returns cudaErrorInvalidValue: neither kernel
 // stands in for the other. `lse` is null, or float32 (B, H, S) for the
-// log-sum-exp of every row (see the note at the top).
+// log-sum-exp of every row; `out32` is null, or on the bf16 route float32
+// like out for O before its rounding (see the notes at the top).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse,
-                                   int batch, int heads, int kv_heads,
+                                   void* out32, int batch, int heads,
+                                   int kv_heads,
                                    int q_len, int k_len, int head_dim,
                                    int v_head_dim, int causal, int window,
                                    float scale, int is_bf16, void* stream) {
@@ -733,13 +754,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  float* o32 = static_cast<float*>(out32);
+  if (!is_bf16 && o32 != nullptr) return (int)cudaErrorInvalidValue;
   if (!is_bf16)
     return (int)dispatch<float>(q, k, v, out, l, batch, heads, kv_heads,
                                 q_len, k_len, head_dim, v_head_dim, causal,
                                 window, scale, s);
 #define FLASH_BF16_LAUNCH(DQK, DV)                                         \
   if (head_dim == DQK && v_head_dim == DV)                                 \
-    return (int)tc::launch<DQK, DV>(q, k, v, out, l, batch, heads,        \
+    return (int)tc::launch<DQK, DV>(q, k, v, out, l, o32, batch, heads,   \
                                     kv_heads, q_len, k_len, causal, window, \
                                     scale, s);
   FLASH_BF16_PAIRS(FLASH_BF16_LAUNCH)

@@ -32,7 +32,8 @@
 //   (b) dK/dV, one block per (key tile, kv head, batch row): K and V of the
 //       tile stay in shared memory while the block walks every query head
 //       of the group and every query tile that holds a live pair for the
-//       tile; dK and dV accumulate in registers across the group;
+//       tile; each query tile's terms are summed apart and added to dK
+//       and dV, which accumulate in registers across the group;
 //   (c) dQ, one block per (query tile, head, batch row): walks the live key
 //       tiles and accumulates dQ in registers.
 //
@@ -58,8 +59,12 @@
 //     memory); P^T and dS^T in float32 on the accumulator fragments, the
 //     mask applied element by element only in a tile with a masked pair;
 //     dV += P^T dO and dK += dS^T Q (wgmma m64nDk16, P^T and dS^T taken
-//     from the accumulators as bf16 register A operands, as the forward's
-//     P V, dO and Q as MN-major B operands). At D = 256, dK and dV would
+//     from the accumulators as bf16 register A operands, dO and Q as
+//     MN-major B operands), each product twice: with P^T and dS^T rounded
+//     to bf16 and with what the rounding left, so that their float32
+//     values reach the sums with 16 bits of mantissa (one rounding left
+//     dV 2.06e-2 of 1 + |g| from the oracle at a group of 16 heads on
+//     one kv head, S 4096, window 2048). At D = 256, dK and dV would
 //     take 256 float32 registers a thread: the grid's z holds two blocks a
 //     (key tile, batch row), one for dV (S^T, dV) and one for dK (S^T,
 //     dP^T, dK), 16 D flops a pair in (b) and (c) instead of 14 D;
@@ -164,10 +169,12 @@ struct DeltaLanes {
 };
 
 // (a) delta of every (batch row, position, head) row of O and dO, which
-// lie D elements apart in the model's layout (B, S, H, D), into (B, H, S).
-template <typename T, int D>
+// lie D elements apart in the model's layout (B, S, H, D), into (B, H, S);
+// O of type TO: T, or float32 before the forward's rounding to T.
+template <typename TO, typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+    flash_bwd_delta_kernel(const TO* __restrict__ o,
+                           const T* __restrict__ dout,
                            float* __restrict__ delta, int heads, int q_len,
                            long long rows) {
   constexpr int kVec = DeltaLanes<T, D>::kVec;
@@ -179,7 +186,9 @@ __global__ void __launch_bounds__(kThreads)
   if (row < rows) {
     for (int d = lane * kVec; d < D; d += kLanes * kVec) {
       float x[kVec], y[kVec];
-      load16(o + row * D + d, x);
+#pragma unroll
+      for (int e = 0; e < kVec; e += 16 / (int)sizeof(TO))
+        load16(o + row * D + d + e, x + e);
       load16(dout + row * D + d, y);
 #pragma unroll
       for (int e = 0; e < kVec; ++e) sum = fmaf(x[e], y[e], sum);
@@ -195,15 +204,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename TO, typename T, int D>
 cudaError_t launch_delta(const void* out, const void* dout, float* delta,
                          int batch, int heads, int q_len,
                          cudaStream_t stream) {
   constexpr int kRows = kThreads / DeltaLanes<T, D>::value;  // a block
   const long long rows = (long long)batch * q_len * heads;
-  flash_bwd_delta_kernel<T, D>
+  flash_bwd_delta_kernel<TO, T, D>
       <<<(unsigned)((rows + kRows - 1) / kRows), kThreads, 0, stream>>>(
-          static_cast<const T*>(out), static_cast<const T*>(dout), delta,
+          static_cast<const TO*>(out), static_cast<const T*>(dout), delta,
           heads, q_len, rows);
   return cudaGetLastError();
 }
@@ -325,6 +334,17 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();  // P and dS are complete
 
+      // the tile's kBQ terms are summed apart and then added: one float32
+      // chain through every live row of the group (16 heads x 4096 rows
+      // at RecurrentGemma's) rounded dK and dV past 2e-5 of 1 + |b|
+      float part_k[kRows][kOut], part_v[kRows][kOut];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kOut; ++c) {
+          part_k[i][c] = 0.f;
+          part_v[i][c] = 0.f;
+        }
 #pragma unroll 4
       for (int qq = 0; qq < kBQ; ++qq) {
         float p[kRows], ds[kRows];
@@ -339,11 +359,18 @@ __global__ void __launch_bounds__(kThreads)
           const float x = sQ[qq * LD + tx + 16 * c];
 #pragma unroll
           for (int i = 0; i < kRows; ++i) {
-            acc_v[i][c] = fmaf(p[i], go, acc_v[i][c]);
-            acc_k[i][c] = fmaf(ds[i], x, acc_k[i][c]);
+            part_v[i][c] = fmaf(p[i], go, part_v[i][c]);
+            part_k[i][c] = fmaf(ds[i], x, part_k[i][c]);
           }
         }
       }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int c = 0; c < kOut; ++c) {
+          acc_k[i][c] += part_k[i][c];
+          acc_v[i][c] += part_v[i][c];
+        }
     }
   }
 
@@ -524,7 +551,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const float* dot = static_cast<const float*>(dout);
   const int q_tiles = (q_len + kBQ - 1) / kBQ;
   const int k_tiles = (k_len + S::kBK - 1) / S::kBK;
-  err = launch_delta<float, D>(out, dout, delta, batch, heads, q_len, stream);
+  err = launch_delta<float, float, D>(out, dout, delta, batch, heads, q_len,
+                                      stream);
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<D>
       <<<dim3(k_tiles, kv_heads, batch), kThreads, S::dkdv, stream>>>(
@@ -625,6 +653,18 @@ __device__ __forceinline__ void to_a(const float* acc, uint32_t (*a)[4]) {
     for (int i = 0; i < 2; ++i)
       a[t / 2][2 * (t % 2) + i] =
           pack_bf16(acc[4 * t + 2 * i], acc[4 * t + 2 * i + 1]);
+}
+// what to_a's rounding left of the same accumulator, acc - bf16(acc), as
+// a bf16 A operand: the two products carry 16 bits of its mantissa
+__device__ __forceinline__ void to_a_lo(const float* acc, uint32_t (*a)[4]) {
+#pragma unroll
+  for (int t = 0; t < kTile / 8; ++t)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float x = acc[4 * t + 2 * i], y = acc[4 * t + 2 * i + 1];
+      const float2 hi = unpack_bf16(pack_bf16(x, y));
+      a[t / 2][2 * (t % 2) + i] = pack_bf16(x - hi.x, y - hi.y);
+    }
 }
 template <int N>
 __device__ __forceinline__ void pin_all(float* x) {
@@ -820,30 +860,36 @@ __device__ __forceinline__ void dkdv_block(
         if constexpr (kK) dpt[4 * t + e] = p * (dpt[4 * t + e] - tD[col]);
       }
 
-    // dV += P^T dO and dK += dS^T Q, over the tile's 64 queries
-    if constexpr (kV) {
-      to_a(st, pa);
-      pin_all(pa);
-      pin_all<T::kAcc>(dv_acc);
-    }
-    if constexpr (kK) {
-      to_a(dpt, da);
-      pin_all(da);
-      pin_all<T::kAcc>(dk_acc);
-    }
-    wgmma_fence();
-    if constexpr (kV) product_rs<D>(dv_acc, pa, tO);
-    if constexpr (kK) product_rs<D>(dk_acc, da, tQ);
-    wgmma_commit();
-    wgmma_wait_all();
-    // the A operands stay live until the products are done
-    if constexpr (kV) {
-      pin_all<T::kAcc>(dv_acc);
-      pin_all(pa);
-    }
-    if constexpr (kK) {
-      pin_all<T::kAcc>(dk_acc);
-      pin_all(da);
+    // dV += P^T dO and dK += dS^T Q, over the tile's 64 queries, each
+    // product twice: with P^T and dS^T rounded to bf16, then with what the
+    // rounding left (one bf16 operand put dV 2.06e-2 of 1 + |g| from the
+    // oracle at RecurrentGemma's group of 16, past the bf16 limit)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if constexpr (kV) {
+        half ? to_a_lo(st, pa) : to_a(st, pa);
+        pin_all(pa);
+        pin_all<T::kAcc>(dv_acc);
+      }
+      if constexpr (kK) {
+        half ? to_a_lo(dpt, da) : to_a(dpt, da);
+        pin_all(da);
+        pin_all<T::kAcc>(dk_acc);
+      }
+      wgmma_fence();
+      if constexpr (kV) product_rs<D>(dv_acc, pa, tO);
+      if constexpr (kK) product_rs<D>(dk_acc, da, tQ);
+      wgmma_commit();
+      wgmma_wait_all();
+      // the A operands stay live until the products are done
+      if constexpr (kV) {
+        pin_all<T::kAcc>(dv_acc);
+        pin_all(pa);
+      }
+      if constexpr (kK) {
+        pin_all<T::kAcc>(dk_acc);
+        pin_all(da);
+      }
     }
     __syncthreads();  // stage s is no longer read
     if (j + kStages < n) {
@@ -1039,10 +1085,11 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* out, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int batch,
-                   int heads, int kv_heads, int q_len, int k_len, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   const void* out, int out_f32, const void* dout,
+                   const float* lse, float* delta, void* dq, void* dk,
+                   void* dv, int batch, int heads, int kv_heads, int q_len,
+                   int k_len, int causal, int window, float scale,
+                   cudaStream_t stream) {
   using T = Tiles<D>;
   // runtime calls first: they make the device's primary context current
   // on this thread (autograd's worker may have none yet), which
@@ -1061,7 +1108,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !tensor_map(&tv, v, batch, k_len, kv_heads, D, T::C, kTile) ||
       !tensor_map(&tdo, dout, batch, q_len, heads, D, T::C, kTile))
     return cudaErrorInvalidValue;
-  err = launch_delta<bf16, D>(out, dout, delta, batch, heads, q_len, stream);
+  err = out_f32 ? launch_delta<float, bf16, D>(out, dout, delta, batch,
+                                               heads, q_len, stream)
+                : launch_delta<bf16, bf16, D>(out, dout, delta, batch, heads,
+                                              q_len, stream);
   if (err != cudaSuccess) return err;
   const int k_tiles = (k_len + kTile - 1) / kTile;
   const int q_tiles = (q_len + kTile - 1) / kTile;
@@ -1087,7 +1137,7 @@ cudaError_t attributes(int kernel, int* regs, int* local_bytes,
                        int* static_smem, int* dynamic_smem) {
   const void* fn =
       kernel == 0 ? reinterpret_cast<const void*>(
-                        ::flash_bwd_delta_kernel<bf16, D>)
+                        ::flash_bwd_delta_kernel<bf16, bf16, D>)
       : kernel == 1
           ? reinterpret_cast<const void*>(flash_bwd_dkdv_bf16_kernel<D>)
           : reinterpret_cast<const void*>(flash_bwd_dq_bf16_kernel<D>);
@@ -1107,9 +1157,11 @@ cudaError_t attributes(int kernel, int* regs, int* local_bytes,
 // launch error (0 = all queued). q, out, dout and dq are (B, S, H, D); k,
 // v, dk and dv (B, T, KH, D): contiguous, 16-byte aligned, all float32
 // (tensor_core = 0: the CUDA-core kernels) or all bfloat16 (tensor_core =
-// 1: the tensor-core kernels); `out` is the forward's output for these q,
-// k, v and `lse` the float32 (B, H, S) log-sum-exp that the forward kept
-// with it; `delta` is float32 (B, H, S) scratch, which the first kernel
+// 1: the tensor-core kernels), except `out`, float32 on the tensor cores
+// too when out_f32 (the forward's O before its rounding); `out` is the
+// forward's output for these q, k, v and `lse` the float32 (B, H, S)
+// log-sum-exp that the forward kept with it; `delta` is float32 (B, H, S)
+// scratch, which the first kernel
 // fills with rowsum(dout * out) and the other two read. H % KH == 0, D in
 // {16, 64, 128, 256}, S*H*D and T*KH*D below 2^31, B <= 32767 on the
 // tensor cores at D = 256 (two dK/dV blocks a batch row); window <= 0
@@ -1122,12 +1174,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int batch, int heads, int kv_heads,
                                    int q_len, int k_len, int head_dim,
                                    int causal, int window, float scale,
-                                   int tensor_core, void* stream) {
+                                   int tensor_core, int out_f32,
+                                   void* stream) {
   if (batch <= 0 || batch > 65535 || heads <= 0 || heads > 65535 ||
       kv_heads <= 0 || heads % kv_heads != 0 || q_len <= 0 || k_len <= 0 ||
       head_dim <= 0 || (long long)q_len * heads * head_dim >= (1LL << 31) ||
       (long long)k_len * kv_heads * head_dim >= (1LL << 31) ||
-      (tensor_core && head_dim > 128 && batch > 32767))
+      (tensor_core && head_dim > 128 && batch > 32767) ||
+      (out_f32 && !tensor_core))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -1135,9 +1189,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 #define FLASH_BWD_CASE(D)                                                     \
   if (head_dim == D)                                                          \
     return (int)(tensor_core                                                  \
-                     ? tc::launch<D>(q, k, v, out, dout, l, d, dq, dk, dv,    \
-                                     batch, heads, kv_heads, q_len, k_len,    \
-                                     causal, window, scale, s)                \
+                     ? tc::launch<D>(q, k, v, out, out_f32, dout, l, d, dq,   \
+                                     dk, dv, batch, heads, kv_heads, q_len,   \
+                                     k_len, causal, window, scale, s)         \
                      : launch<D>(q, k, v, out, dout, l, d, dq, dk, dv, batch, \
                                  heads, kv_heads, q_len, k_len, causal,       \
                                  window, scale, s));

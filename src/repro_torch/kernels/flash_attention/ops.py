@@ -29,8 +29,11 @@ the reference's ``ref``, gives the mean of v over all keys there.
 
 On CUDA the call is differentiable through a ``torch.autograd.Function``
 whose forward launches the forward kernel, which also writes each row's
-log-sum-exp L (float32 ``(B, H, S)``; a call without grad writes none),
-and saves q, k, v, the output and L; its backward launches the
+log-sum-exp L (float32 ``(B, H, S)``; a call without grad writes none)
+and, on the bf16 route, the output before its rounding in float32, and
+saves q, k, v, that output and L (delta from the bf16 output sat up to
+2.06e-2 of 1 + |g| from the reference's oracle on the card, past the
+bf16 limit); its backward launches the
 hand-written backward of ``csrc/flash_attention_bwd.cu``
 (:func:`flash_attention_bwd`: a pre-pass for ``delta = rowsum(dO * O)``,
 then dK/dV and dQ from L). :func:`bwd_route` names its kernels by the
@@ -107,7 +110,7 @@ def _kernel():
     if _FN is None:
         lib = build.load("flash_attention")
         fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -173,9 +176,10 @@ def _check(q, k, v, window):
         bwd_route(q.dtype, D, DV)
 
 
-def _launch(q, k, v, causal, window, scale, keep_lse=False):
+def _launch(q, k, v, causal, window, scale, keep_lse=False, out32=None):
     """(out, L): the forward kernel's output and, with ``keep_lse``, each
-    row's log-sum-exp, float32 (B, H, S) (else None)."""
+    row's log-sum-exp, float32 (B, H, S) (else None). ``out32``, on the
+    bf16 route, takes the output before its rounding, float32."""
     global LAUNCHES
     _check(q, k, v, window)
     B, S, H, D = q.shape
@@ -190,8 +194,9 @@ def _launch(q, k, v, causal, window, scale, keep_lse=False):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), B, H, KH, S, T, D,
-                DV, int(causal), int(window), float(scale),
+                None if lse is None else lse.data_ptr(),
+                None if out32 is None else out32.data_ptr(), B, H, KH, S, T,
+                D, DV, int(causal), int(window), float(scale),
                 int(tensor_core), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
@@ -206,7 +211,8 @@ def _bwd_kernel():
         lib = build.load("flash_attention_bwd")
         fn = lib.flash_attention_bwd
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -264,7 +270,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     ``dout`` (B, S, H, D): three launches of ``csrc/flash_attention_bwd.cu``
     on the current stream and on :func:`bwd_route`'s kernels (delta =
     rowsum(dout * out) into a float32 (B, H, S) scratch, then dK/dV, then
-    dQ), gradients in q's type."""
+    dQ), gradients in q's type. ``out`` is in q's type, or float32: the
+    bf16 forward's output before its rounding, which ``_Flash`` keeps so
+    that delta carries no rounding of O."""
     global BWD_LAUNCHES
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     _check(q, k, v, window)
@@ -272,7 +280,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                             v.shape[-1]) == "tensor_core"
     dout = dout.contiguous()
     for name, t in (("out", out), ("dout", dout)):
-        if (t.shape != q.shape[:3] + v.shape[3:] or t.dtype != q.dtype
+        types = (q.dtype, torch.float32) if name == "out" else (q.dtype,)
+        if (t.shape != q.shape[:3] + v.shape[3:] or t.dtype not in types
                 or t.device != q.device or not t.is_contiguous()
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
@@ -296,7 +305,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KH, S, T,
                 D, int(causal), int(window), float(scale), int(tensor_core),
-                stream)
+                int(out.dtype != q.dtype), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: "
                            f"{error_string(rc).decode()} ({rc})")
@@ -305,13 +314,18 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
 
 
 class _Flash(torch.autograd.Function):
-    """The forward kernel, keeping L, differentiated by the backward
+    """The forward kernel, keeping L (and on the bf16 route the output
+    before its rounding, for delta), differentiated by the backward
     kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = _launch(q, k, v, causal, window, scale, keep_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out32 = (torch.empty(q.shape[:3] + v.shape[3:], dtype=torch.float32,
+                             device=q.device)
+                 if q.dtype == torch.bfloat16 else None)
+        out, lse = _launch(q, k, v, causal, window, scale, keep_lse=True,
+                           out32=out32)
+        ctx.save_for_backward(q, k, v, out if out32 is None else out32, lse)
         ctx.mode = (causal, window, scale)
         return out
 

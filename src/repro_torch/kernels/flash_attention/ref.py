@@ -1,8 +1,9 @@
 """Plain PyTorch version of causal / sliding-window GQA attention.
 
 Mirrors ``repro/kernels/flash_attention/ref.py``: materialized float32
-scores, masked to -1e30, softmax with the sum clamped to 1e-30, output
-in q's type. Layout q (B, H, S, D), k (B, KH, T, D) and v (B, KH, T, DV)
+scores (float64 for float64 inputs, the card's rounding-free control),
+masked to -1e30, softmax with the sum clamped to 1e-30, output in q's
+type. Layout q (B, H, S, D), k (B, KH, T, D) and v (B, KH, T, DV)
 with H % KH == 0; query i and key j sit at positions i and j. The output
 takes v's head dim (DeepSeek-V2's latent attention has D = 192 and
 DV = 128; the reference's oracle reshapes it to D and cannot run that).
@@ -33,7 +34,7 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     s = torch.where(live, s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
-    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.to(p.dtype))
     return o.reshape(B, H, S, v.shape[-1]).to(q.dtype)
 
 
@@ -50,13 +51,15 @@ def _live(S, T, causal, window, device):
 
 
 def _scores(q, k, causal, window, scale):
-    """float32 scores (B, KH, group, S, T) and the live pairs (S, T)."""
+    """float32 (float64 for float64 inputs) scores (B, KH, group, S, T)
+    and the live pairs (S, T)."""
     B, H, S, D = q.shape
     KH, T = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D) if scale is None else scale
+    acc = torch.promote_types(q.dtype, torch.float32)
     s = torch.einsum("bkgsd,bktd->bkgst",
-                     q.float().reshape(B, KH, H // KH, S, D),
-                     k.float()) * scale
+                     q.to(acc).reshape(B, KH, H // KH, S, D),
+                     k.to(acc)) * scale
     return s, _live(S, T, causal, window, q.device), scale
 
 

@@ -1,10 +1,10 @@
-"""Public wrapper of the RG-LRU linear scan (forward).
+"""Public wrapper of the RG-LRU linear scan, forward and backward.
 
-For CUDA tensors it launches the hand-written kernel of
+For CUDA tensors it launches the hand-written kernels of
 ``csrc/rg_lru.cu`` on the current stream; for CPU tensors it takes the
-plain version (``ref``). Nothing else picks the path: a CUDA tensor
-launches the kernel or raises. ``LAUNCHES`` counts the launches, one a
-call.
+plain versions (``ref``). Nothing else picks the path: a CUDA tensor
+launches the kernel or raises. ``LAUNCHES`` counts the forward's
+launches and ``BWD_LAUNCHES`` the backward's, one a call each.
 
 The kernel is a single-pass, chunk-parallel scan with a decoupled
 look-back, bound by the bytes of a, b and y:
@@ -27,9 +27,18 @@ tiles' flags and the ticket counter, which the launcher zeroes on the
 stream before the kernel. Unlike
 ``repro/kernels/rg_lru/kernel.py`` (which asks ``S % 256 == 0`` past 256
 steps) the kernel takes any S >= 1 and any C, and the wrapper pads
-nothing. The forward is not differentiable on CUDA yet: a call that
-would need a gradient raises ``ValueError`` naming its ROADMAP.md item,
-so an LM whose layers reach this kernel refuses a loss on the card.
+nothing.
+
+On CUDA, :func:`linear_scan` is the ``autograd.Function`` ``_Scan``: its
+forward launches the scan and saves a, y and h0 with
+``ctx.save_for_backward`` (so non-reentrant ``torch.utils.checkpoint``
+drops and recomputes them), and its backward launches the backward
+kernel (:func:`linear_scan_bwd`): the same look-back walked from the
+last chunk, over dh_t = a_{t+1} dh_{t+1} + g_t from dh_{S-1} = g_{S-1} +
+g_last, giving db = dh, da_t = dh_t h_{t-1} and dh0 = a_0 dh_0. It is
+the counterpart of the reference's VJP
+(``repro/kernels/rg_lru/ops.py::_scan_bwd``, ``jax.vjp`` of its plain
+scan). On the CPU autograd runs through the plain loop.
 """
 
 from __future__ import annotations
@@ -41,8 +50,10 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.rg_lru import ref
 
-#: Kernel launches so far (a plain count; callers reset it to 0).
+#: Kernel launches so far, forward and backward (plain counts; callers
+#: reset them to 0).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 #: The kernel's tile (``kSteps``, ``kThreads`` of ``csrc/rg_lru.cu``;
 #: :func:`tile` reads the built kernel's).
@@ -64,8 +75,14 @@ def _kernel():
         lib.rg_lru_scratch_bytes.restype = ctypes.c_longlong
         lib.rg_lru_tile.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.rg_lru_tile.restype = None
-        lib.rg_lru_attributes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
-        lib.rg_lru_attributes.restype = ctypes.c_int
+        bwd = lib.rg_lru_scan_bwd
+        bwd.argtypes = ([ctypes.c_void_p] * 9
+                        + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p])
+        bwd.restype = ctypes.c_int
+        for attrs in (lib.rg_lru_attributes, lib.rg_lru_bwd_attributes):
+            attrs.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+            attrs.restype = ctypes.c_int
         lib.rg_lru_error_string.argtypes = [ctypes.c_int]
         lib.rg_lru_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -90,19 +107,24 @@ def tile() -> tuple:
     return steps.value, channels.value
 
 
-def attributes() -> dict:
+def attributes(backward: bool = False) -> dict:
     """Registers and local (spilled) bytes a thread, static and dynamic
-    shared memory a block, of the kernel (``cudaFuncGetAttributes``)."""
+    shared memory a block, of the forward kernel or of the backward
+    (``cudaFuncGetAttributes``)."""
     lib = _kernel()
     out = [ctypes.c_int() for _ in range(4)]
-    rc = lib.rg_lru_attributes(*(ctypes.byref(x) for x in out))
+    fn = lib.rg_lru_bwd_attributes if backward else lib.rg_lru_attributes
+    rc = fn(*(ctypes.byref(x) for x in out))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: {_error(lib, rc)}")
     return dict(zip(("registers", "local_bytes", "static_smem_bytes",
                      "dynamic_smem_bytes"), (x.value for x in out)))
 
 
-def _check(a, b, h0):
+def _check(a, b, h0, named=()):
+    """a, b, h0 and any ``named`` (name, tensor) pairs (None for one that
+    is absent): float32, contiguous, on a's device, (B, C) for h0 and
+    g_last and (B, S, C) for the rest."""
     if a.dim() != 3:
         raise ValueError(f"a must be (B, S, C), got {tuple(a.shape)}")
     if b.shape != a.shape:
@@ -110,50 +132,102 @@ def _check(a, b, h0):
     B, S, C = a.shape
     if min(B, S, C) < 1:
         raise ValueError(f"the kernel takes B, S, C >= 1, got {(B, S, C)}")
-    if h0 is not None and h0.shape != (B, C):
-        raise ValueError(f"h0 {tuple(h0.shape)} != (B, C) {(B, C)}")
-    named = [("a", a), ("b", b)] + ([("h0", h0)] if h0 is not None else [])
+    named = [("a", a), ("b", b), ("h0", h0), *named]
     for name, t in named:
+        if t is None:
+            continue
+        want = (B, C) if name in ("h0", "g_last") else (B, S, C)
+        if t.shape != want:
+            raise ValueError(f"{name} {tuple(t.shape)} != {want}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != a.device:
             raise ValueError(f"{name} is on {t.device}, a on {a.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
-        raise ValueError(
-            "the CUDA RG-LRU kernel has no backward yet (ROADMAP.md "
-            "queue 2 item 3, with RecurrentGemma's training): call it under "
-            "torch.no_grad()")
 
 
-def _launch(a, b, h0):
-    global LAUNCHES
-    _check(a, b, h0)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _call(entry, a, *tensors):
+    """Launches the C entry ``entry`` on the tensors' pointers (None for
+    an absent one), a fresh scratch, a's shape and a's current stream;
+    raises on a launch the runtime refused."""
     B, S, C = a.shape
-    y = torch.empty_like(a)
-    h_last = torch.empty((B, C), dtype=torch.float32, device=a.device)
     lib = _kernel()
     scratch = torch.empty(scratch_bytes(B, S, C), dtype=torch.uint8,
                           device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.rg_lru_scan_fwd(
-            a.data_ptr(), b.data_ptr(),
-            None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            h_last.data_ptr(), scratch.data_ptr(), B, S, C, stream)
+        rc = getattr(lib, entry)(*map(_ptr, tensors), scratch.data_ptr(),
+                                 B, S, C, stream)
     if rc != 0:
-        raise RuntimeError(f"rg_lru kernel launch failed: {_error(lib, rc)}")
+        raise RuntimeError(f"{entry} launch failed: {_error(lib, rc)}")
+
+
+def _launch(a, b, h0):
+    global LAUNCHES
+    _check(a, b, h0)
+    y = torch.empty_like(a)
+    h_last = a.new_empty((a.shape[0], a.shape[2]))
+    _call("rg_lru_scan_fwd", a, a, b, h0, y, h_last)
     LAUNCHES += 1
     return y, h_last
+
+
+def _launch_bwd(a, y, h0, g_y, g_last, with_dh0):
+    global BWD_LAUNCHES
+    _check(a, y, h0, [("g_y", g_y), ("g_last", g_last)])
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0) if with_dh0 else None
+    _call("rg_lru_scan_bwd", a, a, y, h0, g_y, g_last, da, db, dh0)
+    BWD_LAUNCHES += 1
+    return da, db, dh0
+
+
+class _Scan(torch.autograd.Function):
+    """The scan on the card under autograd: the forward kernel, then the
+    backward kernel from the saved a, y and h0."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        ctx.set_materialize_grads(False)
+        y, h_last = _launch(a, b, h0)
+        ctx.save_for_backward(a, y, h0)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, g_y, g_last):
+        a, y, h0 = ctx.saved_tensors
+        # the model casts y to its compute type, so g_y may come narrower
+        g_y = (torch.zeros_like(a) if g_y is None
+               else g_y.to(torch.float32).contiguous())
+        if g_last is not None:
+            g_last = g_last.to(torch.float32).contiguous()
+        return _launch_bwd(a, y, h0, g_y, g_last, ctx.needs_input_grad[2])
+
+
+def _route(a):
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"linear_scan runs on cpu or cuda, not {a.device}")
+    return a.device.type
 
 
 def linear_scan(a, b, h0=None):
     """h_t = a_t * h_{t-1} + b_t. a, b: (B, S, C) float32; h0: optional
     (B, C) float32 (zeros when None). Returns (y (B, S, C), h_last
-    (B, C)), both float32."""
-    if a.device.type == "cpu":
+    (B, C)), both float32, differentiable in a, b and h0."""
+    if _route(a) == "cpu":
         return ref.linear_scan(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"linear_scan runs on cpu or cuda, not {a.device}")
-    return _launch(a, b, h0)
+    return _Scan.apply(a, b, h0)
+
+
+def linear_scan_bwd(a, y, h0, g_y, g_last=None):
+    """The scan's gradient: (da, db (B, S, C), dh0 (B, C) or None when h0
+    is None) from a, the forward's y, h0 and the cotangents g_y of y
+    (B, S, C) and g_last of h_last (B, C) or None; float32."""
+    if _route(a) == "cpu":
+        return ref.linear_scan_bwd(a, y, h0, g_y, g_last)
+    return _launch_bwd(a, y, h0, g_y, g_last, h0 is not None)

@@ -38,6 +38,12 @@ d, d)``), ``enc_norm``, and each decoder layer's ``norm_x`` and
 reference reads them; the linear biases (``.../b``) take the compute
 type, as the reference's ``linear`` casts them.
 
+:func:`load_lm_train_golden` reads the training golden files: the five
+small decoders' (``lm_train_small_golden.npz``, written by
+``tests/test_torch_lm_train.py --write``) and the small RecurrentGemma's
+(``lm_train_recurrentgemma_small_golden.npz``, written by
+``tests/test_torch_rg_lru_train.py --write``).
+
 :func:`load_whisper_golden` reads ``assets/lm_zoo_whisper_small_golden.npz``
 (``WHISPER_GOLDEN_PATH``, written by ``tests/test_torch_whisper.py
 --write``): the small whisper (``scaled_down(dtype="float32")``) with the
@@ -67,6 +73,7 @@ LM_ZOO_GOLDEN_PATH = ASSETS / "lm_zoo_small_golden.npz"
 LM_MLA_MROPE_GOLDEN_PATH = ASSETS / "lm_zoo_mla_mrope_small_golden.npz"
 WHISPER_GOLDEN_PATH = ASSETS / "lm_zoo_whisper_small_golden.npz"
 LM_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_small_golden.npz"
+RG_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_recurrentgemma_small_golden.npz"
 
 #: Ends of the leaf paths the reference reads in float32 whatever the
 #: compute type: norm scales and biases, the RG-LRU ``lambda``, the MoE
@@ -227,10 +234,19 @@ class LMTrainGolden:
     adamw: Dict[str, float]  # {"peak", "warmup", "steps"}: the schedule
 
 
-def load_lm_train_golden(arch: str, path=LM_TRAIN_GOLDEN_PATH
-                         ) -> LMTrainGolden:
-    """One small decoder of the training golden file, with its initial
-    parameters from ``lm_zoo_small_golden.npz``."""
+def load_lm_train_golden(arch: str, path=None) -> LMTrainGolden:
+    """One small model of a training golden file: the five decoders of
+    ``lm_train_small_golden.npz`` with their initial parameters from
+    ``lm_zoo_small_golden.npz``, or ``recurrentgemma-9b`` from
+    ``lm_train_recurrentgemma_small_golden.npz`` with its initial
+    parameters from ``recurrentgemma_small_golden.npz`` (the same JAX
+    init: the training configuration differs only in ``chunked_ce`` and
+    ``max_seq``, which make no parameter)."""
+    if arch == "recurrentgemma-9b":
+        path, init = path or RG_TRAIN_GOLDEN_PATH, (LM_GOLDEN_PATH, "")
+    else:
+        path, init = path or LM_TRAIN_GOLDEN_PATH, (LM_ZOO_GOLDEN_PATH,
+                                                    f"{arch}/")
     prefix = f"{arch}/"
     with np.load(path, allow_pickle=False) as z:
         g = {k[len(prefix):]: z[k] for k in z.files if k.startswith(prefix)}
@@ -243,8 +259,7 @@ def load_lm_train_golden(arch: str, path=LM_TRAIN_GOLDEN_PATH
                         if k.startswith(name + "/")}, config)
 
     return LMTrainGolden(
-        config=config, params=load_lm_golden(LM_ZOO_GOLDEN_PATH,
-                                             prefix).params,
+        config=config, params=load_lm_golden(*init).params,
         tokens=g["tokens"], labels=g["labels"], loss=float(g["loss"]),
         ce=float(g["ce"]), aux=float(g["aux"]),
         grads=[tree(f"grads/{i}") for i in range(len(g["tokens"]))],

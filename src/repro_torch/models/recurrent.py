@@ -6,7 +6,9 @@ The full-sequence RG-LRU (train, prefill) goes through the kernel
 wrapper ``kernels.rg_lru.ops.linear_scan`` and the full-sequence mLSTM
 through ``kernels.mlstm.ops.mlstm_chunkwise`` (the CUDA kernels on the
 card, their plain versions on the CPU); one decode step of either is
-plain tensor code, as in the reference. The sLSTM has no TPU kernel in
+plain tensor code, as in the reference. On the card the RG-LRU's
+gradient is the scan's backward kernel, so a Griffin model trains
+there; the mLSTM's wrapper still refuses a gradient on the card. The sLSTM has no TPU kernel in
 the reference (a ``lax.scan`` of jnp ops): here it is a Python loop
 over time. Gates are computed in the compute type, recurrences and
 states in float32 (float64 under a float64 compute type, the tests'

@@ -39,9 +39,10 @@ Layers write their caches in place, so :func:`prefill` and
 
 Training: :func:`loss_fn` (the reference's, with its vocab-chunked CE)
 runs the no-cache forward in "train" mode, differentiable end to end
-(on the card the attention's gradient is the flash kernel's backward;
-a config whose layers reach the RG-LRU or mLSTM kernels refuses a
-gradient there with the wrappers' ``ValueError``). Under autograd with
+(on the card the attention's gradient is the flash kernel's backward
+and the RG-LRU's the scan's backward kernel; a config whose layers reach
+the mLSTM kernel refuses a gradient there with its wrapper's
+``ValueError``). Under autograd with
 ``cfg.remat != "none"`` each body period runs under
 ``torch.utils.checkpoint`` (non-reentrant): only its input is kept, and
 the backward runs the period again (the reference's ``_remat``, a

@@ -11,7 +11,11 @@ Parameters, gradients and moments are trees of the same structure:
 ``{name: tensor}`` dicts (``PeronaModel``'s ``state_dict`` names) or an
 LM's nested tree of dicts and lists, walked through their dot-joined
 leaf names (``common.tree``). The update is functional and returns new
-tensors, as the reference's does. ``lr`` and ``weight_decay`` may be
+tensors, as the reference's does; with ``inplace=True`` it writes the
+same values into the given parameters and moments and returns those, so
+a step holds one copy of the state and not two (the float32 moments of
+RecurrentGemma's 2.64 B-parameter training cell are 21 GB). ``lr`` and
+``weight_decay`` may be
 python floats or 0-d tensors (the trainer's scalar hyperparameters);
 ``lr`` may also be a schedule (``optim.schedule``), called on the step
 tensor on its device, so a step never reads the device. The reference's
@@ -47,6 +51,7 @@ class AdamW:
     weight_decay: Scalar = 0.1
     clip_norm: float = 1.0
     state_dtype: torch.dtype = torch.float32
+    inplace: bool = False
 
     def init(self, params) -> OptState:
         flat = flatten(params)
@@ -83,15 +88,20 @@ class AdamW:
             g = flat_g[k].to(torch.float32) * scale
             m2 = self.b1 * flat_m[k] + (1 - self.b1) * g
             v2 = self.b2 * flat_v[k] + (1 - self.b2) * g * g
-            mhat = m2 / b1c
-            vhat = v2 / b2c
-            delta = mhat / (torch.sqrt(vhat) + self.eps)
+            del g  # temporaries go as soon as they are used
+            delta = (m2 / b1c) / (torch.sqrt(v2 / b2c) + self.eps)
             if apply_wd and p.dim() >= 2:  # no decay on norms/bias
                 delta = delta + wd * p.to(torch.float32)
             p2 = p.to(torch.float32) - lr * delta
-            new_p[k] = p2.to(p.dtype)
-            new_m[k] = m2.to(self.state_dtype)
-            new_v[k] = v2.to(self.state_dtype)
+            del delta
+            if self.inplace:  # copy_ rounds as .to does
+                new_p[k] = p.copy_(p2)
+                new_m[k] = flat_m[k].copy_(m2)
+                new_v[k] = flat_v[k].copy_(v2)
+            else:
+                new_p[k] = p2.to(p.dtype)
+                new_m[k] = m2.to(self.state_dtype)
+                new_v[k] = v2.to(self.state_dtype)
         return (unflatten_as(params, new_p),
                 OptState(unflatten_as(state.m, new_m),
                          unflatten_as(state.v, new_v), step),

@@ -130,11 +130,36 @@ def _good(B=2, S=10, C=8):
     (lambda a, b, h: (a[:, :0], b[:, :0], h), ">= 1"),
     (lambda a, b, h: (a.transpose(0, 1).contiguous().transpose(0, 1), b, h),
      "contiguous"),
-    (lambda a, b, h: (a, b.requires_grad_(), h), "no backward"),
+    (lambda a, b, h: (a, b, h.to("meta")), "h0 is on meta"),
 ])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
     with pytest.raises((ValueError, TypeError, RuntimeError), match=match):
         ops._check(*bad(*_good()))
+
+
+def test_kernel_wrapper_takes_a_gradient_and_checks_the_cotangents():
+    """Inputs that need a gradient are taken (the backward kernel runs on
+    the card); the backward's cotangents are checked as the inputs."""
+    a, b, h0 = _good()
+    ops._check(a.requires_grad_(), b.requires_grad_(), h0.requires_grad_())
+    ops._check(a, a, h0, [("g_y", b), ("g_last", h0)])
+    with pytest.raises(ValueError, match="g_last"):
+        ops._check(a, a, h0, [("g_y", b), ("g_last", b)])
+    with pytest.raises(TypeError, match="g_y must be float32"):
+        ops._check(a, a, None, [("g_y", b.double()), ("g_last", None)])
+
+
+def test_backward_takes_plain_version_for_cpu_tensors_only():
+    a, b, h0 = (torch.from_numpy(x) for x in make_inputs(2, 40, 16))
+    y, _ = ref.linear_scan(a, b, h0)
+    g_y, g_last = torch.randn(2, 40, 16), torch.randn(2, 16)
+    before = ops.BWD_LAUNCHES
+    got = ops.linear_scan_bwd(a, y, h0, g_y, g_last)
+    want = ref.linear_scan_bwd(a, y, h0, g_y, g_last)
+    assert all(torch.equal(x, w) for x, w in zip(got, want))
+    assert ops.BWD_LAUNCHES == before
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        ops.linear_scan_bwd(*(t.to("meta") for t in (a, y, h0, g_y)))
 
 
 def test_kernel_wrapper_accepts_the_main_path_shapes():
