@@ -231,15 +231,52 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------- pass 3
+// acc[r][c] += sum_dd xs[4 ty + r][dd] * ys[4 tx + c][dd], dd < kSlice.
+// kSplit (the backward's): the slice's sum apart, then added, so a sum over
+// n terms rounds as n / 32 serial sums of 32 and one of n / 32 (long serial
+// sums put the backward further from float64 than the plain version's
+// products). The forward keeps the serial sum, whose bits its full-depth
+// float32 check was measured on.
+template <bool kSplit = false>
+__device__ __forceinline__ void dot_slice(const float (*xs)[kPitch],
+                                          const float (*ys)[kPitch], int ty,
+                                          int tx, float acc[4][4]) {
+  if (kSplit) {
+    float part[4][4] = {};
+    dot_slice<false>(xs, ys, ty, tx, part);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] += part[r][c];
+    return;
+  }
+#pragma unroll 8
+  for (int dd = 0; dd < kSlice; ++dd) {
+    float a[4], bb[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = xs[ty * 4 + r][dd];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) bb[cc] = ys[tx * 4 + cc][dd];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) acc[r][cc] += a[r] * bb[cc];
+  }
+}
+
 // One block per (64 rows, chunk, bh): W for those rows over every column
-// tile up to the diagonal, and the normaliser of each row.
+// tile up to the diagonal, and the normaliser of each row (and, for the
+// backward, the signed denominator when den_raw is not null; kSplit: the
+// split sums of dot_slice).
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     mlstm_weights_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ log_i, Layout lay, int BH,
                          float* __restrict__ rows,
                          const float* __restrict__ n_prev,
-                         float* __restrict__ W) {
+                         float* __restrict__ W,
+                         float* __restrict__ den_raw) {
   __shared__ float qs[kRowTile][kPitch];
   __shared__ float ks[kRowTile][kPitch];
   __shared__ float bj_s[kRowTile];
@@ -284,18 +321,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         ks[r][dd] = j < Lc ? k[hr.at(r0 + j) + d0 + dd] : 0.f;
       }
       __syncthreads();
-#pragma unroll 8
-      for (int dd = 0; dd < kSlice; ++dd) {
-        float a[4], bb[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = qs[ty * 4 + r][dd];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) bb[cc] = ks[tx * 4 + cc][dd];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) acc[r][cc] += a[r] * bb[cc];
-      }
+      dot_slice<kSplit>(qs, ks, ty, tx, acc);
       __syncthreads();
     }
 #pragma unroll
@@ -325,7 +351,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     qn = warp_sum16(qn);
     const float den = warp_sum16(rowsum[r]) + qn * r_inter[i < Lc ? i : 0];
-    if (tx == 0 && i < Lc) r_den[i] = fmaxf(fabsf(den), expf(-m_i[r]));
+    if (tx == 0 && i < Lc) {
+      r_den[i] = fmaxf(fabsf(den), expf(-m_i[r]));
+      // the backward's: the sign of den and which term of the max won
+      if (den_raw) den_raw[(long long)bh * lay.S + r0 + i] = den;
+    }
   }
 }
 
@@ -333,7 +363,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // One block per (kTileE value columns, bh); C's tile stays in shared memory.
 // Dynamic shared memory: Cs[hd][kTileE], vs[padded(L)][kTileE], the staged
 // slice at[kSlice][kThreads] (transposed: thread rows are contiguous), then
-// the chunk's carry decay, normaliser and key decay per row.
+// the chunk's carry decay, normaliser and key decay per row. The backward
+// passes C_chunks (C entering every chunk) and no C_out; h is float32
+// there, and its sums are split (kSplit, see dot_slice).
 static_assert(kTileE == 32, "thread (ty, tx) owns columns 4 tx .. 4 tx + 3");
 
 __host__ __device__ constexpr size_t values_smem(int hd, int L) {
@@ -353,9 +385,20 @@ __device__ __forceinline__ void load32(const float* p, float* o) {
   }
 }
 
-// acc[r][c] += sum_kk at[kk][8 ty + r] * B[kk][4 tx + c], kk < kSlice
+// acc[r][c] += sum_kk at[kk][8 ty + r] * B[kk][4 tx + c], kk < kSlice;
+// kSplit as dot_slice's.
+template <bool kSplit = false>
 __device__ __forceinline__ void fma_slice(const float* at, const float* B,
                                           int ty, int tx, float acc[8][4]) {
+  if (kSplit) {
+    float part[8][4] = {};
+    fma_slice<false>(at, B, ty, tx, part);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] += part[r][c];
+    return;
+  }
 #pragma unroll 4
   for (int kk = 0; kk < kSlice; ++kk) {
     const float* a_row = at + kk * kThreads + ty * 8;
@@ -382,6 +425,7 @@ __device__ __forceinline__ void stage(float* at, const float* pre, int t) {
   for (int u = 0; u < kSlice; ++u) at[u * kThreads + t] = pre[u];
 }
 
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
     mlstm_values_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -389,7 +433,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ rows,
                         const float* __restrict__ decay,
                         const float* __restrict__ W, float* __restrict__ h,
-                        float* __restrict__ C_out) {
+                        float* __restrict__ C_out,
+                        float* __restrict__ C_chunks) {
   extern __shared__ float smem[];
   float* Cs = smem;                                   // [hd][kTileE]
   float* vs = Cs + (size_t)lay.hd * kTileE;           // [padded(L)][kTileE]
@@ -412,6 +457,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r0 = c * lay.L;
     const int Lc = min(lay.L, lay.S - r0);
     const float* Wc = W + ((long long)bh * lay.nc + c) * lay.L * Wp;
+    if (C_chunks) {  // the backward's: C entering the chunk
+      float* Cc = C_chunks + ((long long)bh * lay.nc + c) * lay.hd * lay.hd;
+      for (int idx = t; idx < lay.hd * kTileE; idx += kThreads)
+        Cc[(long long)(idx / kTileE) * lay.hd + e0 + idx % kTileE] = Cs[idx];
+    }
     // rows past Lc are zeros: the last slice reads them against zero weights
     for (int idx = t; idx < Wp * kTileE; idx += kThreads) {
       const int j = idx / kTileE, e = idx % kTileE;
@@ -440,7 +490,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       stage(at, pre, t);
       __syncthreads();
       if (d0 + kSlice < lay.hd) load_q(d0 + kSlice);
-      fma_slice(at, Cs + (size_t)d0 * kTileE, ty, tx, qc);
+      fma_slice<kSplit>(at, Cs + (size_t)d0 * kTileE, ty, tx, qc);
     }
     // sum_{j <= i} W_ij v_j; thread t loads row t of W
     auto load_w = [&](int j0) {
@@ -457,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       __syncthreads();
       if (j0 + kSlice < Lc) load_w(j0 + kSlice);
       if (ty * 8 + 7 >= j0)  // rows above the slice see only zeros
-        fma_slice(at, vs + (size_t)j0 * kTileE, ty, tx, intra);
+        fma_slice<kSplit>(at, vs + (size_t)j0 * kTileE, ty, tx, intra);
     }
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
@@ -490,7 +540,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           at[u * kThreads + t] = pre[u] * kd_s[j0 + u];
         __syncthreads();
         if (j0 + kSlice < Lc) load_k(j0 + kSlice);
-        fma_slice(at, vs + (size_t)j0 * kTileE, ty, tx, upd);
+        fma_slice<kSplit>(at, vs + (size_t)j0 * kTileE, ty, tx, upd);
       }
 #pragma unroll
       for (int r = 0; r < 8; ++r) {  // rows of Cs no other thread touches
@@ -503,6 +553,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();  // vs, the row scalars and Cs before the next chunk
   }
+  if (!C_out) return;
   for (int idx = t; idx < lay.hd * kTileE; idx += kThreads) {
     const int d = idx / kTileE, e = idx % kTileE;
     C_out[((long long)bh * lay.hd + d) * lay.hd + e0 + e] = Cs[idx];
@@ -525,17 +576,18 @@ cudaError_t dispatch_f32(const float* q, const float* k, const float* v,
   mlstm_n_kernel<<<dim3(lay.hd / 32, BH), kThreads, 0, s>>>(
       k, lay, BH, rows, decay, n_prev, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mlstm_weights_kernel
+  mlstm_weights_kernel<false>
       <<<dim3((lay.L + kRowTile - 1) / kRowTile, lay.nc, BH), kThreads, 0, s>>>(
-          q, k, log_i, lay, BH, rows, n_prev, W);
+          q, k, log_i, lay, BH, rows, n_prev, W, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const size_t smem = values_smem(lay.hd, lay.L);
-  err = cudaFuncSetAttribute(mlstm_values_kernel,
+  err = cudaFuncSetAttribute(mlstm_values_kernel<false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  mlstm_values_kernel<<<dim3(lay.hd / kTileE, BH), kThreads, smem, s>>>(
-      q, k, v, lay, BH, rows, decay, W, h, C);
+  mlstm_values_kernel<false>
+      <<<dim3(lay.hd / kTileE, BH), kThreads, smem, s>>>(
+          q, k, v, lay, BH, rows, decay, W, h, C, nullptr);
   return cudaGetLastError();
 }
 
@@ -546,6 +598,743 @@ long long f32_scratch_bytes(long long BH, int S, int hd, int L, int nc) {
   return 4 * BH *
          (kRowKinds * (long long)S + nc + (long long)nc * hd +
           (long long)nc * L * padded(L));
+}
+
+// ======================================================================
+// The backward, one route on the CUDA cores for both input types.
+//
+// Replaces the reference's custom VJP (src/repro/kernels/mlstm/ops.py:38,
+// `_bwd`: jax.vjp of the plain chunkwise form), which has no pallas_call:
+// dq, dk, dv, dlog_i and dlog_f from the cotangent g of h (the returned
+// state gets none). h_i = num_i / N_i does not depend on the stabilizers:
+// with den_i = exp(-m_new_i) Dn_i it is the unstabilised numerator over
+// max(|Dn_i|, 1), so every m is a constant of the gradient (the reference's
+// autodiff goes through its maxima, and those terms sum to zero). Per chunk,
+// with u_i = g_i / N_i and s_i = -sign(den_i) <g_i, h_i> / N_i where |den_i|
+// is the larger term of N_i (else 0), <g_i, h_i> from a float32 h
+// recomputed here (never the bf16 output):
+//   dW_ij = <u_i, v_j> + s_i (j <= i), dS = dW * exp(D - m_new),
+//   dq = dS k + inter_s (C u + s n),  dk = dS^T q + kd (dC' v + dn'),
+//   dv = W^T u + kd dC'^T k,
+// with (C, n) the state entering the chunk and (dC', dn') the cotangent of
+// the state after it, carried from the last chunk:
+//   dC = decay dC' + sum_i inter_s_i q_i u_i^T,
+//   dn = decay dn' + sum_i inter_s_i s_i q_i.
+// dC is carried in the scale of C (C is stabilised by its m), where decay
+// and inter_s are at most 1, so it needs no stabilizer of its own. The log
+// cotangents: dW * W on D_ij = b_i - b_j + log_i_j, inter_s_i <q_i, C u_i +
+// s_i n> on b_i, kd_j <k_j, dC' v_j + dn'> on the log of kd_j (total_f - b_j
+// + log_i_j) and decay <dC', C> + decay <dn', n> on total_f; dlog_f is the
+// reverse cumulative sum of b's cotangents inside the chunk. These scalars
+// are summed in float64 and rounded to float32, as the forward sums b.
+//
+// What bounds it: operations, about 2.5x the forward's (the state terms
+// C u, dC' v and dC'^T k are three more L x hd x hd products a chunk,
+// the recomputed forward and the dC carry two). Design (a simple kernel
+// that is right; the tensor cores are later work): it recomputes rather
+// than saves, so autograd keeps only the inputs, and every pass either
+// walks the chunks (the carries, tiled over value columns as the forward's
+// pass 4) or is parallel over (rows, columns, chunk, bh). bfloat16 inputs
+// are first widened to float32 copies; then, on the caller's stream:
+//   1-4. the float32 forward's passes: the row scalars, n before every
+//      chunk, W and N (and den, signed), and h in float32 with C entering
+//      every chunk written to scratch; their long sums split into slices
+//      of 32 (dot_slice), as every sum below over more than 32 terms;
+//   5. s: a warp a row, <g_i, h_i> in a fixed order;
+//   6. dC walk: one block per (32 value columns, bh), dC's hd x 32 tile in
+//      shared memory, from the last chunk: writes dC' of every chunk and
+//      the tile's part of <dC', C>;
+//   7. dn walk: one block per (32 key channels, bh), the same for dn;
+//   8. dW: one block per (64 rows, chunk, bh) as the forward's pass 3:
+//      dS to scratch, the row sums of dW * W and per-tile column sums;
+//   9. dq, dk, dv: one block per (64 rows, 64 columns, chunk, bh), the
+//      intra-chunk product and the state product into one accumulator,
+//      written in the input type, with per-column-tile parts of the row
+//      dots <q_i, C u_i + s_i n> and <k_j, dC' v_j + dn'>;
+//  10. gates: one block per (chunk, bh), the parts summed in float64 in a
+//      fixed order, dlog_i, and dlog_f by a reverse scan in float64.
+// No atomics: every sum has one order, and a launch gives the same bits
+// every time.
+
+constexpr int kPT = 64;         // rows and columns of a product tile (pass 9)
+constexpr int kBP = kPT + 4;    // row pitch of its staged B slice
+
+__device__ __forceinline__ float warp_sum32(float x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ double warp_sum32(double x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// The backward's own row scalars: [kind][bh][s] after the forward's.
+enum { kDenRaw = 0, kSRow, kRowD, kBwdRowKinds };
+
+// Pieces of the backward's scratch, in float32 words.
+struct BwdScratch {
+  long long rows, decay, m, n_prev, n_last, W, h, C, brows, dC, dn, dS,
+      part_C, part_n, colpart, dots_q, dots_k, wide, total;
+};
+
+__host__ __device__ inline int col_tiles(int hd) {
+  return (hd + kPT - 1) / kPT;
+}
+__host__ __device__ inline int row_tiles(int L) {
+  return (L + kPT - 1) / kPT;
+}
+
+inline BwdScratch bwd_scratch_of(long long BH, int S, int hd, int L, int nc,
+                                 bool bf16) {
+  BwdScratch o;
+  long long at = 0;
+  auto take = [&](long long n) {
+    const long long here = at;
+    at += (n + 3) / 4 * 4;  // every piece 16-byte aligned
+    return here;
+  };
+  const long long cells = BH * S * hd, states = BH * nc * hd * hd;
+  o.rows = take(kRowKinds * BH * S);
+  o.decay = take(BH * nc);
+  o.m = take(BH);
+  o.n_prev = take(BH * nc * hd);
+  o.n_last = take(BH * hd);
+  o.W = take(BH * nc * (long long)L * padded(L));
+  o.h = take(cells);
+  o.C = take(states);
+  o.brows = take(kBwdRowKinds * BH * S);
+  o.dC = take(states);
+  o.dn = take(BH * nc * hd);
+  o.dS = take(BH * nc * (long long)L * padded(L));
+  o.part_C = take(BH * nc * (hd / kTileE));
+  o.part_n = take(BH * nc * (hd / 32));
+  o.colpart = take(BH * nc * (long long)row_tiles(L) * L);
+  o.dots_q = take(BH * S * col_tiles(hd));
+  o.dots_k = take(BH * S * col_tiles(hd));
+  o.wide = take(bf16 ? 4 * cells : 0);  // q, k, v, g widened
+  o.total = at;
+  return o;
+}
+
+// ---------------------------------------------------------------- widen
+__global__ void mlstm_widen_kernel(const __nv_bfloat16* __restrict__ x,
+                                   float* __restrict__ y, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    y[i] = __bfloat162float(x[i]);
+}
+
+// ---------------------------------------------------------------- pass 5
+// s_i from <g_i, h_i>, a warp a row.
+__global__ void __launch_bounds__(kThreads)
+    mlstm_s_kernel(const float* __restrict__ g, const float* __restrict__ h,
+                   Layout lay, int BH, const float* __restrict__ rows,
+                   float* __restrict__ brows) {
+  const int lane = threadIdx.x & 31;
+  const long long w = blockIdx.x * (long long)(kThreads / 32) +
+                      (threadIdx.x >> 5);
+  if (w >= (long long)BH * lay.S) return;  // the whole warp
+  const int bh = (int)(w / lay.S), s = (int)(w % lay.S);
+  const long long base = lay.rows(bh).at(s);
+  float acc = 0.f;
+  for (int e = lane; e < lay.hd; e += 32) acc += g[base + e] * h[base + e];
+  acc = warp_sum32(acc);
+  if (lane == 0) {
+    const long long plane = (long long)BH * lay.S;
+    const float den = brows[kDenRaw * plane + w];
+    const float norm = rows[kDenom * plane + w];
+    const float m = rows[kMNew * plane + w];
+    brows[kSRow * plane + w] =
+        fabsf(den) > expf(-m) ? (-copysignf(1.f, den) * acc) / norm : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------- pass 6
+// One block per (kTileE value columns, bh), the layout of pass 4: dC's tile
+// in shared memory, walked from the last chunk. At chunk c it holds dC'
+// (the cotangent of the state after c): writes it, and the tile's part of
+// <dC', C_c>; then dC <- decay dC + sum_i (inter_s_i q_i) u_i^T.
+__global__ void __launch_bounds__(kThreads, 1)
+    mlstm_dstate_kernel(const float* __restrict__ q,
+                        const float* __restrict__ g, Layout lay, int BH,
+                        const float* __restrict__ rows,
+                        const float* __restrict__ decay,
+                        const float* __restrict__ C_chunks,
+                        float* __restrict__ dC_chunks,
+                        float* __restrict__ part) {
+  extern __shared__ float smem[];
+  float* dCs = smem;                                  // [hd][kTileE]
+  float* us = dCs + (size_t)lay.hd * kTileE;          // [padded(L)][kTileE]
+  float* at = us + (size_t)padded(lay.L) * kTileE;    // [kSlice][kThreads]
+  float* inter_s = at + (size_t)kSlice * kThreads;    // [kMaxChunk]
+  float* red = inter_s + kMaxChunk;                   // [kThreads / 32]
+  const int e0 = blockIdx.x * kTileE, bh = blockIdx.y;
+  const int t = threadIdx.x, tx = t & 7, ty = t >> 3;
+  const int lane = t & 31, warp = t >> 5;
+  const Rows hr = lay.rows(bh);
+  const int Wp = padded(lay.L);
+  const long long plane = (long long)BH * lay.S;
+  const float* r_inter = rows + kInterS * plane + (long long)bh * lay.S;
+  const float* r_den = rows + kDenom * plane + (long long)bh * lay.S;
+  float pre[kSlice];
+
+  for (int idx = t; idx < lay.hd * kTileE; idx += kThreads) dCs[idx] = 0.f;
+  for (int c = lay.nc - 1; c >= 0; --c) {
+    const int r0 = c * lay.L;
+    const int Lc = min(lay.L, lay.S - r0);
+    const long long cell = ((long long)bh * lay.nc + c) * lay.hd * lay.hd;
+    float dot = 0.f;  // this thread's elements of <dC', C_c>, in one order
+    for (int idx = t; idx < lay.hd * kTileE; idx += kThreads) {
+      const long long at_g =
+          cell + (long long)(idx / kTileE) * lay.hd + e0 + idx % kTileE;
+      dC_chunks[at_g] = dCs[idx];
+      dot += dCs[idx] * C_chunks[at_g];
+    }
+    dot = warp_sum32(dot);
+    if (lane == 0) red[warp] = dot;
+    for (int idx = t; idx < Wp * kTileE; idx += kThreads) {
+      const int i = idx / kTileE, e = idx % kTileE;
+      us[idx] = i < Lc ? g[hr.at(r0 + i) + e0 + e] / r_den[r0 + i] : 0.f;
+    }
+    for (int i = t; i < kMaxChunk; i += kThreads)
+      inter_s[i] = i < Lc ? r_inter[r0 + i] : 0.f;
+    __syncthreads();
+    if (t == 0) {
+      float sum = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) sum += red[w];
+      part[((long long)bh * lay.nc + c) * (lay.hd / kTileE) + blockIdx.x] =
+          sum;
+    }
+    // dC <- decay dC + sum_i (inter_s_i q_i) u_i^T, 256 key channels at a
+    // time, as pass 4 updates C
+    const float dc = decay[(long long)bh * lay.nc + c];
+    for (int dblk = 0; dblk < lay.hd; dblk += kThreads) {
+      const int d = dblk + t;
+      auto load_q = [&](int i0) {
+#pragma unroll
+        for (int u = 0; u < kSlice; ++u)
+          pre[u] = (i0 + u < Lc && d < lay.hd) ? q[hr.at(r0 + i0 + u) + d]
+                                               : 0.f;
+      };
+      float upd[8][4] = {};
+      load_q(0);
+      for (int i0 = 0; i0 < Lc; i0 += kSlice) {
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < kSlice; ++u)
+          at[u * kThreads + t] = pre[u] * inter_s[i0 + u];
+        __syncthreads();
+        if (i0 + kSlice < Lc) load_q(i0 + kSlice);
+        fma_slice<true>(at, us + (size_t)i0 * kTileE, ty, tx, upd);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {  // rows of dCs no other thread touches
+        const int dr = dblk + ty * 8 + r;
+        if (dr >= lay.hd) continue;
+        float* row = dCs + (size_t)dr * kTileE + tx * 4;
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) row[cc] = dc * row[cc] + upd[r][cc];
+      }
+    }
+    __syncthreads();  // us, inter_s, red and dCs before the next chunk
+  }
+}
+
+// ---------------------------------------------------------------- pass 7
+// One block per (32 key channels, bh), the layout of pass 2: dn walked from
+// the last chunk; dn' of every chunk, and the block's part of <dn', n_c>.
+__global__ void __launch_bounds__(kThreads)
+    mlstm_dn_kernel(const float* __restrict__ q, Layout lay, int BH,
+                    const float* __restrict__ rows,
+                    const float* __restrict__ brows,
+                    const float* __restrict__ decay,
+                    const float* __restrict__ n_prev,
+                    float* __restrict__ dn_chunks,
+                    float* __restrict__ part) {
+  __shared__ float sums[kNGroups][32];
+  const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const int d = blockIdx.x * 32 + lane;
+  const int bh = blockIdx.y;
+  const Rows hr = lay.rows(bh);
+  const long long plane = (long long)BH * lay.S;
+  const float* r_inter = rows + kInterS * plane + (long long)bh * lay.S;
+  const float* r_s = brows + kSRow * plane + (long long)bh * lay.S;
+  float dn = 0.f;  // carried by the first warp
+  for (int c = lay.nc - 1; c >= 0; --c) {
+    const int r0 = c * lay.L;
+    const int Lc = min(lay.L, lay.S - r0);
+    float acc = 0.f;
+#pragma unroll 4
+    for (int i = grp; i < Lc; i += kNGroups)
+      acc += q[hr.at(r0 + i) + d] * (r_inter[r0 + i] * r_s[r0 + i]);
+    sums[grp][lane] = acc;
+    __syncthreads();
+    if (grp == 0) {
+      float sum = sums[0][lane];
+      for (int w = 1; w < kNGroups; ++w) sum += sums[w][lane];
+      const long long cd = ((long long)bh * lay.nc + c) * lay.hd + d;
+      dn_chunks[cd] = dn;
+      const float dot = warp_sum32(dn * n_prev[cd]);
+      if (lane == 0)
+        part[((long long)bh * lay.nc + c) * (lay.hd / 32) + blockIdx.x] = dot;
+      dn = decay[(long long)bh * lay.nc + c] * dn + sum;
+    }
+    __syncthreads();  // sums is reused
+  }
+}
+
+// ---------------------------------------------------------------- pass 8
+// One block per (64 rows, chunk, bh), the layout of pass 3: <g_i, v_j> over
+// hd for every column tile up to the diagonal, then dW = <g_i, v_j> / N_i +
+// s_i, dS = dW * exp(D_ij - m_new_i) (written), dW * W_ij summed over j (the
+// row sums) and over this block's rows (a column part per row tile).
+__global__ void __launch_bounds__(kThreads, 1)
+    mlstm_dweights_kernel(const float* __restrict__ g,
+                          const float* __restrict__ v,
+                          const float* __restrict__ log_i, Layout lay,
+                          int BH, const float* __restrict__ rows,
+                          float* __restrict__ brows,
+                          const float* __restrict__ W,
+                          float* __restrict__ dS,
+                          float* __restrict__ colpart) {
+  __shared__ float gs[kRowTile][kPitch];
+  __shared__ float vs[kRowTile][kPitch];
+  __shared__ float cs[16][kRowTile];
+  __shared__ float bj_s[kRowTile];
+  __shared__ float lij_s[kRowTile];
+  const int c = blockIdx.y, bh = blockIdx.z;
+  const int r0 = c * lay.L;
+  const int Lc = min(lay.L, lay.S - r0);
+  const int i0 = blockIdx.x * kRowTile;
+  if (i0 >= Lc) return;  // the whole block: no barrier is skipped
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const Rows hr = lay.rows(bh), gr = lay.gates(bh);
+  const long long plane = (long long)BH * lay.S;
+  const long long off = (long long)bh * lay.S + r0;
+  const float* r_b = rows + kB * plane + off;
+  const float* r_m = rows + kMNew * plane + off;
+  const float* r_den = rows + kDenom * plane + off;
+  const float* r_s = brows + kSRow * plane + off;
+  float* r_rowd = brows + kRowD * plane + off;
+  const int Wp = padded(lay.L);
+  const long long cw = ((long long)bh * lay.nc + c) * lay.L * Wp;
+  float* col_out = colpart + (((long long)bh * lay.nc + c) * row_tiles(lay.L) +
+                              blockIdx.x) * lay.L;
+
+  float b_i[4], m_i[4], n_i[4], s_i[4], rowsum[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty * 4 + r;
+    b_i[r] = i < Lc ? r_b[i] : 0.f;
+    m_i[r] = i < Lc ? r_m[i] : 0.f;
+    n_i[r] = i < Lc ? r_den[i] : 1.f;
+    s_i[r] = i < Lc ? r_s[i] : 0.f;
+    rowsum[r] = 0.f;
+  }
+  for (int jt = 0; jt <= (int)blockIdx.x; ++jt) {  // up to the diagonal
+    const int j0 = jt * kRowTile;
+    if (t < kRowTile) {
+      const int j = j0 + t;
+      bj_s[t] = j < Lc ? r_b[j] : 0.f;
+      lij_s[t] = j < Lc ? log_i[gr.at(r0 + j)] : 0.f;
+    }
+    float acc[4][4] = {};
+    for (int d0 = 0; d0 < lay.hd; d0 += kSlice) {
+      for (int idx = t; idx < kRowTile * kSlice; idx += kThreads) {
+        const int r = idx / kSlice, dd = idx % kSlice;
+        const int i = i0 + r, j = j0 + r;
+        gs[r][dd] = i < Lc ? g[hr.at(r0 + i) + d0 + dd] : 0.f;
+        vs[r][dd] = j < Lc ? v[hr.at(r0 + j) + d0 + dd] : 0.f;
+      }
+      __syncthreads();
+      dot_slice<true>(gs, vs, ty, tx, acc);
+      __syncthreads();
+    }
+    float colsum[4] = {};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + ty * 4 + r;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int jl = tx * 4 + cc, j = j0 + jl;
+        float ds = 0.f, dd = 0.f;
+        if (i < Lc && j <= i) {
+          const float dw = acc[r][cc] / n_i[r] + s_i[r];
+          ds = dw * expf(((b_i[r] - bj_s[jl]) + lij_s[jl]) - m_i[r]);
+          dd = dw * W[cw + (long long)i * Wp + j];
+        }
+        if (i < Lc && j < Lc) dS[cw + (long long)i * Wp + j] = ds;
+        rowsum[r] += dd;
+        colsum[cc] += dd;
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) cs[ty][tx * 4 + cc] = colsum[cc];
+    __syncthreads();
+    if (t < kRowTile && j0 + t < Lc) {
+      float sum = 0.f;
+      for (int y = 0; y < 16; ++y) sum += cs[y][t];
+      col_out[j0 + t] = sum;
+    }
+    __syncthreads();  // bj_s, lij_s and cs are reused by the next tile
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty * 4 + r;
+    const float sum = warp_sum16(rowsum[r]);
+    if (tx == 0 && i < Lc) r_rowd[i] = sum;
+  }
+}
+
+// ---------------------------------------------------------------- pass 9
+// acc[r][c] += sum_{x_lo <= x < x_hi} A(4 ty + r, x) B(x, 4 tx + c) over a
+// kPT x kPT tile, 32 values of x at a time through shared memory. `row_fast`
+// / `col_fast` say which index neighbouring threads load (the one that is
+// contiguous in device memory).
+template <bool kRowFast, bool kColFast, class LA, class LB>
+__device__ __forceinline__ void tile_product(float (*As)[kPitch],
+                                             float (*Bs)[kBP], int x_lo,
+                                             int x_hi, LA load_a, LB load_b,
+                                             float acc[4][4]) {
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  for (int x0 = x_lo; x0 < x_hi; x0 += kSlice) {
+    for (int idx = t; idx < kPT * kSlice; idx += kThreads) {
+      const int r = kRowFast ? idx % kPT : idx / kSlice;
+      const int kk = kRowFast ? idx / kPT : idx % kSlice;
+      As[r][kk] = x0 + kk < x_hi ? load_a(r, x0 + kk) : 0.f;
+    }
+    for (int idx = t; idx < kPT * kSlice; idx += kThreads) {
+      const int cc = kColFast ? idx % kPT : idx / kSlice;
+      const int kk = kColFast ? idx / kPT : idx % kSlice;
+      Bs[kk][cc] = x0 + kk < x_hi ? load_b(x0 + kk, cc) : 0.f;
+    }
+    __syncthreads();
+    float part[4][4] = {};  // the slice's sum apart (see fma_slice)
+#pragma unroll 8
+    for (int kk = 0; kk < kSlice; ++kk) {
+      float a[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = As[ty * 4 + r][kk];
+      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        part[r][0] += a[r] * b.x;
+        part[r][1] += a[r] * b.y;
+        part[r][2] += a[r] * b.z;
+        part[r][3] += a[r] * b.w;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] += part[r][c];
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+enum { kOutQ = 0, kOutK, kOutV };
+
+// One block per (64 rows, 64 columns, chunk, bh) of dq (kOutQ), dk or dv:
+//   dq_i = sum_j dS_ij k_j + inter_s_i y_i,  y_i = C u_i + s_i n,
+//   dk_j = sum_i dS_ij q_i + kd_j z_j,       z_j = dC' v_j + dn',
+//   dv_j = sum_i W_ij u_i + kd_j dC'^T k_j,
+// with C, n entering the chunk and dC', dn' after it; the tile's part of
+// <q_i, y_i> or <k_j, z_j> goes to `dots` (one column per column tile).
+template <int kOut, typename T>
+__global__ void __launch_bounds__(kThreads)
+    mlstm_dproducts_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ g, Layout lay, int BH,
+                           const float* __restrict__ rows,
+                           const float* __restrict__ brows,
+                           const float* __restrict__ Wm,
+                           const float* __restrict__ M,
+                           const float* __restrict__ vec,
+                           T* __restrict__ out, float* __restrict__ dots) {
+  __shared__ float As[kPT][kPitch];
+  __shared__ __align__(16) float Bs[kSlice][kBP];
+  const int ncol = col_tiles(lay.hd);
+  const int ct = blockIdx.x % ncol, rt = blockIdx.x / ncol;
+  const int c = blockIdx.y, bh = blockIdx.z;
+  const int r0 = c * lay.L;
+  const int Lc = min(lay.L, lay.S - r0);
+  const int i0 = rt * kPT, c0 = ct * kPT;
+  if (i0 >= Lc) return;  // the whole block
+  const int hd = lay.hd;
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const Rows hr = lay.rows(bh);
+  const long long plane = (long long)BH * lay.S;
+  const long long off = (long long)bh * lay.S + r0;
+  const float* r_inter = rows + kInterS * plane + off;
+  const float* r_kd = rows + kKDecay * plane + off;
+  const float* r_den = rows + kDenom * plane + off;
+  const float* r_s = brows + kSRow * plane + off;
+  const int Wp = padded(lay.L);
+  const float* Sc = Wm + ((long long)bh * lay.nc + c) * lay.L * Wp;
+  const float* Mc = M + ((long long)bh * lay.nc + c) * hd * hd;
+  const float* vc = vec ? vec + ((long long)bh * lay.nc + c) * hd : nullptr;
+  auto in_rows = [&](const float* x, int i, int col) {
+    return x[hr.at(r0 + i) + col];
+  };
+
+  float intra[4][4] = {}, state[4][4] = {};
+  if (kOut == kOutQ) {
+    // sum_{j <= i} dS_ij k_j: dS rows up to the end of this row tile (zero
+    // above the diagonal)
+    tile_product<false, true>(
+        As, Bs, 0, min(Lc, i0 + kPT),
+        [&](int r, int x) {
+          return i0 + r < Lc ? Sc[(long long)(i0 + r) * Wp + x] : 0.f;
+        },
+        [&](int x, int cc) {
+          return c0 + cc < hd ? in_rows(k, x, c0 + cc) : 0.f;
+        },
+        intra);
+    // C u_i: u = g / N; C[d][e] read along e
+    tile_product<false, false>(
+        As, Bs, 0, hd,
+        [&](int r, int x) { return i0 + r < Lc ? in_rows(g, i0 + r, x) : 0.f; },
+        [&](int x, int cc) {
+          return c0 + cc < hd ? Mc[(long long)(c0 + cc) * hd + x] : 0.f;
+        },
+        state);
+  } else {
+    // sum_{i >= j} P_ij X_i with P = dS (dk, X = q) or W (dv, X = u)
+    tile_product<true, true>(
+        As, Bs, i0, Lc,
+        [&](int r, int x) {
+          return i0 + r < Lc ? Sc[(long long)x * Wp + i0 + r] : 0.f;
+        },
+        [&](int x, int cc) {
+          if (c0 + cc >= hd) return 0.f;
+          return kOut == kOutK ? in_rows(q, x, c0 + cc)
+                               : in_rows(g, x, c0 + cc) / r_den[x];
+        },
+        intra);
+    if (kOut == kOutK)  // dC' v_j: dC'[d][e] read along e
+      tile_product<false, false>(
+          As, Bs, 0, hd,
+          [&](int r, int x) {
+            return i0 + r < Lc ? in_rows(v, i0 + r, x) : 0.f;
+          },
+          [&](int x, int cc) {
+            return c0 + cc < hd ? Mc[(long long)(c0 + cc) * hd + x] : 0.f;
+          },
+          state);
+    else  // dC'^T k_j: dC'[d][e] read along e
+      tile_product<false, true>(
+          As, Bs, 0, hd,
+          [&](int r, int x) {
+            return i0 + r < Lc ? in_rows(k, i0 + r, x) : 0.f;
+          },
+          [&](int x, int cc) {
+            return c0 + cc < hd ? Mc[(long long)x * hd + c0 + cc] : 0.f;
+          },
+          state);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + ty * 4 + r;
+    const bool live = i < Lc;
+    const int il = live ? i : 0;
+    const float scale = kOut == kOutQ ? r_inter[il] : r_kd[il];
+    float dot = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int col = c0 + tx * 4 + cc;
+      if (col >= hd) continue;
+      float y = state[r][cc];
+      if (kOut == kOutQ) y = y / r_den[il] + r_s[il] * vc[col];
+      if (kOut == kOutK) y = y + vc[col];
+      if (live) {
+        store(out + hr.at(r0 + i) + col, intra[r][cc] + scale * y);
+        if (kOut != kOutV)
+          dot += (kOut == kOutQ ? in_rows(q, i, col) : in_rows(k, i, col)) *
+                 y;
+      }
+    }
+    if (kOut != kOutV) {
+      dot = warp_sum16(dot);
+      if (tx == 0 && live) dots[(off + i) * col_tiles(hd) + ct] = dot;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- pass 10
+// One block per (chunk, bh), thread i for row i: the gates' cotangents.
+__global__ void __launch_bounds__(kThreads)
+    mlstm_dgates_kernel(Layout lay, int BH, const float* __restrict__ rows,
+                        const float* __restrict__ brows,
+                        const float* __restrict__ decay,
+                        const float* __restrict__ colpart,
+                        const float* __restrict__ dots_q,
+                        const float* __restrict__ dots_k,
+                        const float* __restrict__ part_C,
+                        const float* __restrict__ part_n,
+                        float* __restrict__ dlog_i,
+                        float* __restrict__ dlog_f) {
+  __shared__ double warp_tot[kThreads / 32];
+  __shared__ double db_s[kMaxChunk];
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
+  const int r0 = c * lay.L;
+  const int Lc = min(lay.L, lay.S - r0);
+  const bool real = i < Lc;
+  const Rows gr = lay.gates(bh);
+  const long long plane = (long long)BH * lay.S;
+  const long long o = (long long)bh * lay.S + r0 + i;
+  const int ncol = col_tiles(lay.hd);
+  const long long bc = (long long)bh * lay.nc + c;
+  double db = 0.0, P = 0.0, col_d = 0.0;
+  if (real) {
+    double dq = 0.0, dk = 0.0;
+    for (int ct = 0; ct < ncol; ++ct) {
+      dq += dots_q[o * ncol + ct];
+      dk += dots_k[o * ncol + ct];
+    }
+    const int nrt = row_tiles(Lc);
+    for (int rt = i / kPT; rt < nrt; ++rt)
+      col_d += colpart[(bc * row_tiles(lay.L) + rt) * lay.L + i];
+    P = dk * (double)rows[kKDecay * plane + o];
+    db = (double)brows[kRowD * plane + o] - col_d +
+         dq * (double)rows[kInterS * plane + o] - P;
+    dlog_i[gr.at(r0 + i)] = (float)(col_d + P);
+  }
+  // total_f's cotangent: sum_j P_j + decay (<dC', C> + <dn', n>)
+  double tot = warp_sum32(P);
+  if (lane == 0) warp_tot[warp] = tot;
+  __syncthreads();
+  if (i == Lc - 1) {
+    tot = 0.0;
+    for (int w = 0; w < kThreads / 32; ++w) tot += warp_tot[w];
+    double dd = 0.0;
+    for (int x = 0; x < lay.hd / kTileE; ++x)
+      dd += part_C[bc * (lay.hd / kTileE) + x];
+    for (int x = 0; x < lay.hd / 32; ++x) dd += part_n[bc * (lay.hd / 32) + x];
+    db += tot + dd * (double)decay[bc];
+  }
+  db_s[i] = db;  // 0 past Lc
+  __syncthreads();
+  // dlog_f_t = sum_{i >= t} db_i: an inclusive scan over the reversed rows
+  double acc = db_s[kThreads - 1 - i];
+  for (int off = 1; off < 32; off <<= 1) {
+    const double y = __shfl_up_sync(0xffffffffu, acc, off);
+    if (lane >= off) acc += y;
+  }
+  if (lane == 31) warp_tot[warp] = acc;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) acc += warp_tot[w];
+  const int row = kThreads - 1 - i;
+  if (row < Lc) dlog_f[gr.at(r0 + row)] = (float)acc;
+}
+
+static_assert(kThreads == kMaxChunk, "pass 10: a thread a row");
+
+// The backward's launches on `s`; q, k, v and g float32 (bf16 inputs come
+// widened), dq/dk/dv of type T.
+template <typename T>
+cudaError_t dispatch_bwd(const float* q, const float* k, const float* v,
+                         const float* g, const float* log_i,
+                         const float* log_f, T* dq, T* dk, T* dv,
+                         float* dlog_i, float* dlog_f, float* sc,
+                         const BwdScratch& o, int BH, Layout lay,
+                         cudaStream_t s) {
+  float* rows = sc + o.rows;
+  float* decay = sc + o.decay;
+  float* brows = sc + o.brows;
+  const long long plane = (long long)BH * lay.S;
+  cudaError_t err;
+  mlstm_gates_kernel<<<BH, kThreads, 0, s>>>(log_i, log_f, lay, BH, rows,
+                                             decay, sc + o.m);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_n_kernel<<<dim3(lay.hd / 32, BH), kThreads, 0, s>>>(
+      k, lay, BH, rows, decay, sc + o.n_prev, sc + o.n_last);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_weights_kernel<true>
+      <<<dim3((lay.L + kRowTile - 1) / kRowTile, lay.nc, BH), kThreads, 0, s>>>(
+          q, k, log_i, lay, BH, rows, sc + o.n_prev, sc + o.W,
+          brows + kDenRaw * plane);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const size_t smem = values_smem(lay.hd, lay.L);
+  if ((err = cudaFuncSetAttribute(mlstm_values_kernel<true>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return err;
+  mlstm_values_kernel<true><<<dim3(lay.hd / kTileE, BH), kThreads, smem, s>>>(
+      q, k, v, lay, BH, rows, decay, sc + o.W, sc + o.h, nullptr, sc + o.C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long warps = plane;
+  mlstm_s_kernel<<<(unsigned)((warps + kThreads / 32 - 1) / (kThreads / 32)),
+                   kThreads, 0, s>>>(g, sc + o.h, lay, BH, rows, brows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = cudaFuncSetAttribute(mlstm_dstate_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return err;
+  mlstm_dstate_kernel<<<dim3(lay.hd / kTileE, BH), kThreads, smem, s>>>(
+      q, g, lay, BH, rows, decay, sc + o.C, sc + o.dC, sc + o.part_C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dn_kernel<<<dim3(lay.hd / 32, BH), kThreads, 0, s>>>(
+      q, lay, BH, rows, brows, decay, sc + o.n_prev, sc + o.dn,
+      sc + o.part_n);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dweights_kernel
+      <<<dim3(row_tiles(lay.L), lay.nc, BH), kThreads, 0, s>>>(
+          g, v, log_i, lay, BH, rows, brows, sc + o.W, sc + o.dS,
+          sc + o.colpart);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid(col_tiles(lay.hd) * row_tiles(lay.L), lay.nc, BH);
+  mlstm_dproducts_kernel<kOutQ, T><<<grid, kThreads, 0, s>>>(
+      q, k, v, g, lay, BH, rows, brows, sc + o.dS, sc + o.C, sc + o.n_prev,
+      dq, sc + o.dots_q);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dproducts_kernel<kOutK, T><<<grid, kThreads, 0, s>>>(
+      q, k, v, g, lay, BH, rows, brows, sc + o.dS, sc + o.dC, sc + o.dn, dk,
+      sc + o.dots_k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dproducts_kernel<kOutV, T><<<grid, kThreads, 0, s>>>(
+      q, k, v, g, lay, BH, rows, brows, sc + o.W, sc + o.dC, nullptr, dv,
+      nullptr);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dgates_kernel<<<dim3(lay.nc, BH), kThreads, 0, s>>>(
+      lay, BH, rows, brows, decay, sc + o.colpart, sc + o.dots_q,
+      sc + o.dots_k, sc + o.part_C, sc + o.part_n, dlog_i, dlog_f);
+  return cudaGetLastError();
+}
+
+// The backward's kernels, for mlstm_bwd_attributes: 0 values (pass 4), 1
+// dstate, 2 dweights, 3-5 dq, dk, dv (float32 outputs), 6 dgates; the
+// dynamic shared memory at head dim hd and chunk L.
+cudaError_t bwd_attributes(int which, int hd, int L, int* regs,
+                           int* local_bytes, int* static_smem,
+                           int* dynamic_smem) {
+  const void* fns[] = {
+      (const void*)mlstm_values_kernel<true>,
+      (const void*)mlstm_dstate_kernel,
+      (const void*)mlstm_dweights_kernel,
+      (const void*)mlstm_dproducts_kernel<kOutQ, float>,
+      (const void*)mlstm_dproducts_kernel<kOutK, float>,
+      (const void*)mlstm_dproducts_kernel<kOutV, float>,
+      (const void*)mlstm_dgates_kernel};
+  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
+    return cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *static_smem = (int)attr.sharedSizeBytes;
+  *dynamic_smem = which <= 1 ? (int)values_smem(hd, L) : 0;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1343,4 +2132,89 @@ extern "C" int mlstm_bf16_attributes(int which, int* regs, int* local_bytes,
 
 extern "C" const char* mlstm_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// Size of the backward's scratch in bytes (L = min(chunk, S), nc = ceil(S /
+// L)): the forward's rows, decays, n per chunk and W, h in float32, C
+// entering and dC' after every chunk (2 * B*H * nc * hd^2 floats, 512 MB at
+// B=4 H=4 S=2048 hd=1024 L=256), dS, the parts of every sum, and for bf16
+// inputs q, k, v and g widened to float32.
+extern "C" long long mlstm_bwd_scratch_bytes(int batch, int heads, int seq,
+                                             int head_dim, int chunk,
+                                             int is_bf16) {
+  const long long BH = (long long)batch * heads;
+  const int L = chunk < seq ? chunk : seq;
+  const int nc = (seq + L - 1) / L;
+  return 4 * bwd_scratch_of(BH, seq, head_dim, L, nc, is_bf16 != 0).total;
+}
+
+// The backward from a fresh state: dq, dk, dv (B, S, H, hd) in the input
+// type and dlog_i, dlog_f (B, S, H) float32 from q/k/v (B, S, H, hd),
+// log_i/log_f (B, S, H) float32 and g (B, S, H, hd), the cotangent of h, in
+// q's type; the shapes the forward takes. Launches the passes on `stream`
+// and returns the first cudaError_t that is not 0 (0 = all queued).
+extern "C" int mlstm_chunkwise_bwd(const void* q, const void* k,
+                                   const void* v, const void* log_i,
+                                   const void* log_f, const void* g,
+                                   void* dq, void* dk, void* dv,
+                                   void* dlog_i, void* dlog_f, void* scratch,
+                                   int batch, int heads, int seq,
+                                   int head_dim, int chunk, int is_bf16,
+                                   void* stream) {
+  const long long BH = (long long)batch * heads;
+  if (batch <= 0 || heads <= 0 || seq <= 0 || chunk <= 0 ||
+      chunk > kMaxChunk || head_dim <= 0 || head_dim % kTileE != 0 ||
+      head_dim > 1024 || BH > 65535)
+    return (int)cudaErrorInvalidValue;
+  Layout lay;
+  lay.S = seq;
+  lay.H = heads;
+  lay.hd = head_dim;
+  lay.L = chunk < seq ? chunk : seq;
+  lay.nc = (seq + lay.L - 1) / lay.L;
+  if (lay.nc > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const BwdScratch o =
+      bwd_scratch_of(BH, seq, head_dim, lay.L, lay.nc, is_bf16 != 0);
+  float* sc = static_cast<float*>(scratch);
+  const float* li = static_cast<const float*>(log_i);
+  const float* lf = static_cast<const float*>(log_f);
+  float* dli = static_cast<float*>(dlog_i);
+  float* dlf = static_cast<float*>(dlog_f);
+  if (is_bf16) {
+    using bf16 = __nv_bfloat16;
+    const long long n = BH * seq * head_dim;
+    float* wide = sc + o.wide;
+    const void* src[4] = {q, k, v, g};
+    const unsigned blocks =
+        (unsigned)((n + kThreads - 1) / kThreads < 4096
+                       ? (n + kThreads - 1) / kThreads
+                       : 4096);
+    for (int x = 0; x < 4; ++x) {
+      mlstm_widen_kernel<<<blocks, kThreads, 0, s>>>(
+          static_cast<const bf16*>(src[x]), wide + x * n, n);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)dispatch_bwd<bf16>(
+        wide, wide + n, wide + 2 * n, wide + 3 * n, li, lf,
+        static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), dli, dlf, sc, o, (int)BH, lay, s);
+  }
+  return (int)dispatch_bwd<float>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g), li, lf,
+      static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), dli, dlf, sc, o, (int)BH, lay, s);
+}
+
+// The backward's kernels' resources (which: 0 values, 1 dstate, 2
+// dweights, 3 dq, 4 dk, 5 dv, 6 dgates) at head dim `head_dim` and chunk
+// `chunk`: registers a thread, local (spilled) bytes a thread, static and
+// dynamic shared memory a block.
+extern "C" int mlstm_bwd_attributes(int which, int head_dim, int chunk,
+                                    int* regs, int* local_bytes,
+                                    int* static_smem, int* dynamic_smem) {
+  return (int)bwd_attributes(which, head_dim, chunk, regs, local_bytes,
+                             static_smem, dynamic_smem);
 }

@@ -9,10 +9,11 @@ Pallas kernel refuses such S). The CUDA kernel takes the same schedule.
 The chunking changes the carried stabilizer m, and with it the scale of
 C and n, but not h or ``C * exp(m)``.
 
-The CPU tests use it, ``chip_smoke.py`` holds the CUDA kernel against
+The CPU tests use it, ``chip_smoke.py`` holds the CUDA kernels against
 it on the card, and the kernel wrapper (``ops``) takes it for tensors
-that lie on the CPU. Under float64 inputs (the CPU tests' float64
-evaluation of the small xLSTM) it computes and keeps its state in
+that lie on the CPU. :func:`mlstm_chunkwise_bwd` is the plain version of
+the backward kernel, in explicit formulas on the same schedule. Under
+float64 inputs (the CPU tests' float64 evaluations) both compute in
 float64.
 """
 
@@ -29,10 +30,13 @@ def init_state(bh: int, hd: int, device="cpu", dtype=torch.float32):
             torch.full((bh,), M_INIT, dtype=dtype, device=device))
 
 
-def _chunk(q, k, v, li, lf, C, n, m):
-    """One chunk of Lc rows: q/k/v (BH, Lc, hd) float32, gates (BH, Lc).
-    Returns (h float32, (C, n, m) after the chunk)."""
+def _parts(q, k, v, li, lf, C, n, m):
+    """The forward of one chunk of Lc rows, every intermediate kept: q/k/v
+    (BH, Lc, hd) float32, gates (BH, Lc), the state entering the chunk.
+    :func:`_chunk` returns h and the state after it; the backward reads
+    the rest."""
     Lc = q.shape[1]
+    p = {}
     # cumulative log-forget, summed in float64 and rounded to float32: a
     # float32 cumsum's rounding depends on its order (sequential here, a
     # tree in XLA, a scan on the card) and exp amplifies it; this gives
@@ -45,21 +49,31 @@ def _chunk(q, k, v, li, lf, C, n, m):
     dmat = dmat.masked_fill(~causal, float("-inf"))
     inter_log = b + m[:, None]  # decay of the carried state for row i
     m_new = torch.maximum(inter_log, dmat.amax(dim=2))  # finite: D[i, i]
-    dmat_s = torch.exp(dmat - m_new[:, :, None])  # 0 above the diagonal
-    inter_s = torch.exp(inter_log - m_new)
+    p["dmat_s"] = dmat_s = torch.exp(dmat - m_new[:, :, None])  # 0 above
+    p["inter_s"] = inter_s = torch.exp(inter_log - m_new)
     scores = q @ k.transpose(1, 2)
-    weighted = scores * dmat_s
+    p["weighted"] = weighted = scores * dmat_s
     num = weighted @ v + (q @ C) * inter_s[:, :, None]
-    den = weighted.sum(2) + (q @ n[:, :, None])[:, :, 0] * inter_s
-    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[:, :, None]
+    p["den"] = den = weighted.sum(2) + (q @ n[:, :, None])[:, :, 0] * inter_s
+    p["floor"] = floor = torch.exp(-m_new)
+    p["norm"] = norm = torch.maximum(den.abs(), floor)
+    p["h"] = num / norm[:, :, None]
 
     m_next = torch.maximum(total_f + m, (b + li).amax(dim=1))
-    kdecay = torch.exp(total_f[:, None] - b + li - m_next[:, None])
-    decay = torch.exp(total_f + m - m_next)
+    p["kdecay"] = kdecay = torch.exp(total_f[:, None] - b + li
+                                     - m_next[:, None])
+    p["decay"] = decay = torch.exp(total_f + m - m_next)
     kd = k * kdecay[:, :, None]
     C = decay[:, None, None] * C + kd.transpose(1, 2) @ v
     n = decay[:, None] * n + kd.sum(1)
-    return h, (C, n, m_next)
+    return p, (C, n, m_next)
+
+
+def _chunk(q, k, v, li, lf, C, n, m):
+    """One chunk of Lc rows: q/k/v (BH, Lc, hd) float32, gates (BH, Lc).
+    Returns (h float32, (C, n, m) after the chunk)."""
+    p, state = _parts(q, k, v, li, lf, C, n, m)
+    return p["h"], state
 
 
 def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int = 64, state=None):
@@ -70,12 +84,98 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int = 64, state=None):
     f = torch.float64 if q.dtype == torch.float64 else torch.float32
     C, n, m = (init_state(BH, hd, q.device, f) if state is None
                else tuple(t.to(f) for t in state))
-    h = torch.empty(BH, S, hd, dtype=q.dtype, device=q.device)
     li, lf = log_i.to(f), log_f.to(f)
+    hs = []  # one cat at the end: under autograd a slice write per chunk
+    # would clone the whole gradient of h in its backward
     for s0 in range(0, S, L):
         rows = slice(s0, min(s0 + L, S))
         hc, (C, n, m) = _chunk(q[:, rows].to(f), k[:, rows].to(f),
                                v[:, rows].to(f), li[:, rows], lf[:, rows],
                                C, n, m)
-        h[:, rows] = hc.to(q.dtype)
-    return h, (C, n, m)
+        hs.append(hc.to(q.dtype))
+    return torch.cat(hs, dim=1), (C, n, m)
+
+
+def mlstm_chunkwise_bwd(q, k, v, log_i, log_f, g_h, chunk: int = 64):
+    """The gradient of :func:`mlstm_chunkwise` (fresh state) for the
+    cotangent ``g_h`` (BH, S, hd) of h alone, the function of the backward
+    kernel of ``csrc/mlstm_bwd.cu``, in explicit formulas on the same
+    schedule. Returns (dq, dk, dv) in q's type and (dlog_i, dlog_f)
+    float32 (float64 under float64 inputs).
+
+    h_i = num_i / N_i does not depend on the stabilizers (m_new_i, the
+    carried m): with den_i = exp(-m_new_i) Dn_i, h_i is the unstabilised
+    numerator over max(|Dn_i|, 1). So every stabilizer is a constant
+    here; the reference's autodiff differentiates through its maxima, and
+    those terms sum to zero. A forward walk keeps each chunk's
+    intermediates and entering state; the walk back from the last chunk
+    carries the cotangent (dC, dn) of the state after the chunk, in the
+    scale of that state (C is stabilised by the m it carries, so dC needs
+    no stabilizer of its own: dC entering = decay dC + its rows' terms,
+    decay <= 1). Per chunk, with u_i = g_i / N_i and s_i = -sign(den_i)
+    <g_i, h_i> / N_i where |den_i| is the larger term of N_i (else 0):
+    dW_ij = <u_i, v_j> + s_i gives dv (W^T u), dS = dW * exp(D - m_new)
+    (dq = dS k, dk = dS^T q) and the log-weight cotangent dW * W on
+    D_ij = b_i - b_j + log_i_j; the carried state gives dq_i its
+    inter_s_i (C u_i + s_i n) and b_i its inter_s_i <q_i, C u_i + s_i n>;
+    the update C' = decay C + sum_j kd_j k_j v_j^T, n' = decay n +
+    sum_j kd_j k_j gives dk_j kd_j (dC' v_j + dn'), dv_j kd_j dC'^T k_j,
+    and the logs of kd_j and decay their cotangents. dlog_f is the
+    reverse cumulative sum of b's cotangents inside the chunk, in float64
+    rounded to float32 as the forward sums b.
+    """
+    BH, S, hd = q.shape
+    L = min(chunk, S)
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    C, n, m = init_state(BH, hd, q.device, f)
+    li, lf = log_i.to(f), log_f.to(f)
+    walk = []
+    for s0 in range(0, S, L):
+        rows = slice(s0, min(s0 + L, S))
+        x = [t[:, rows].to(f) for t in (q, k, v)]
+        p, state = _parts(*x, li[:, rows], lf[:, rows], C, n, m)
+        walk.append((rows, x, C, n, p))
+        C, n, m = state
+    dC, dn = torch.zeros_like(C), torch.zeros_like(n)
+    out = {name: [] for name in ("dq", "dk", "dv", "dli", "dlf")}
+    for rows, (qc, kc, vc), C, n, p in reversed(walk):
+        g = g_h[:, rows].to(f)
+        u = g / p["norm"][:, :, None]
+        s = torch.where(p["den"].abs() > p["floor"],
+                        -torch.sign(p["den"]) * (g * p["h"]).sum(2)
+                        / p["norm"], torch.zeros_like(p["den"]))
+        inter_s, kdecay = p["inter_s"], p["kdecay"]
+        # within the chunk (dW is 0 above the diagonal through dmat_s, W)
+        dW = u @ vc.transpose(1, 2) + s[:, :, None]
+        dS = dW * p["dmat_s"]
+        dD = dW * p["weighted"]
+        dq = dS @ kc
+        dk = dS.transpose(1, 2) @ qc
+        dv = p["weighted"].transpose(1, 2) @ u
+        # through the state entering the chunk
+        y = u @ C.transpose(1, 2) + s[:, :, None] * n[:, None, :]
+        dq = dq + inter_s[:, :, None] * y
+        d_inter = (qc * y).sum(2)
+        # through the state after it
+        z = vc @ dC.transpose(1, 2) + dn[:, None, :]
+        dk = dk + kdecay[:, :, None] * z
+        dv = dv + kdecay[:, :, None] * (kc @ dC)
+        d_kd = (kc * z).sum(2)
+        d_decay = (dC * C).sum((1, 2)) + (dn * n).sum(1)
+        # the log cotangents of D, inter_s, kd and decay, onto b and log_i
+        col_d = dD.sum(1)
+        kd_log = d_kd * kdecay
+        db = dD.sum(2) - col_d + d_inter * inter_s - kd_log
+        db[:, -1] += kd_log.sum(1) + d_decay * p["decay"]
+        acc = torch.float64
+        dlf = torch.flip(torch.cumsum(torch.flip(db.to(acc), (1,)), 1), (1,))
+        out["dlf"].append(dlf.to(f))
+        out["dli"].append(col_d + kd_log)
+        for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+            out[name].append(t.to(q.dtype))
+        # the cotangent of the state entering the chunk
+        w = inter_s[:, :, None] * qc
+        dC = p["decay"][:, None, None] * dC + w.transpose(1, 2) @ u
+        dn = p["decay"][:, None] * dn + (w * s[:, :, None]).sum(1)
+    return tuple(torch.cat(out[name][::-1], dim=1)
+                 for name in ("dq", "dk", "dv", "dli", "dlf"))

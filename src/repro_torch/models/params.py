@@ -40,9 +40,11 @@ type, as the reference's ``linear`` casts them.
 
 :func:`load_lm_train_golden` reads the training golden files: the five
 small decoders' (``lm_train_small_golden.npz``, written by
-``tests/test_torch_lm_train.py --write``) and the small RecurrentGemma's
+``tests/test_torch_lm_train.py --write``), the small RecurrentGemma's
 (``lm_train_recurrentgemma_small_golden.npz``, written by
-``tests/test_torch_rg_lru_train.py --write``).
+``tests/test_torch_rg_lru_train.py --write``) and the small xLSTM's
+(``lm_train_xlstm_small_golden.npz``, written by
+``tests/test_torch_xlstm_train.py --write``).
 
 :func:`load_whisper_golden` reads ``assets/lm_zoo_whisper_small_golden.npz``
 (``WHISPER_GOLDEN_PATH``, written by ``tests/test_torch_whisper.py
@@ -74,6 +76,7 @@ LM_MLA_MROPE_GOLDEN_PATH = ASSETS / "lm_zoo_mla_mrope_small_golden.npz"
 WHISPER_GOLDEN_PATH = ASSETS / "lm_zoo_whisper_small_golden.npz"
 LM_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_small_golden.npz"
 RG_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_recurrentgemma_small_golden.npz"
+XLSTM_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_xlstm_small_golden.npz"
 
 #: Ends of the leaf paths the reference reads in float32 whatever the
 #: compute type: norm scales and biases, the RG-LRU ``lambda``, the MoE
@@ -237,13 +240,17 @@ class LMTrainGolden:
 def load_lm_train_golden(arch: str, path=None) -> LMTrainGolden:
     """One small model of a training golden file: the five decoders of
     ``lm_train_small_golden.npz`` with their initial parameters from
-    ``lm_zoo_small_golden.npz``, or ``recurrentgemma-9b`` from
+    ``lm_zoo_small_golden.npz``, ``recurrentgemma-9b`` from
     ``lm_train_recurrentgemma_small_golden.npz`` with its initial
     parameters from ``recurrentgemma_small_golden.npz`` (the same JAX
     init: the training configuration differs only in ``chunked_ce`` and
-    ``max_seq``, which make no parameter)."""
+    ``max_seq``, which make no parameter), or ``xlstm-1.3b`` from
+    ``lm_train_xlstm_small_golden.npz`` with its initial parameters from
+    ``xlstm_small_golden.npz`` (likewise: only ``max_seq`` differs)."""
     if arch == "recurrentgemma-9b":
         path, init = path or RG_TRAIN_GOLDEN_PATH, (LM_GOLDEN_PATH, "")
+    elif arch == "xlstm-1.3b":
+        path, init = path or XLSTM_TRAIN_GOLDEN_PATH, (XLSTM_GOLDEN_PATH, "")
     else:
         path, init = path or LM_TRAIN_GOLDEN_PATH, (LM_ZOO_GOLDEN_PATH,
                                                     f"{arch}/")

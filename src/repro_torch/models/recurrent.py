@@ -7,12 +7,17 @@ wrapper ``kernels.rg_lru.ops.linear_scan`` and the full-sequence mLSTM
 through ``kernels.mlstm.ops.mlstm_chunkwise`` (the CUDA kernels on the
 card, their plain versions on the CPU); one decode step of either is
 plain tensor code, as in the reference. On the card the RG-LRU's
-gradient is the scan's backward kernel, so a Griffin model trains
-there; the mLSTM's wrapper still refuses a gradient on the card. The sLSTM has no TPU kernel in
-the reference (a ``lax.scan`` of jnp ops): here it is a Python loop
-over time. Gates are computed in the compute type, recurrences and
-states in float32 (float64 under a float64 compute type, the tests'
-float64 evaluation).
+gradient is the scan's backward kernel and the mLSTM's the mLSTM's
+backward kernel, so Griffin and xLSTM models train there. The sLSTM has
+no TPU kernel in the reference (a ``lax.scan`` of jnp ops): here it is a
+Python loop over time, its steps stacked once at the end (under autograd
+a write per step into one tensor would clone that tensor's whole
+gradient at every step of the backward). Under autograd in "train" mode
+the loop is :class:`_SLSTMScan`, whose backward is written out:
+autograd through the loop keeps a node for every op of every step and
+adds into w_rec's gradient at every step. Gates are computed in the
+compute type, recurrences and states in float32 (float64 under a float64
+compute type, the tests' float64 evaluation).
 
 Caches are written in place: the blocks in "prefill" and "decode" mode
 copy the new state into the cache dict they are given and return it.
@@ -218,7 +223,8 @@ def mlstm_block(params, cfg: ModelConfig, x, *, mode: str = "train",
                 cache=None):
     """x: (B, S, D) normed input; cache: {"conv", "state": (C, n, m)},
     updated in place in "prefill" and "decode" mode. Returns (out,
-    cache)."""
+    cache). In "train" mode the state is dropped, so a gradient reaches
+    the mLSTM through h alone, as the wrapper's backward asks."""
     B, S, d = x.shape
     di = 2 * d
     H = cfg.n_heads
@@ -297,10 +303,12 @@ def _slstm_recurrent(params, dtype):
     return w, b
 
 
-def _slstm_cell(w_rec, pre, state):
+def _slstm_step(w_rec, pre, state):
     """One step for every sequence. w_rec (H, hd, 4 hd); pre (H, B, 4 hd)
     the input-side pre-activations plus the recurrent biases; state
-    (c, n, h, m), each (H, B, hd) float32. Returns the new state."""
+    (c, n, h, m), each (H, B, hd) float32. Returns the new state and what
+    :class:`_SLSTMScan`'s backward reads: the stabilised gates i_s and
+    f_s, tanh(z), sigmoid(o) and the forget pre-activation f."""
     c, n, h, m = state
     hd = c.shape[-1]
     r = torch.baddbmm(pre, h, w_rec)  # (H, B, 4 hd)
@@ -309,10 +317,79 @@ def _slstm_cell(w_rec, pre, state):
     m_new = torch.maximum(log_f_m, log_i)
     i_s = torch.exp(log_i - m_new)
     f_s = torch.exp(log_f_m - m_new)
-    c_new = f_s * c + i_s * torch.tanh(z)
+    tz = torch.tanh(z)
+    c_new = f_s * c + i_s * tz
     n_new = f_s * n + i_s
-    h_new = torch.sigmoid(o) * c_new / torch.clamp_min(n_new, 1e-6)
-    return c_new, n_new, h_new, m_new
+    so = torch.sigmoid(o)
+    h_new = so * c_new / torch.clamp_min(n_new, 1e-6)
+    return (c_new, n_new, h_new, m_new), (i_s, f_s, tz, so, f)
+
+
+def _slstm_cell(w_rec, pre, state):
+    """One step for every sequence (:func:`_slstm_step`'s new state)."""
+    return _slstm_step(w_rec, pre, state)[0]
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The sLSTM's recurrence over S steps from a fresh state, under
+    autograd: the loop of :func:`_slstm_step` with no graph (so no
+    autograd node, saved-tensor hook or gradient accumulation a step), and
+    its backward written out, a loop from the last step. Takes w_rec
+    (H, hd, 4 hd) and pre (S, H, B, 4 hd); returns h of every step
+    (S, H, B, hd) and the last (c, n, m), whose cotangents it refuses.
+
+    As in the mLSTM, h = sigmoid(o) c / n does not depend on the
+    stabilizer m (c and n carry the same exp(-m)), so every m is a
+    constant of the gradient; n >= 1 at every step (one of f_s, i_s is 1
+    and n starts at 1), so the clamp of n never acts. With dh the
+    cotangent of a step's h (its own plus dr_{t+1} w_rec^T), dc and dn
+    those of its c and n (their own terms plus the carry f_s dc', f_s dn'):
+    dz = dc i_s (1 - tanh^2 z), dlog_i = (dc tanh z + dn) i_s,
+    df = (dc c_{t-1} + dn n_{t-1}) f_s sigmoid(-f), do = dh c / n
+    sigmoid'(o); d pre_t = dr_t = (dz, dlog_i, df, do), and d w_rec =
+    sum_t h_{t-1}^T dr_t in one product at the end."""
+
+    @staticmethod
+    def forward(ctx, w_rec, pre, c0, n0, h0, m0):
+        ctx.set_materialize_grads(False)
+        state = (c0, n0, h0, m0)
+        steps = []
+        for t in range(pre.shape[0]):
+            state, gates = _slstm_step(w_rec, pre[t], state)
+            steps.append((*state[:3], *gates))
+        saved = [torch.stack(x) for x in zip(*steps)]
+        ctx.save_for_backward(w_rec, c0, n0, h0, *saved)
+        return saved[2], state[0], state[1], state[3]
+
+    @staticmethod
+    def backward(ctx, g_hs, g_c, g_n, g_m):
+        if any(g is not None for g in (g_c, g_n, g_m)):
+            raise ValueError("the sLSTM scan takes no gradient through its "
+                             "last state")
+        w_rec, c0, n0, h0, cs, ns, hs, i_s, f_s, tz, so, f = ctx.saved_tensors
+        if g_hs is None:
+            return (None,) * 6
+        w_t = w_rec.transpose(1, 2)
+        d_pre = torch.empty(hs.shape[:-1] + (w_rec.shape[-1],),
+                            dtype=hs.dtype, device=hs.device)
+        dh, dc, dn = (torch.zeros_like(h0) for _ in range(3))
+        for t in reversed(range(hs.shape[0])):
+            c_prev, n_prev = (cs[t - 1], ns[t - 1]) if t else (c0, n0)
+            dh = dh + g_hs[t]
+            dch = dh * so[t] / ns[t]
+            dc = dc + dch
+            dn = dn - dch * cs[t] / ns[t]
+            torch.cat([dc * i_s[t] * (1 - tz[t] * tz[t]),
+                       (dc * tz[t] + dn) * i_s[t],
+                       (dc * c_prev + dn * n_prev) * f_s[t]
+                       * torch.sigmoid(-f[t]),
+                       dh * cs[t] / ns[t] * so[t] * (1 - so[t])],
+                      dim=-1, out=d_pre[t])
+            dh = torch.bmm(d_pre[t], w_t)
+            dc, dn = dc * f_s[t], dn * f_s[t]
+        h_prev = torch.cat([h0[None], hs[:-1]])
+        d_w = torch.einsum("shbd,shbe->hde", h_prev, d_pre)
+        return d_w, d_pre, None, None, None, None
 
 
 def slstm_block(params, cfg: ModelConfig, x, *, mode: str = "train",
@@ -347,10 +424,14 @@ def slstm_block(params, cfg: ModelConfig, x, *, mode: str = "train",
     else:
         zeros = torch.zeros(H, B, hd, dtype=sd, device=x.device)
         state = (zeros, zeros, zeros, torch.full_like(zeros, -1e30))
-    hs = torch.empty(S, H, B, hd, dtype=sd, device=x.device)
-    for t in range(S):
-        state = _slstm_cell(w_rec, pre[t], state)
-        hs[t] = state[2]
+    if mode == "train" and torch.is_grad_enabled():
+        hs, *_ = _SLSTMScan.apply(w_rec, pre, *state)  # (S, H, B, hd)
+    else:
+        hs = []
+        for t in range(S):
+            state = _slstm_cell(w_rec, pre[t], state)
+            hs.append(state[2])
+        hs = torch.stack(hs)  # (S, H, B, hd)
     if mode in ("prefill", "decode") and cache is not None:
         cache["conv"].copy_(hist if mode == "decode"
                             else _conv_history(cfg, x))

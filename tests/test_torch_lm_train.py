@@ -668,10 +668,10 @@ def test_train_main_prints_the_reference_lines(tmp_path):
 # ------------------------------------------------------------ the card
 @pytest.mark.gpu
 def test_recurrent_kernels_refuse_a_gradient_on_the_card():
-    """Under grad on a CUDA tensor the RG-LRU launches its backward kernel
-    once; the mLSTM wrapper still raises (its backward comes with a later
-    slice, ROADMAP queue 2 item 4); flash launches its backward at a
-    square pair and refuses (24, 16)."""
+    """Under grad on a CUDA tensor the RG-LRU and the mLSTM launch their
+    backward kernels once each, and the mLSTM refuses a cotangent of its
+    returned state; flash launches its backward at a square pair and
+    refuses (24, 16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -686,8 +686,14 @@ def test_recurrent_kernels_refuse_a_gradient_on_the_card():
     assert lru_ops.BWD_LAUNCHES == before + 1 and a.grad is not None
     q = torch.randn(1, 64, 2, 32, **cuda).requires_grad_()
     gates = [torch.randn(1, 64, 2, **cuda) for _ in range(2)]
-    with pytest.raises(ValueError, match="no backward.*item 4"):
-        mlstm_ops.mlstm_chunkwise(q, q.detach(), q.detach(), *gates)
+    before = mlstm_ops.BWD_LAUNCHES
+    h, _ = mlstm_ops.mlstm_chunkwise(q, q.detach(), q.detach(), *gates)
+    h.sum().backward()
+    assert mlstm_ops.BWD_LAUNCHES == before + 1 and q.grad is not None
+    h, (C, _, _) = mlstm_ops.mlstm_chunkwise(q, q.detach(), q.detach(),
+                                             *gates)
+    with pytest.raises(ValueError, match="returned state"):
+        (h.sum() + C.sum()).backward()
     q, k, v = (torch.randn(1, 70, 2, 64, **cuda).requires_grad_()
                for _ in range(3))
     before = fa_ops.BWD_LAUNCHES

@@ -239,14 +239,57 @@ def _good(B=1, S=10, H=4, hd=64):
                             f[:, :0], 64), ">= 1"),
     (lambda q, k, v, i, f: (q.transpose(1, 2).contiguous().transpose(1, 2),
                             k, v, i, f, 64), "contiguous"),
-    (lambda q, k, v, i, f: (q, k, v.requires_grad_(), i, f, 64),
-     "no backward"),
+    (lambda q, k, v, i, f: (q, k, v.bfloat16(), i, f, 64), "v is"),
     (lambda q, k, v, i, f: (torch.zeros(q.numel() + 1)[1:].view(q.shape),
                             k, v, i, f, 64), "aligned"),
 ])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, match):
     with pytest.raises((ValueError, TypeError, RuntimeError), match=match):
         ops._check(*bad(*_good()))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda g: g[:, :5], "g_h "), (lambda g: g.bfloat16(), "g_h is"),
+    (lambda g: g.transpose(1, 2).contiguous().transpose(1, 2),
+     "g_h must be contiguous")])
+def test_kernel_wrapper_rejects_a_cotangent_unlike_q(bad, match):
+    """The backward's cotangent of h is checked as q is: shape, type,
+    layout."""
+    q, k, v, li, lf = _good()
+    with pytest.raises((ValueError, TypeError), match=match):
+        ops._check(q, k, v, li, lf, 64, bad(torch.zeros_like(q)))
+
+
+def test_cpu_wrapper_differentiates_through_the_plain_version():
+    """On the CPU the wrapper under grad is autograd through the plain
+    forward: its gradient is ``mlstm_chunkwise_bwd``'s (the plain
+    backward, which the CPU entry takes), in the model's layout."""
+    B, S, H, hd = 2, 40, 2, 32
+    arrays = [torch.from_numpy(model_layout(x, B, H))
+              for x in make_inputs(B * H, S, hd, seed=4)]
+    leaves = [x.clone().requires_grad_() for x in arrays]
+    g = torch.randn(B, S, H, hd, generator=torch.Generator().manual_seed(0))
+    h, _ = ops.mlstm_chunkwise(*leaves, chunk=16)
+    got = torch.autograd.grad(h, leaves, g)
+    want = ops.mlstm_chunkwise_bwd(*arrays, g, chunk=16)
+    assert ops.LAUNCHES == 0 and ops.BWD_LAUNCHES == 0
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-5
+
+
+def test_state_cotangent_is_refused():
+    """The CUDA autograd function takes a cotangent of h only: one of C, n
+    or m raises before anything is launched."""
+    ctx = type("Ctx", (), {"chunk": 64})()
+    zero = torch.zeros(1)
+    for i in range(3):
+        cot = [None, None, None]
+        cot[i] = zero
+        with pytest.raises(ValueError, match="no gradient through the "
+                                             "returned state"):
+            ops._Mlstm.backward(ctx, zero, *cot)
+    assert ops._Mlstm.backward(ctx, None, None, None, None) == (None,) * 6
 
 
 def test_kernel_wrapper_accepts_the_main_path_shapes():
