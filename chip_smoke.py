@@ -334,14 +334,18 @@ Phases, each printing on lines of its own:
    A script that imports this one and calls ``phase_card()``,
    ``phase_build()`` and ``phase_rg_train()`` runs it alone.
 24. xLSTM's training: (a) the mLSTM backward kernel
-   (``ops.mlstm_chunkwise_bwd``) against ``ref.mlstm_chunkwise_bwd`` per
+   (``ops.mlstm_chunkwise_bwd``; bf16 on the tensor-core route, float32
+   on the CUDA-core route) against ``ref.mlstm_chunkwise_bwd`` per
    tensor (max |a - b| / max |b|: float32 1e-4, bf16 2e-2) over dq, dk,
-   dv, dlog_i and dlog_f: S 1/15/16/17/63/64/65/255/256/257/1000/4096 by
-   hd 32/96/1024, chunks 64 and 256, (B, H) (1, 1) and (2, 4), both input
-   types (288 cases); float32 also against the plain version in float64
-   (e_k <= 2 e_p); 20 launches at B=1 H=4 S=4096 hd=1024 bit for bit; the
-   reference's state overflow (non-finite entries as the plain
-   version's); one launch through autograd at the cell's shape; (b) the
+   dv, dlog_i and dlog_f: S 1/15/16/17/63/64/65/127/128/129/255/256/257/
+   1000/4096 by hd 32/96/1024, chunks 64 and 256, (B, H) (1, 1) and
+   (2, 4), both input types (360 cases), and hd 160 at S 65/129/257/1000
+   (32 cases); float32 also against the plain version in float64
+   (e_k <= 2 e_p); each route's kernels' registers, spills and shared
+   memory; 20 launches at B=1 H=4 S=4096 hd=1024 bf16 bit for bit; the
+   reference's state overflow through both routes (non-finite entries
+   as the plain version's); one launch through autograd at the cell's
+   shape; (b) the
    small xLSTM against ``lm_train_xlstm_small_golden.npz`` as [22b] (the
    sLSTM's ``ri/b``, whose exact gradient is 0, by the global norm); (c)
    ``xlstm-1.3b`` at every published width and full depth (1.918 B
@@ -352,10 +356,12 @@ Phases, each printing on lines of its own:
    time, a profiled step at S 512; at the trained weights, B 1 x S 512,
    kernels vs plain in float32 (1e-4) and in bf16 by distance from the
    float32 plain route (max(1e-1, 1.25 x)); ``launch.train.main`` on the
-   small xLSTM at S 300, 20 steps, a failure at step 12; (d) the backward
-   at B 1 x S 4096 and B 4 x S 2048 (H 4, hd 1024, chunk 256), bf16 and
-   float32, beside its bounds (the bf16 tensor-core rate; the float32
-   CUDA-core rate, the route it runs), scratch and the plain version.
+   small xLSTM at S 300, 20 steps, a failure at step 12; the profiled
+   step's mLSTM time split by kernel; (d) the backward at B 1 x S 4096
+   and B 4 x S 2048 (H 4, hd 1024, chunk 256) on both routes (bf16 and
+   float32), TFLOP/s, beside its bounds at each route's rate (the bf16
+   tensor-core rate, the float32 CUDA-core rate), scratch and the plain
+   version.
    ``phase_card()``, ``phase_build()`` and ``phase_xlstm_train()`` run
    it alone.
 
@@ -2190,6 +2196,30 @@ def _f32_gate(dist, S):
     return dict(dist, limit=limit)
 
 
+# the tensor-core backward's product kernels, by their template argument
+MLSTM_TC_PRODUCTS = ("cu", "dq", "dk", "dv")
+
+
+def _mlstm_split(prof):
+    """Device time (us) and launches of each mLSTM kernel in ``prof``,
+    by the name between ``mlstm_`` and ``_kernel`` (``tc::`` before the
+    tensor-core route's; a product kernel with what it computes), the
+    longest first."""
+    out = {}
+    for key, (us, count) in _device_rows(prof).rows.items():
+        found = re.search(r"(tc::)?mlstm_(\w+?)_kernel(?:<(\d+)>)?", key)
+        if not found:
+            continue
+        name = (found.group(1) or "") + found.group(2)
+        if found.group(3) is not None:
+            kinds = (MLSTM_TC_PRODUCTS if found.group(2) == "dproduct_tc"
+                     else ("dq", "dk", "dv"))
+            name += f"<{kinds[int(found.group(3))]}>"
+        total, launches = out.get(name, (0.0, 0))
+        out[name] = (total + us, launches + count)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
 def _pass_ms(fn, calls=3):
     """Device time per launch of each kernel that ``fn`` launches, by the
     profiler, keyed by the name between ``mlstm_`` and ``_kernel``."""
@@ -2203,13 +2233,10 @@ def _pass_ms(fn, calls=3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    _, top = _top_device(prof, n=None)
-    out = {}
-    for us, count, key in top:
-        found = re.search(r"mlstm_(\w+?)_kernel", key)
-        if found:
-            out[found.group(1)] = us / count / 1e3
+    out = {name.removeprefix("tc::"): us / count / 1e3
+           for name, (us, count) in _mlstm_split(prof).items()}
     if not out:
+        _, top = _top_device(prof, n=None)
         print(f"  the profiler recorded {len(top)} device entries, none of "
               f"them an mLSTM pass: {[k[:60] for _, _, k in top[:4]]}")
     return out
@@ -6783,10 +6810,16 @@ XL = "xlstm-1.3b"
 # |a - b| <= TOL (1 + |b|) cannot hold it): S around the 16-, 64- and
 # 256-row chunks and long, head dims at and past the 32-column tiles and
 # the model's 1024, B x H 1 and 8
-MLSTM_BWD_S = (1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 1000, 4096)
+MLSTM_BWD_S = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+               1000, 4096)
 MLSTM_BWD_HD = (32, 96, 1024)
 MLSTM_BWD_CHUNK = (64, 256)
 MLSTM_BWD_BH = ((1, 1), (2, 4))
+# the tensor-core route's tiles: 128 rows a score or product tile, 64 rows
+# a chunk step and 64 columns a TMA box, 128 (d, e) a dC tile and 256
+# columns a product tile; hd 160 ends a box, a dC tile and a product tile
+# mid-way, at a few S only (the phase's time)
+MLSTM_BWD_EDGE_HD, MLSTM_BWD_EDGE_S = 160, (65, 129, 257, 1000)
 MLSTM_BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # The float32 route against the plain version in float64: relative L2 at
 # most MLSTM_BWD_F64_MARGIN times the float32 plain version's own, per
@@ -6797,14 +6830,18 @@ MLSTM_BWD_F64_FLOOR = 1e-6
 MLSTM_BWD_REPEATS = 20
 # timed at the table's shape (the forward's) and at the cell's
 MLSTM_BWD_TIMED = ((1, 4096), (4, 2048))  # (B, S); H 4, hd 1024, chunk 256
-MLSTM_BWD_DESIGN = ("CUDA cores, one route for both input types (bf16 "
-                    "widened first): the float32 forward's passes "
-                    "recomputed (row scalars, n, W, h in float32 and C "
-                    "entering every chunk), dC and dn walked from the last "
-                    "chunk (32 value columns or key channels a block), dW "
-                    "(64 rows a block), dq/dk/dv as 64 x 64 tiles of the "
-                    "intra-chunk and the state products, the gates' sums in "
-                    "float64 and a reverse scan; no atomics")
+MLSTM_BWD_DESIGN = ("two routes by input type, no atomics. bf16: wgmma + "
+                    "TMA from q/k/v/g in place (no float32 copies), float32 "
+                    "operands as three bf16 planes; the forward's gates, "
+                    "states and scores recomputed, no h (<g_i, h_i> from "
+                    "G = u v^T and C u), y = C u and dW (128-row tiles), "
+                    "the dC walk as the states kernel mirrored (128 x 128 "
+                    "tiles, m64n128), dq/dk/dv as 128 x 256 tiles of the "
+                    "state and chunk products (m64n256), dn and the gates "
+                    "on CUDA cores. float32: CUDA cores, the float32 "
+                    "forward recomputed (h too), dC and dn walked from the "
+                    "last chunk, dW, dq/dk/dv as 64 x 64 tiles, the gates' "
+                    "sums in float64 and a reverse scan")
 MLSTM_BWD_NAMES = ("dq", "dk", "dv", "dlog_i", "dlog_f")
 # (c) the full-width cell: every published width and all 48 layers
 # (1.918 B parameters: bf16 weights and gradients and float32 moments,
@@ -6891,14 +6928,25 @@ def phase_xlstm_train_kernels():
     from repro_torch.kernels.mlstm import ops
 
     g = torch.Generator(device="cuda").manual_seed(10)
-    out = {"attributes": {k: ops.backward_attributes(k)
-                          for k in ops.BACKWARD_KERNELS}}
+    out = {"attributes": {
+        route: {k: ops.backward_attributes(k, route) for k in names}
+        for route, names in ops.BACKWARD_KERNELS.items()}}
+    # as phase [9] holds the forward's: no wgmma kernel spills
+    tc_attrs = out["attributes"]["tensor_core"]
+    check(all(a["local_bytes"] == 0 for k, a in tc_attrs.items()
+              if k not in ("dn", "dgates")),
+          f"the mlstm backward's tensor-core kernels spill no registers: "
+          f"{tc_attrs}")
     worst = {"float32": 0.0, "bfloat16": 0.0, "f64_ratio": 0.0,
              "float32_abs": 0.0, "bfloat16_abs": 0.0}
     n = 0
-    for S, hd, chunk, (B, H), dtype in itertools.product(
-            MLSTM_BWD_S, MLSTM_BWD_HD, MLSTM_BWD_CHUNK, MLSTM_BWD_BH,
-            (torch.float32, torch.bfloat16)):
+    cases = itertools.chain(
+        itertools.product(MLSTM_BWD_S, MLSTM_BWD_HD, MLSTM_BWD_CHUNK,
+                          MLSTM_BWD_BH, (torch.float32, torch.bfloat16)),
+        itertools.product(MLSTM_BWD_EDGE_S, (MLSTM_BWD_EDGE_HD,),
+                          MLSTM_BWD_CHUNK, MLSTM_BWD_BH,
+                          (torch.float32, torch.bfloat16)))
+    for S, hd, chunk, (B, H), dtype in cases:
         name = str(dtype).split(".")[-1]
         args = _mlstm_bwd_inputs(g, B, S, H, hd, dtype)
         e = mlstm_bwd_errors(args, chunk, float64=name == "float32")
@@ -6917,19 +6965,23 @@ def phase_xlstm_train_kernels():
         n += 1
         del args
     out["errors"] = worst
-    attrs = out["attributes"]
     print(f"  mlstm backward: {n} cases (S {MLSTM_BWD_S}, hd {MLSTM_BWD_HD}, "
-          f"chunk {MLSTM_BWD_CHUNK}, (B, H) {MLSTM_BWD_BH}, float32 and bf16),"
-          f" largest max |a - b| / max |b| over dq, dk, dv, dlog_i, dlog_f: "
-          f"float32 {worst['float32']:.3e} (tol "
-          f"{MLSTM_BWD_RTOL['float32']:g}), bf16 {worst['bfloat16']:.3e} "
-          f"(tol {MLSTM_BWD_RTOL['bfloat16']:g}); float32 vs float64 e_k / "
-          f"e_p up to {worst['f64_ratio']:.3f} ({worst['f64_tensor']}, "
-          f"{worst['f64_case']}; limit {MLSTM_BWD_F64_MARGIN:g}); "
-          f"registers " + ", ".join(
-              f"{k} {a['registers']} ({a['local_bytes']} local bytes, "
-              f"{a['static_smem_bytes'] + a['dynamic_smem_bytes']} bytes of "
-              f"shared memory)" for k, a in attrs.items()))
+          f"chunk {MLSTM_BWD_CHUNK}, (B, H) {MLSTM_BWD_BH}; hd "
+          f"{MLSTM_BWD_EDGE_HD} at S {MLSTM_BWD_EDGE_S}; float32 on "
+          f"{ops.bwd_route(torch.float32)}, bf16 on "
+          f"{ops.bwd_route(torch.bfloat16)}), largest max |a - b| / max |b| "
+          f"over dq, dk, dv, dlog_i, dlog_f: float32 {worst['float32']:.3e} "
+          f"(tol {MLSTM_BWD_RTOL['float32']:g}), bf16 "
+          f"{worst['bfloat16']:.3e} (tol {MLSTM_BWD_RTOL['bfloat16']:g}); "
+          f"float32 vs float64 e_k / e_p up to {worst['f64_ratio']:.3f} "
+          f"({worst['f64_tensor']}, {worst['f64_case']}; limit "
+          f"{MLSTM_BWD_F64_MARGIN:g})")
+    for route, attrs in out["attributes"].items():
+        print(f"  mlstm backward's {route} kernels (registers, local "
+              f"bytes, shared memory bytes): " + ", ".join(
+                  f"{k} {a['registers']}, {a['local_bytes']}, "
+                  f"{a['static_smem_bytes'] + a['dynamic_smem_bytes']}"
+                  for k, a in attrs.items()))
     # 20 launches at the table's shape, bit for bit
     args = _mlstm_bwd_inputs(g, 1, 4096, 4, 1024, torch.bfloat16)
     first = ops.mlstm_chunkwise_bwd(*args, chunk=MLSTM_CHUNK)
@@ -6943,24 +6995,29 @@ def phase_xlstm_train_kernels():
     # the reference's state overflow (ROADMAP.md section 3): every key
     # decay is inf, so dk, dv and the gates' gradients are NaN in every
     # entry of both versions (as in the reference's, tests/
-    # test_torch_xlstm_train.py), dq finite
+    # test_torch_xlstm_train.py), dq finite; through both routes
     q, k, v, _, _, g_h = _mlstm_bwd_inputs(g, 1, 4, 1, 32, torch.float32)
     li = torch.zeros(1, 4, 1, device="cuda")
     lf = torch.tensor([-100.0, -0.5, -0.5, -0.5], device="cuda").view(1, 4, 1)
-    got = ops.mlstm_chunkwise_bwd(q, k, v, li, lf, g_h, chunk=4)
-    want = ops._plain_bwd(q, k, v, li, lf, g_h, 4)
-    for name, a, b in zip(MLSTM_BWD_NAMES, got, want):
-        check(torch.equal(torch.isfinite(a), torch.isfinite(b)),
-              f"mlstm backward overflow: {name}'s non-finite entries are "
-              f"the plain version's")
-    check(bool(torch.isfinite(got[0]).all())
-          and _tensor_rel(got[0], want[0]) <= MLSTM_BWD_RTOL["float32"],
-          "mlstm backward overflow: dq finite and close")
-    out["overflow"] = {name: int((~torch.isfinite(a)).sum())
-                       for name, a in zip(MLSTM_BWD_NAMES, got)}
+    out["overflow"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        x = [t.to(dtype) for t in (q, k, v)]
+        got = ops.mlstm_chunkwise_bwd(*x, li, lf, g_h.to(dtype), chunk=4)
+        want = ops._plain_bwd(*x, li, lf, g_h.to(dtype), 4)
+        for tensor, a, b in zip(MLSTM_BWD_NAMES, got, want):
+            check(torch.equal(torch.isfinite(a), torch.isfinite(b)),
+                  f"mlstm backward overflow ({name}): {tensor}'s non-finite "
+                  f"entries are the plain version's")
+        check(bool(torch.isfinite(got[0]).all())
+              and _tensor_rel(got[0], want[0]) <= MLSTM_BWD_RTOL[name],
+              f"mlstm backward overflow ({name}): dq finite and close")
+        out["overflow"][name] = {tensor: int((~torch.isfinite(a)).sum())
+                                 for tensor, a in zip(MLSTM_BWD_NAMES, got)}
     print(f"  mlstm backward on the reference's state overflow: non-finite "
-          f"entries {out['overflow']} (of 128 / 4), as the plain version's; "
-          f"dq within {MLSTM_BWD_RTOL['float32']:g}")
+          f"entries {out['overflow']} (of 128 / 4), as the plain version's "
+          f"on both routes; dq within {MLSTM_BWD_RTOL['float32']:g} "
+          f"(float32), {MLSTM_BWD_RTOL['bfloat16']:g} (bf16)")
     # through autograd at the cell's shape, as the model reaches it: one
     # backward launch
     q, k, v, li, lf, g_h = _mlstm_bwd_inputs(g, XL_B, XL_S, 4, 1024,
@@ -7176,6 +7233,7 @@ def phase_xlstm_train_full():
     device_us, top = _top_device(prof)
     port = _port_device(prof)
     mlstm = _device_by_name(prof, ("mlstm_",))
+    split = _mlstm_split(prof)
     out["profile"] = {
         "shape": f"B={XL_B} S={XL_PROFILE_S}", "wall_s": wall,
         "device_s": device_us / 1e6,
@@ -7183,11 +7241,15 @@ def phase_xlstm_train_full():
         "top": [{"name": k[:90], "us": us, "count": c} for us, c, k in top],
         "port_kernels": {k: {"us": us, "count": c}
                          for k, (us, c) in port.items()},
-        "mlstm_us": mlstm.get("mlstm_", (0.0, 0))[0]}
+        "mlstm_us": mlstm.get("mlstm_", (0.0, 0))[0],
+        "mlstm_split": {k: {"us": us, "count": c}
+                        for k, (us, c) in split.items()}}
     print(f"  profiled step at B {XL_B} x S {XL_PROFILE_S}: {wall * 1e3:.1f} "
           f"ms wall, {device_us / 1e3:.1f} ms of device activity, idle share "
           f"{out['profile']['device_idle_share']:.4f}; the mLSTM kernels "
-          f"{out['profile']['mlstm_us'] / 1e3:.3f} ms; top device entries:")
+          f"{out['profile']['mlstm_us'] / 1e3:.3f} ms (" + ", ".join(
+              f"{k} {us / 1e3:.3f} ms x{c}" for k, (us, c) in split.items())
+          + "); top device entries:")
     for us, c, k in top:
         print(f"    {us:10.1f} us x{c:6d}  {k[:90]}")
     del prof
@@ -7239,9 +7301,9 @@ def mlstm_bwd_flops(B, H, S, hd, chunk):
     data needs: per chunk of Lc rows, five products over its causal (i, j)
     pairs (q k^T, g v^T, dS k, dS^T q, W^T u: 2 hd flops a pair each) and
     five over hd x hd (C entering the chunk, C u, dC' v, dC'^T k and the
-    dC carry: 2 Lc hd^2 flops each). The kernel also recomputes q C and
-    W v for h (a sixth of each), which a kernel deriving <g_i, h_i> from
-    dW and C g would not."""
+    dC carry: 2 Lc hd^2 flops each). The float32 route also recomputes q C
+    and W v for h (a sixth of each), which the tensor-core route, deriving
+    <g_i, h_i> from G = u v^T and C u, does not."""
     L = min(chunk, S)
     chunks = [min(L, S - s0) for s0 in range(0, S, L)]
     pairs = sum(n * (n + 1) // 2 for n in chunks)
@@ -7249,10 +7311,11 @@ def mlstm_bwd_flops(B, H, S, hd, chunk):
 
 
 def time_mlstm_bwd(g):
-    """(d) The backward kernel at MLSTM_BWD_TIMED for bf16 (what training
-    runs) and float32 inputs, back to back: its bound from its operations
-    at the bf16 tensor-core rate and at the float32 CUDA-core rate (the
-    route it runs), scratch, and the plain version's time."""
+    """(d) The backward kernel at MLSTM_BWD_TIMED on both routes, bf16
+    (the tensor-core route, what training runs) and float32 (the CUDA-core
+    route), back to back: TFLOP/s, its bound from its operations at each
+    route's peak rate (the bf16 tensor cores', the float32 CUDA cores'),
+    scratch and the plain version's time."""
     import torch
 
     from repro_torch.kernels.mlstm import ops
@@ -7278,6 +7341,7 @@ def time_mlstm_bwd(g):
         rate = BF16_FLOP_PER_S if name == "bfloat16" else F32_FLOP_PER_S
         t_ops = flops / rate * 1e3
         row = {"shape": f"B={B} H={H} S={S} hd={hd} chunk={L} {name}",
+               "route": ops.bwd_route(dtype),
                "ms": ms, "plain_ms": plain, "library_ms": None,
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -7288,13 +7352,13 @@ def time_mlstm_bwd(g):
                "tflop_per_s": flops / ms / 1e9,
                "scratch_bytes": ops.bwd_scratch_bytes(B, H, S, hd, L, dtype)}
         rows[row["shape"]] = row
-        print(f"  mlstm backward {row['shape']}: kernel {ms:.4f} ms "
-              f"({row['tflop_per_s']:.2f} TFLOP/s of {flops / 1e9:.1f} "
-              f"GFLOP), bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-              f"at the float32 CUDA-core rate, the route it runs, "
-              f"{row['cuda_core_bound_ms']:.4f} ms, "
-              f"{row['cuda_core_bound_ms'] / ms:.1%}; at the bf16 "
-              f"tensor-core rate {row['tensor_core_bound_ms']:.4f} ms), plain "
+        print(f"  mlstm backward {row['shape']} ({row['route']} route): "
+              f"kernel {ms:.4f} ms ({row['tflop_per_s']:.2f} TFLOP/s of "
+              f"{flops / 1e9:.1f} GFLOP), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']} at the route's rate, "
+              f"{row['bound_ms'] / ms:.1%}; at the bf16 tensor-core rate "
+              f"{row['tensor_core_bound_ms']:.4f} ms, at the float32 "
+              f"CUDA-core rate {row['cuda_core_bound_ms']:.4f} ms), plain "
               f"{plain:.2f} ms, scratch {row['scratch_bytes'] / 1e6:.1f} MB; "
               f"no PyTorch call computes it")
         del args
@@ -7486,6 +7550,7 @@ def main() -> int:
     xl_timing = xl_train["timing"]
     mlstm_bwd = xl_timing["B=1 H=4 S=4096 hd=1024 chunk=256 bfloat16"]
     mlstm_bwd_f32 = xl_timing["B=1 H=4 S=4096 hd=1024 chunk=256 float32"]
+    mlstm_bwd_cell = xl_timing["B=4 H=4 S=2048 hd=1024 chunk=256 bfloat16"]
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -7683,6 +7748,9 @@ def main() -> int:
         "design": MLSTM_BWD_DESIGN,
         "cuda_core_bound_ms": mlstm_bwd["cuda_core_bound_ms"],
         "f32_ms": mlstm_bwd_f32["ms"],
+        "cell_ms": mlstm_bwd_cell["ms"],
+        "cell_bound_ms": mlstm_bwd_cell["bound_ms"],
+        "cell_plain_ms": mlstm_bwd_cell["plain_ms"],
         "f32_bound_ms": mlstm_bwd_f32["bound_ms"],
         "scratch_bytes": mlstm_bwd["scratch_bytes"],
         "by_shape": xl_timing,

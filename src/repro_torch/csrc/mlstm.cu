@@ -601,7 +601,7 @@ long long f32_scratch_bytes(long long BH, int S, int hd, int L, int nc) {
 }
 
 // ======================================================================
-// The backward, one route on the CUDA cores for both input types.
+// The backward: two routes, chosen by the input type as the forward's.
 //
 // Replaces the reference's custom VJP (src/repro/kernels/mlstm/ops.py:38,
 // `_bwd`: jax.vjp of the plain chunkwise form), which has no pallas_call:
@@ -611,8 +611,7 @@ long long f32_scratch_bytes(long long BH, int S, int hd, int L, int nc) {
 // max(|Dn_i|, 1), so every m is a constant of the gradient (the reference's
 // autodiff goes through its maxima, and those terms sum to zero). Per chunk,
 // with u_i = g_i / N_i and s_i = -sign(den_i) <g_i, h_i> / N_i where |den_i|
-// is the larger term of N_i (else 0), <g_i, h_i> from a float32 h
-// recomputed here (never the bf16 output):
+// is the larger term of N_i (else 0):
 //   dW_ij = <u_i, v_j> + s_i (j <= i), dS = dW * exp(D - m_new),
 //   dq = dS k + inter_s (C u + s n),  dk = dS^T q + kd (dC' v + dn'),
 //   dv = W^T u + kd dC'^T k,
@@ -626,16 +625,19 @@ long long f32_scratch_bytes(long long BH, int S, int hd, int L, int nc) {
 // s_i n> on b_i, kd_j <k_j, dC' v_j + dn'> on the log of kd_j (total_f - b_j
 // + log_i_j) and decay <dC', C> + decay <dn', n> on total_f; dlog_f is the
 // reverse cumulative sum of b's cotangents inside the chunk. These scalars
-// are summed in float64 and rounded to float32, as the forward sums b.
+// are summed in float64 and rounded to float32, as the forward sums b. No
+// route uses atomics: every sum has one order, and a launch gives the same
+// bits every time.
 //
 // What bounds it: operations, about 2.5x the forward's (the state terms
 // C u, dC' v and dC'^T k are three more L x hd x hd products a chunk,
-// the recomputed forward and the dC carry two). Design (a simple kernel
-// that is right; the tensor cores are later work): it recomputes rather
-// than saves, so autograd keeps only the inputs, and every pass either
-// walks the chunks (the carries, tiled over value columns as the forward's
-// pass 4) or is parallel over (rows, columns, chunk, bh). bfloat16 inputs
-// are first widened to float32 copies; then, on the caller's stream:
+// the recomputed C and the dC carry two). Both routes recompute rather
+// than save, so autograd keeps only the inputs; every pass either walks the
+// chunks (the carries) or is parallel over (rows, columns, chunk, bh).
+//
+// float32 inputs, the CUDA-core route (its checks are held at 1e-4 and
+// within 2x the plain version's distance from float64, which tensor cores
+// reach only from bf16 inputs); <g_i, h_i> from a float32 h recomputed here:
 //   1-4. the float32 forward's passes: the row scalars, n before every
 //      chunk, W and N (and den, signed), and h in float32 with C entering
 //      every chunk written to scratch; their long sums split into slices
@@ -649,12 +651,40 @@ long long f32_scratch_bytes(long long BH, int S, int hd, int L, int nc) {
 //      dS to scratch, the row sums of dW * W and per-tile column sums;
 //   9. dq, dk, dv: one block per (64 rows, 64 columns, chunk, bh), the
 //      intra-chunk product and the state product into one accumulator,
-//      written in the input type, with per-column-tile parts of the row
-//      dots <q_i, C u_i + s_i n> and <k_j, dC' v_j + dn'>;
+//      with per-column-tile parts of the row dots <q_i, C u_i + s_i n> and
+//      <k_j, dC' v_j + dn'>;
 //  10. gates: one block per (chunk, bh), the parts summed in float64 in a
 //      fixed order, dlog_i, and dlog_f by a reverse scan in float64.
-// No atomics: every sum has one order, and a launch gives the same bits
-// every time.
+//
+// bfloat16 inputs, the tensor-core route (namespace tc, after the
+// forward's kernels, which it reuses): wgmma with float32 accumulators,
+// operands by TMA from q, k, v and g in place (no float32 copies), two
+// stages a ring. A float32 operand enters a product as three bf16 planes
+// hi + mid + lo (float32's precision, as in the forward): w q (below), C,
+// dC', dS and W / N, three planes each; q, k, v and g enter as they are. It
+// recomputes no h: with the products it forms anyway,
+//   <g_i, h_i> = sum_{j <= i} W_ij <u_i, v_j> + inter_s_i <q_i, C u_i>.
+// On the caller's stream:
+//   1-3. the forward's gates, states (C entering every chunk as planes, n
+//      before every chunk) and scores (W as planes, N, and for the backward
+//      the signed den and <q_i, n>);
+//   4. cu: y = C u for every row of chunks >= 1 (m64n256 tiles of 128 rows
+//      x 256 columns over hd), written in float32, with the rows' parts of
+//      <q_i, y_i>;
+//   5. dW: one block per (128 rows, chunk, bh): G = g v^T up to the
+//      diagonal, <g_i, h_i> by the identity, s, dS and W / N as planes, the
+//      row and column sums of dW * W;
+//   6. dC walk: the states kernel mirrored, one block per (128 d, 128 e,
+//      bh) from the last chunk: dC <- decay dC + (w q)^T g with w = inter_s
+//      / N (m64n128, both operands MN-major), writing dC' of every chunk as
+//      planes and the tile's part of <dC', C>;
+//   7. the dn walk of the CUDA-core route (pass 7), q read as bf16;
+//   8. dq = dS k + inter_s (y + s n), dk = kd (dC' v + dn') + dS^T q and
+//      dv = kd dC'^T k + (W / N)^T g: one block per (128 rows, 256
+//      columns, chunk, bh), the state product over hd, then the chunk
+//      product, into one accumulator (dk also writes the parts of
+//      <k_j, dC' v_j + dn'>);
+//   9. gates: pass 10 above, on this route's parts.
 
 constexpr int kPT = 64;         // rows and columns of a product tile (pass 9)
 constexpr int kBP = kPT + 4;    // row pitch of its staged B slice
@@ -677,7 +707,7 @@ enum { kDenRaw = 0, kSRow, kRowD, kBwdRowKinds };
 // Pieces of the backward's scratch, in float32 words.
 struct BwdScratch {
   long long rows, decay, m, n_prev, n_last, W, h, C, brows, dC, dn, dS,
-      part_C, part_n, colpart, dots_q, dots_k, wide, total;
+      part_C, part_n, colpart, dots_q, dots_k, total;
 };
 
 __host__ __device__ inline int col_tiles(int hd) {
@@ -687,8 +717,8 @@ __host__ __device__ inline int row_tiles(int L) {
   return (L + kPT - 1) / kPT;
 }
 
-inline BwdScratch bwd_scratch_of(long long BH, int S, int hd, int L, int nc,
-                                 bool bf16) {
+inline BwdScratch bwd_scratch_of(long long BH, int S, int hd, int L,
+                                 int nc) {
   BwdScratch o;
   long long at = 0;
   auto take = [&](long long n) {
@@ -714,17 +744,8 @@ inline BwdScratch bwd_scratch_of(long long BH, int S, int hd, int L, int nc,
   o.colpart = take(BH * nc * (long long)row_tiles(L) * L);
   o.dots_q = take(BH * S * col_tiles(hd));
   o.dots_k = take(BH * S * col_tiles(hd));
-  o.wide = take(bf16 ? 4 * cells : 0);  // q, k, v, g widened
   o.total = at;
   return o;
-}
-
-// ---------------------------------------------------------------- widen
-__global__ void mlstm_widen_kernel(const __nv_bfloat16* __restrict__ x,
-                                   float* __restrict__ y, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    y[i] = __bfloat162float(x[i]);
 }
 
 // ---------------------------------------------------------------- pass 5
@@ -846,8 +867,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------- pass 7
 // One block per (32 key channels, bh), the layout of pass 2: dn walked from
 // the last chunk; dn' of every chunk, and the block's part of <dn', n_c>.
+// q is float32 here and bf16 on the tensor-core route, which runs this
+// walk too (dn is a vector: no product to put on the tensor cores).
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    mlstm_dn_kernel(const float* __restrict__ q, Layout lay, int BH,
+    mlstm_dn_kernel(const T* __restrict__ q, Layout lay, int BH,
                     const float* __restrict__ rows,
                     const float* __restrict__ brows,
                     const float* __restrict__ decay,
@@ -869,7 +898,7 @@ __global__ void __launch_bounds__(kThreads)
     float acc = 0.f;
 #pragma unroll 4
     for (int i = grp; i < Lc; i += kNGroups)
-      acc += q[hr.at(r0 + i) + d] * (r_inter[r0 + i] * r_s[r0 + i]);
+      acc += ld(q + hr.at(r0 + i) + d) * (r_inter[r0 + i] * r_s[r0 + i]);
     sums[grp][lane] = acc;
     __syncthreads();
     if (grp == 0) {
@@ -1035,11 +1064,6 @@ __device__ __forceinline__ void tile_product(float (*As)[kPitch],
   }
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 enum { kOutQ = 0, kOutK, kOutV };
 
 // One block per (64 rows, 64 columns, chunk, bh) of dq (kOutQ), dk or dv:
@@ -1048,7 +1072,7 @@ enum { kOutQ = 0, kOutK, kOutV };
 //   dv_j = sum_i W_ij u_i + kd_j dC'^T k_j,
 // with C, n entering the chunk and dC', dn' after it; the tile's part of
 // <q_i, y_i> or <k_j, z_j> goes to `dots` (one column per column tile).
-template <int kOut, typename T>
+template <int kOut>
 __global__ void __launch_bounds__(kThreads)
     mlstm_dproducts_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -1059,7 +1083,8 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ Wm,
                            const float* __restrict__ M,
                            const float* __restrict__ vec,
-                           T* __restrict__ out, float* __restrict__ dots) {
+                           float* __restrict__ out,
+                           float* __restrict__ dots) {
   __shared__ float As[kPT][kPitch];
   __shared__ __align__(16) float Bs[kSlice][kBP];
   const int ncol = col_tiles(lay.hd);
@@ -1156,7 +1181,7 @@ __global__ void __launch_bounds__(kThreads)
       if (kOut == kOutQ) y = y / r_den[il] + r_s[il] * vc[col];
       if (kOut == kOutK) y = y + vc[col];
       if (live) {
-        store(out + hr.at(r0 + i) + col, intra[r][cc] + scale * y);
+        out[hr.at(r0 + i) + col] = intra[r][cc] + scale * y;
         if (kOut != kOutV)
           dot += (kOut == kOutQ ? in_rows(q, i, col) : in_rows(k, i, col)) *
                  y;
@@ -1170,9 +1195,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------- pass 10
+// How the parts of the gates' sums are laid out, by route: each row's parts
+// of <q_i, C u_i + s_i n> and <k_j, dC' v_j + dn'>, a (bh, chunk)'s parts
+// of <dC', C> and <dn', n>, and the column sums of dW * W a row tile of
+// `tile` rows (`tiles` a chunk).
+struct GateParts {
+  int q, k, C, n, tile, tiles;
+};
+
 // One block per (chunk, bh), thread i for row i: the gates' cotangents.
 __global__ void __launch_bounds__(kThreads)
-    mlstm_dgates_kernel(Layout lay, int BH, const float* __restrict__ rows,
+    mlstm_dgates_kernel(Layout lay, int BH, GateParts np,
+                        const float* __restrict__ rows,
                         const float* __restrict__ brows,
                         const float* __restrict__ decay,
                         const float* __restrict__ colpart,
@@ -1192,18 +1226,15 @@ __global__ void __launch_bounds__(kThreads)
   const Rows gr = lay.gates(bh);
   const long long plane = (long long)BH * lay.S;
   const long long o = (long long)bh * lay.S + r0 + i;
-  const int ncol = col_tiles(lay.hd);
   const long long bc = (long long)bh * lay.nc + c;
   double db = 0.0, P = 0.0, col_d = 0.0;
   if (real) {
     double dq = 0.0, dk = 0.0;
-    for (int ct = 0; ct < ncol; ++ct) {
-      dq += dots_q[o * ncol + ct];
-      dk += dots_k[o * ncol + ct];
-    }
-    const int nrt = row_tiles(Lc);
-    for (int rt = i / kPT; rt < nrt; ++rt)
-      col_d += colpart[(bc * row_tiles(lay.L) + rt) * lay.L + i];
+    for (int ct = 0; ct < np.q; ++ct) dq += dots_q[o * np.q + ct];
+    for (int ct = 0; ct < np.k; ++ct) dk += dots_k[o * np.k + ct];
+    const int nrt = (Lc + np.tile - 1) / np.tile;
+    for (int rt = i / np.tile; rt < nrt; ++rt)
+      col_d += colpart[(bc * np.tiles + rt) * lay.L + i];
     P = dk * (double)rows[kKDecay * plane + o];
     db = (double)brows[kRowD * plane + o] - col_d +
          dq * (double)rows[kInterS * plane + o] - P;
@@ -1217,9 +1248,8 @@ __global__ void __launch_bounds__(kThreads)
     tot = 0.0;
     for (int w = 0; w < kThreads / 32; ++w) tot += warp_tot[w];
     double dd = 0.0;
-    for (int x = 0; x < lay.hd / kTileE; ++x)
-      dd += part_C[bc * (lay.hd / kTileE) + x];
-    for (int x = 0; x < lay.hd / 32; ++x) dd += part_n[bc * (lay.hd / 32) + x];
+    for (int x = 0; x < np.C; ++x) dd += part_C[bc * np.C + x];
+    for (int x = 0; x < np.n; ++x) dd += part_n[bc * np.n + x];
     db += tot + dd * (double)decay[bc];
   }
   db_s[i] = db;  // 0 past Lc
@@ -1239,12 +1269,10 @@ __global__ void __launch_bounds__(kThreads)
 
 static_assert(kThreads == kMaxChunk, "pass 10: a thread a row");
 
-// The backward's launches on `s`; q, k, v and g float32 (bf16 inputs come
-// widened), dq/dk/dv of type T.
-template <typename T>
+// The float32 route's launches on `s`.
 cudaError_t dispatch_bwd(const float* q, const float* k, const float* v,
                          const float* g, const float* log_i,
-                         const float* log_f, T* dq, T* dk, T* dv,
+                         const float* log_f, float* dq, float* dk, float* dv,
                          float* dlog_i, float* dlog_f, float* sc,
                          const BwdScratch& o, int BH, Layout lay,
                          cudaStream_t s) {
@@ -1283,7 +1311,7 @@ cudaError_t dispatch_bwd(const float* q, const float* k, const float* v,
   mlstm_dstate_kernel<<<dim3(lay.hd / kTileE, BH), kThreads, smem, s>>>(
       q, g, lay, BH, rows, decay, sc + o.C, sc + o.dC, sc + o.part_C);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mlstm_dn_kernel<<<dim3(lay.hd / 32, BH), kThreads, 0, s>>>(
+  mlstm_dn_kernel<float><<<dim3(lay.hd / 32, BH), kThreads, 0, s>>>(
       q, lay, BH, rows, brows, decay, sc + o.n_prev, sc + o.dn,
       sc + o.part_n);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -1293,48 +1321,25 @@ cudaError_t dispatch_bwd(const float* q, const float* k, const float* v,
           sc + o.colpart);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const dim3 grid(col_tiles(lay.hd) * row_tiles(lay.L), lay.nc, BH);
-  mlstm_dproducts_kernel<kOutQ, T><<<grid, kThreads, 0, s>>>(
+  mlstm_dproducts_kernel<kOutQ><<<grid, kThreads, 0, s>>>(
       q, k, v, g, lay, BH, rows, brows, sc + o.dS, sc + o.C, sc + o.n_prev,
       dq, sc + o.dots_q);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mlstm_dproducts_kernel<kOutK, T><<<grid, kThreads, 0, s>>>(
+  mlstm_dproducts_kernel<kOutK><<<grid, kThreads, 0, s>>>(
       q, k, v, g, lay, BH, rows, brows, sc + o.dS, sc + o.dC, sc + o.dn, dk,
       sc + o.dots_k);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mlstm_dproducts_kernel<kOutV, T><<<grid, kThreads, 0, s>>>(
+  mlstm_dproducts_kernel<kOutV><<<grid, kThreads, 0, s>>>(
       q, k, v, g, lay, BH, rows, brows, sc + o.W, sc + o.dC, nullptr, dv,
       nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const GateParts np = {col_tiles(lay.hd), col_tiles(lay.hd),
+                        lay.hd / kTileE, lay.hd / 32, kPT,
+                        row_tiles(lay.L)};
   mlstm_dgates_kernel<<<dim3(lay.nc, BH), kThreads, 0, s>>>(
-      lay, BH, rows, brows, decay, sc + o.colpart, sc + o.dots_q,
+      lay, BH, np, rows, brows, decay, sc + o.colpart, sc + o.dots_q,
       sc + o.dots_k, sc + o.part_C, sc + o.part_n, dlog_i, dlog_f);
   return cudaGetLastError();
-}
-
-// The backward's kernels, for mlstm_bwd_attributes: 0 values (pass 4), 1
-// dstate, 2 dweights, 3-5 dq, dk, dv (float32 outputs), 6 dgates; the
-// dynamic shared memory at head dim hd and chunk L.
-cudaError_t bwd_attributes(int which, int hd, int L, int* regs,
-                           int* local_bytes, int* static_smem,
-                           int* dynamic_smem) {
-  const void* fns[] = {
-      (const void*)mlstm_values_kernel<true>,
-      (const void*)mlstm_dstate_kernel,
-      (const void*)mlstm_dweights_kernel,
-      (const void*)mlstm_dproducts_kernel<kOutQ, float>,
-      (const void*)mlstm_dproducts_kernel<kOutK, float>,
-      (const void*)mlstm_dproducts_kernel<kOutV, float>,
-      (const void*)mlstm_dgates_kernel};
-  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
-    return cudaErrorInvalidValue;
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
-  if (err != cudaSuccess) return err;
-  *regs = attr.numRegs;
-  *local_bytes = (int)attr.localSizeBytes;
-  *static_smem = (int)attr.sharedSizeBytes;
-  *dynamic_smem = which <= 1 ? (int)values_smem(hd, L) : 0;
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -1363,9 +1368,12 @@ cudaError_t bwd_attributes(int which, int hd, int L, int* regs,
 //      tile share out its channels to carry n = decay n + sum_j kd_j k_j
 //      from k as it came, and write n before every chunk;
 //   3. scores, one block per (128 rows, chunk, bh): S = q k^T over hd in
-//      steps of 64 columns (two TMA stages), m64n128 tiles up to the
-//      diagonal, then W = S * exp(D - m) in float32 in registers, masked to
-//      j <= i < Lc, written to scratch as three bf16 planes, and the
+//      steps of 64 columns (two TMA stages), an m64n128 tile of 128 keys
+//      at a time up to the diagonal, each step's product summed into the
+//      tile in float32 registers (one accumulator over all of hd loses
+//      precision, see the kernel), then W = S * exp(D - m) in float32,
+//      masked to j <= i < Lc, written to scratch as three bf16 planes, and
+//      the
 //      normaliser max(|sum_j W_ij + inter_s_i <q_i, n>|, exp(-m_i)) from
 //      the float32 W, as the plain version sums it;
 //   4. outputs, one block per (128 rows, 256 value columns, chunk, bh):
@@ -1454,7 +1462,7 @@ __host__ __device__ inline Scratch scratch_of(long long BH, int S, int hd,
 
 // ------------------------------------------------------------- 3. scores
 constexpr int kQTile = kTile * kRB;        // 128 rows of one column block
-constexpr int kScoreStage = 3 * kQTile;    // q, then k in two halves
+constexpr int kScoreStage = 2 * kQTile;    // q, then a half of k
 constexpr int kScoreSmem = 2 * kScoreStage + 64 + 1024;
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1464,7 +1472,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ log_i, Layout lay, int BH,
                         float* __restrict__ rows,
                         const float* __restrict__ n_prev,
-                        bf16* __restrict__ W) {
+                        bf16* __restrict__ W, float* __restrict__ den_out,
+                        float* __restrict__ qn_out) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = align1024(smem_raw);
   uint64_t* bars = reinterpret_cast<uint64_t*>(base + 2 * kScoreStage);
@@ -1486,21 +1495,30 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* r_inter = rows + kInterS * plane + (long long)bh * lay.S + r0;
   float* r_den = rows + kDenom * plane + (long long)bh * lay.S + r0;
 
-  // step s: columns 64 s .. 64 s + 63 of q's 128 rows and k's rows
-  auto load = [&](int s) {
-    unsigned char* stage = base + (s & 1) * kScoreStage;
-    const uint32_t bar = smem_addr(bars + (s & 1));
-    mbar_expect_tx(bar, (1 + halves) * kQTile);
+  // S = q k^T over hd for one half of the keys at a time: step st is
+  // half hf = st / nd, columns 64 s .. 64 s + 63 (s = st % nd) of q's 128
+  // rows and of the half's 128 keys. Each step's product goes into a fresh
+  // accumulator and is added to the half's float32 sum in registers. One
+  // wgmma accumulator carried over all of hd (64 k16 steps at hd = 1024)
+  // rounded h to other bf16 values than the float64 evaluation about twice
+  // as often as the plain version does, enough to carry the full-width
+  // xLSTM's bf16 gradients, trained through it, past phase [24c]'s margin
+  // (tools/xlstm_bf16_gradients.py measures both).
+  const int steps = halves * nd;
+  auto load = [&](int st) {
+    const int hf = st / nd, s = st % nd;
+    unsigned char* stage = base + (st & 1) * kScoreStage;
+    const uint32_t bar = smem_addr(bars + (st & 1));
+    mbar_expect_tx(bar, 2 * kQTile);
     tma_load(smem_addr(stage), &tm_q, bar, s * kCB, head, r0 + i0, b);
-    for (int hf = 0; hf < halves; ++hf)
-      tma_load(smem_addr(stage + (1 + hf) * kQTile), &tm_k, bar, s * kCB,
-               head, r0 + hf * kTile, b);
+    tma_load(smem_addr(stage + kQTile), &tm_k, bar, s * kCB, head,
+             r0 + hf * kTile, b);
   };
   if (t == 0) init_barriers(bars, 2);
   __syncthreads();
   if (t == 0) {
     load(0);
-    if (nd > 1) load(1);
+    if (steps > 1) load(1);
   }
   // while the first tiles land: the gates of the chunk's columns and
   // <q_i, n> with n before this chunk, a warp per 16 rows
@@ -1524,39 +1542,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  float acc[2][64];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-    for (int x = 0; x < 64; ++x) acc[hf][x] = 0.f;
-  for (int s = 0; s < nd; ++s) {
-    const unsigned char* stage = base + (s & 1) * kScoreStage;
-    mbar_wait(smem_addr(bars + (s & 1)), (s >> 1) & 1);
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int x = 0; x < 64; ++x) pin(acc[hf][x]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kCB / 16; ++kk) {
-      const uint64_t da = kmajor(stage + 64 * wg * kRB + 32 * kk);
-      wgmma_ss_n128<0, 0>(acc[0], da, kmajor(stage + kQTile + 32 * kk), 1);
-      if (halves > 1)
-        wgmma_ss_n128<0, 0>(acc[1], da,
-                            kmajor(stage + 2 * kQTile + 32 * kk), 1);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-      for (int x = 0; x < 64; ++x) pin(acc[hf][x]);
-    __syncthreads();  // stage s & 1 is no longer read
-    if (t == 0 && s + 2 < nd) load(s + 2);
-  }
-
-  // W_ij = S_ij exp(D_ij - m_i) for j <= i < Lc, else 0; acc[hf][4 t8 + e]
-  // is row rA + 8 (e / 2), column 128 hf + 8 t8 + 2 (lane % 4) + e % 2
+  // acc[4 t8 + e] (and sum) is row rA + 8 (e / 2), column 128 hf + 8 t8 +
+  // 2 (lane % 4) + e % 2
   const int rA = i0 + 64 * wg + 16 * (warp % 4) + lane / 4;
   float b_i[2], m_i[2], rowsum[2] = {0.f, 0.f};
 #pragma unroll
@@ -1567,9 +1554,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const long long lp = wpitch(lay.L);
   bf16* w_c = W + ((long long)bh * lay.nc + c) * kPlanes * lp * lp;
+  float acc[64], sum[64];
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    if (hf >= halves) break;
+  for (int x = 0; x < 64; ++x) acc[x] = sum[x] = 0.f;
+  for (int st = 0; st < steps; ++st) {
+    const int hf = st / nd, s = st % nd;
+    const unsigned char* stage = base + (st & 1) * kScoreStage;
+    mbar_wait(smem_addr(bars + (st & 1)), (st >> 1) & 1);
+#pragma unroll
+    for (int x = 0; x < 64; ++x) pin(acc[x]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCB / 16; ++kk)
+      wgmma_ss_n128<0, 0>(acc, kmajor(stage + 64 * wg * kRB + 32 * kk),
+                          kmajor(stage + kQTile + 32 * kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int x = 0; x < 64; ++x) {
+      pin(acc[x]);
+      sum[x] += acc[x];
+    }
+    __syncthreads();  // stage st & 1 is no longer read
+    if (t == 0 && st + 2 < steps) load(st + 2);
+    if (s + 1 < nd) continue;
+    // the half is done: W_ij = S_ij exp(D_ij - m_i) for j <= i < Lc, else
+    // 0, as three bf16 planes, and the rows' sums of W
 #pragma unroll
     for (int t8 = 0; t8 < 16; ++t8)
 #pragma unroll
@@ -1581,7 +1591,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int e = 0; e < 2; ++e) {
           const int jj = j + e;
           w[e] = (i < Lc && jj <= i)
-                     ? acc[hf][4 * t8 + 2 * pr + e] *
+                     ? sum[4 * t8 + 2 * pr + e] *
                            expf(((b_i[pr] - bj_s[jj]) + lij_s[jj]) - m_i[pr])
                      : 0.f;
           rowsum[pr] += w[e];
@@ -1593,6 +1603,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           *reinterpret_cast<uint32_t*>(w_c + pl * lp * lp + i * lp + j) =
               terms[pl];
       }
+#pragma unroll
+    for (int x = 0; x < 64; ++x) sum[x] = 0.f;
   }
 #pragma unroll
   for (int pr = 0; pr < 2; ++pr) {
@@ -1600,9 +1612,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int i = rA + 8 * pr;
-    if (lane % 4 == 0 && i < Lc)
+    if (lane % 4 == 0 && i < Lc) {
       r_den[i] = fmaxf(fabsf(sum + qn_s[i - i0] * r_inter[i]),
                        expf(-m_i[pr]));
+      // the backward's: the signed denominator and <q_i, n>
+      const long long at = (long long)bh * lay.S + r0 + i;
+      if (den_out) den_out[at] = sum + qn_s[i - i0] * r_inter[i];
+      if (qn_out) qn_out[at] = qn_s[i - i0];
+    }
   }
 }
 
@@ -1807,7 +1824,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int pr = 0; pr < 2; ++pr) {
       const int d = dA + 8 * pr;
       const int e = e0 + 8 * t8 + 2 * (lane % 4);
-      if (d >= lay.hd || e >= lay.hd) continue;
+      // C_out is null in the backward, which reads the entering states only
+      if (C_out == nullptr || d >= lay.hd || e >= lay.hd) continue;
       *reinterpret_cast<float2*>(C_out + ((long long)bh * lay.hd + d) *
                                              lay.hd + e) =
           make_float2(acc[4 * t8 + 2 * pr], acc[4 * t8 + 2 * pr + 1]);
@@ -2036,7 +2054,8 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
       tk, tv, tc_store, lay, BH, rows, decay, C, n_prev, n);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mlstm_scores_kernel<<<dim3(lp / kTile, lay.nc, BH), kThreads, kScoreSmem,
-                        s>>>(tq, tk, q, log_i, lay, BH, rows, n_prev, W);
+                        s>>>(tq, tk, q, log_i, lay, BH, rows, n_prev, W,
+                             nullptr, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int et = (lay.hd + kOutCols - 1) / kOutCols;
   mlstm_outputs_kernel<<<dim3(lp / kTile * et, lay.nc, BH), kThreads,
@@ -2060,6 +2079,870 @@ cudaError_t attributes(int which, int* regs, int* local_bytes,
   *static_smem = (int)attr.sharedSizeBytes;
   *dynamic_smem = dyn[which];
   return cudaSuccess;
+}
+
+
+// ======================================================================
+// The backward's tensor-core route (bfloat16 inputs); the formulas, the
+// plane counts and the order of the launches are in the backward's header
+// above.
+
+// <q_i, n> with n entering the row's chunk, from the scores kernel: a row
+// kind after the backward's own.
+enum { kQnRow = kBwdRowKinds, kTcRowKinds };
+
+__host__ __device__ inline int out_tiles(int hd) {  // 256 columns a tile
+  return (hd + kOutCols - 1) / kOutCols;
+}
+__host__ __device__ inline int state_tiles(int hd) {  // 128 d or e a tile
+  return (hd + kTile - 1) / kTile;
+}
+
+// Scratch of the backward's tensor-core route, in bytes from its start:
+// the forward's pieces, then the backward's.
+struct BwdScratch {
+  Scratch f;
+  long long m, n_last, brows, y, qparts, kparts, colpart, ds, wn, dc, dn,
+      part_c, part_n, bytes;
+};
+
+inline BwdScratch bwd_scratch_of(long long BH, int S, int hd, int L,
+                                 int nc) {
+  BwdScratch o;
+  o.f = scratch_of(BH, S, hd, L, nc);
+  long long at = align_up(o.f.bytes);
+  auto take = [&](long long bytes) {
+    const long long here = at;
+    at = align_up(at + bytes);
+    return here;
+  };
+  const long long lp = wpitch(L), nd = out_tiles(hd), nt = state_tiles(hd);
+  o.m = take(4 * BH);
+  o.n_last = take(4 * BH * hd);
+  o.brows = take(4LL * kTcRowKinds * BH * S);
+  o.y = take(4 * BH * S * hd);
+  o.qparts = take(4 * BH * S * (nd + 1));
+  o.kparts = take(4 * BH * S * nd);
+  o.colpart = take(4 * BH * nc * (lp / kTile) * L);
+  o.ds = take(2 * BH * nc * kPlanes * lp * lp);
+  o.wn = take(2 * BH * nc * kPlanes * lp * lp);
+  o.dc = take(2 * BH * (nc - 1) * kPlanes * (long long)hd * hd);
+  o.dn = take(4 * BH * nc * hd);
+  o.part_c = take(4 * BH * nc * nt * nt);
+  o.part_n = take(4 * BH * nc * (hd / 32));
+  o.bytes = at;
+  return o;
+}
+
+// the pair (W_ij, W_i(j+1)) in float32 from its three bf16 planes (j even)
+__device__ __forceinline__ float2 from_planes(const bf16* p, long long plane) {
+  float2 x = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int pl = 0; pl < kPlanes; ++pl) {
+    const float2 part =
+        unpack_bf16(*reinterpret_cast<const uint32_t*>(p + pl * plane));
+    x.x += part.x;
+    x.y += part.y;
+  }
+  return x;
+}
+
+// sum over the four lanes of a quad (the lanes that hold one row of a
+// wgmma accumulator)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+
+// ------------------------------------------------------------ b1. dW
+// One block per (128 rows, chunk, bh), the layout of the scores kernel:
+// G = g v^T over hd (A = g, B = v in halves of 128 keys, two TMA stages),
+// up to the diagonal. Then per row, with u = g / N:
+//   <g_i, h_i> = sum_j W_ij G_ij / N_i + inter_s_i <q_i, C u_i>
+// (the second term's parts come from the cu products), s_i, and
+// dW = G / N + s, dS = dW * exp(D - m) and W / N written as three bf16
+// planes each (the dq, dk and dv products read them), the row sums of
+// dW * W and the block's column sums of it.
+constexpr int kDwStage = 3 * kQTile;  // g, then v in two halves
+constexpr int kDwSmem = 2 * kDwStage + 64 + 1024;
+
+__global__ void __launch_bounds__(kThreads, 1)
+    mlstm_dweights_tc_kernel(const __grid_constant__ CUtensorMap tm_g,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const float* __restrict__ log_i, Layout lay,
+                             int BH, const float* __restrict__ rows,
+                             float* __restrict__ brows,
+                             const bf16* __restrict__ W,
+                             float* __restrict__ qparts,
+                             bf16* __restrict__ dS, bf16* __restrict__ Wn,
+                             float* __restrict__ colpart) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + 2 * kDwStage);
+  __shared__ float bj_s[2 * kTile];
+  __shared__ float lij_s[2 * kTile];
+  __shared__ float cs[kThreads / 32][2 * kTile];  // column sums a warp
+  const int rt = blockIdx.x, c = blockIdx.y, bh = blockIdx.z;
+  const int r0 = c * lay.L;
+  const int Lc = min(lay.L, lay.S - r0);
+  const int i0 = rt * kTile;
+  if (i0 >= Lc) return;  // the whole block: no barrier is skipped
+  const int b = bh / lay.H, head = bh % lay.H;
+  const int t = threadIdx.x, wg = t / 128, warp = t / 32, lane = t % 32;
+  const int halves = (min(i0 + kTile, Lc) + kTile - 1) / kTile;  // 1 or 2
+  const int nk = (lay.hd + kCB - 1) / kCB;
+  const int nd = out_tiles(lay.hd);
+  const long long plane = (long long)BH * lay.S;
+  const long long off = (long long)bh * lay.S + r0;
+  const float* r_b = rows + kB * plane + off;
+  const float* r_m = rows + kMNew * plane + off;
+  const float* r_inter = rows + kInterS * plane + off;
+  const float* r_norm = rows + kDenom * plane + off;
+
+  // step s: columns 64 s .. 64 s + 63 of g's 128 rows and v's rows
+  auto load = [&](int s) {
+    unsigned char* stage = base + (s & 1) * kDwStage;
+    const uint32_t bar = smem_addr(bars + (s & 1));
+    mbar_expect_tx(bar, (1 + halves) * kQTile);
+    tma_load(smem_addr(stage), &tm_g, bar, s * kCB, head, r0 + i0, b);
+    for (int hf = 0; hf < halves; ++hf)
+      tma_load(smem_addr(stage + (1 + hf) * kQTile), &tm_v, bar, s * kCB,
+               head, r0 + hf * kTile, b);
+  };
+  if (t == 0) init_barriers(bars, 2);
+  __syncthreads();
+  if (t == 0) {
+    load(0);
+    if (nk > 1) load(1);
+  }
+  const Rows gr = lay.gates(bh);
+  for (int j = t; j < 2 * kTile; j += kThreads) {
+    bj_s[j] = j < Lc ? r_b[j] : 0.f;
+    lij_s[j] = j < Lc ? log_i[gr.at(r0 + j)] : 0.f;
+  }
+  __syncthreads();
+
+  float acc[2][64];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int x = 0; x < 64; ++x) acc[hf][x] = 0.f;
+  for (int s = 0; s < nk; ++s) {
+    const unsigned char* stage = base + (s & 1) * kDwStage;
+    mbar_wait(smem_addr(bars + (s & 1)), (s >> 1) & 1);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int x = 0; x < 64; ++x) pin(acc[hf][x]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kCB / 16; ++kk) {
+      const uint64_t da = kmajor(stage + 64 * wg * kRB + 32 * kk);
+      wgmma_ss_n128<0, 0>(acc[0], da, kmajor(stage + kQTile + 32 * kk), 1);
+      if (halves > 1)
+        wgmma_ss_n128<0, 0>(acc[1], da,
+                            kmajor(stage + 2 * kQTile + 32 * kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int x = 0; x < 64; ++x) pin(acc[hf][x]);
+    __syncthreads();  // stage s & 1 is no longer read
+    if (t == 0 && s + 2 < nk) load(s + 2);
+  }
+
+  // acc[hf][4 t8 + e] is G at row rA + 8 (e / 2), column 128 hf + 8 t8 +
+  // 2 (lane % 4) + e % 2
+  const int rA = i0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const long long lp = wpitch(lay.L), pstride = lp * lp;
+  const long long cw = ((long long)bh * lay.nc + c) * kPlanes * pstride;
+  const bf16* w_c = W + cw;
+  float b_i[2], m_i[2], n_i[2], rowdot[2] = {0.f, 0.f};
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    const int i = rA + 8 * pr;
+    b_i[pr] = i < Lc ? r_b[i] : 0.f;
+    m_i[pr] = i < Lc ? r_m[i] : 0.f;
+    n_i[pr] = i < Lc ? r_norm[i] : 1.f;
+  }
+  // sum_j W_ij G_ij / N_i
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (hf >= halves) break;
+#pragma unroll
+    for (int t8 = 0; t8 < 16; ++t8)
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const int i = rA + 8 * pr;
+        const int j = hf * kTile + 8 * t8 + 2 * (lane % 4);
+        if (i >= Lc || j > i) continue;
+        const float2 w = from_planes(w_c + i * lp + j, pstride);
+        rowdot[pr] += w.x * (acc[hf][4 * t8 + 2 * pr] / n_i[pr]);
+        if (j + 1 <= i)
+          rowdot[pr] += w.y * (acc[hf][4 * t8 + 2 * pr + 1] / n_i[pr]);
+      }
+  }
+  float s_i[2];
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    const int i = rA + 8 * pr;
+    const float dot = quad_sum(rowdot[pr]);
+    float sv = 0.f;
+    if (i < Lc) {
+      float* qp = qparts + (off + i) * (nd + 1);
+      float qy = 0.f;  // <q_i, C u_i>, 0 in the first chunk (C = 0)
+      if (c > 0)
+        for (int ct = 0; ct < nd; ++ct) qy += qp[ct];
+      const float den = brows[kDenRaw * plane + off + i];
+      if (fabsf(den) > expf(-m_i[pr]))
+        sv = (-copysignf(1.f, den) * (dot + r_inter[i] * qy)) / n_i[pr];
+      if (lane % 4 == 0) {
+        brows[kSRow * plane + off + i] = sv;
+        // the gates' part s_i <q_i, n> of <q_i, C u_i + s_i n>
+        qp[nd] = sv * brows[kQnRow * plane + off + i];
+        if (c == 0)
+          for (int ct = 0; ct < nd; ++ct) qp[ct] = 0.f;
+      }
+    }
+    s_i[pr] = sv;
+  }
+  // dS, W / N, and the sums of dW * W
+  bf16* ds_c = dS + cw;
+  bf16* wn_c = Wn + cw;
+  float rowd[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (hf >= halves) break;
+#pragma unroll
+    for (int t8 = 0; t8 < 16; ++t8) {
+      const int j = hf * kTile + 8 * t8 + 2 * (lane % 4);
+      float col[2] = {0.f, 0.f};
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        const int i = rA + 8 * pr;
+        float ds[2] = {0.f, 0.f}, wn[2] = {0.f, 0.f};
+        if (i < Lc && j <= i) {
+          const float2 w2 = from_planes(w_c + i * lp + j, pstride);
+          const float w[2] = {w2.x, w2.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jj = j + e;
+            if (jj > i) continue;
+            const float dw = acc[hf][4 * t8 + 2 * pr + e] / n_i[pr] + s_i[pr];
+            ds[e] = dw * expf(((b_i[pr] - bj_s[jj]) + lij_s[jj]) - m_i[pr]);
+            wn[e] = w[e] / n_i[pr];
+            const float dd = dw * w[e];
+            rowd[pr] += dd;
+            col[e] += dd;
+          }
+        }
+        uint32_t terms[kPlanes];
+        split3(ds[0], ds[1], terms);
+#pragma unroll
+        for (int pl = 0; pl < kPlanes; ++pl)
+          *reinterpret_cast<uint32_t*>(ds_c + pl * pstride + i * lp + j) =
+              terms[pl];
+        split3(wn[0], wn[1], terms);
+#pragma unroll
+        for (int pl = 0; pl < kPlanes; ++pl)
+          *reinterpret_cast<uint32_t*>(wn_c + pl * pstride + i * lp + j) =
+              terms[pl];
+      }
+      // over the warp's 16 rows: the lanes that share lane % 4
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        for (int o = 4; o < 32; o <<= 1)
+          col[e] += __shfl_xor_sync(0xffffffffu, col[e], o);
+        if (lane < 4) cs[warp][j + e] = col[e];
+      }
+    }
+  }
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    const int i = rA + 8 * pr;
+    const float sum = quad_sum(rowd[pr]);
+    if (lane % 4 == 0 && i < Lc) brows[kRowD * plane + off + i] = sum;
+  }
+  __syncthreads();
+  // the block's column sums, its warps in order
+  const int j = t;
+  if (j < halves * kTile && j < Lc) {
+    float sum = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) sum += cs[w][j];
+    colpart[(((long long)bh * lay.nc + c) * (lp / kTile) + rt) * lay.L + j] =
+        sum;
+  }
+}
+static_assert(kThreads == 2 * kTile, "a thread a column of the block");
+
+// ------------------------------------------------------------ b2. dC
+// The states kernel mirrored: one block per (128 key channels d, 128 value
+// columns e, bh) walks the chunks from the last, 128 rows a step (k
+// there, q here; v there, g here), with dC's tile in float32 accumulators:
+//   dC <- decay dC + sum_i (w_i q_i)^T g_i,  w_i = inter_s_i / N_i,
+// as wgmma m64n128, both operands MN-major: q comes by TMA and is turned
+// in shared memory into w * q as three bf16 planes, g is read as it came.
+// When chunk c's rows are done, the accumulator is dC' of chunk c - 1: it
+// is written as three bf16 planes by TMA (the dk and dv products read
+// them) with the tile's part of <dC', C> (C entering chunk c - 1, from its
+// planes). Chunk 0's rows reach no earlier state and are not walked.
+__global__ void __launch_bounds__(kThreads, 1)
+    mlstm_dstate_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_g,
+                           const __grid_constant__ CUtensorMap tm_dc,
+                           Layout lay, int BH, const float* __restrict__ rows,
+                           const float* __restrict__ decay,
+                           const bf16* __restrict__ C_planes,
+                           float* __restrict__ part) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* planes = base + 2 * kStateStage;  // hi, mid, lo of w * q
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(planes + 2 * kPlanes * kHalfBlock);
+  __shared__ float w_s[kMaxChunk];
+  __shared__ float red[kThreads / 32];
+  const int e0 = blockIdx.x * kTile, d0 = blockIdx.y * kTile;
+  const int bh = blockIdx.z;
+  const int tiles = gridDim.x * gridDim.y;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int b = bh / lay.H, head = bh % lay.H;
+  const int t = threadIdx.x, wg = t / 128, warp = t / 32, lane = t % 32;
+  const long long plane = (long long)BH * lay.S;
+  const float* r_inter = rows + kInterS * plane + (long long)bh * lay.S;
+  const float* r_norm = rows + kDenom * plane + (long long)bh * lay.S;
+  const long long hd2 = (long long)lay.hd * lay.hd;
+  // acc[4 t8 + e] is dC[d, e'] with d = dA + 8 (e / 2) and
+  // e' = e0 + 8 t8 + 2 (lane % 4) + e % 2
+  const int dA = d0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  // the steps: the last chunk's, then chunk nc - 2's, ..., chunk 1's
+  const int per_chunk = (lay.L + kHalf - 1) / kHalf;
+  const int last_rows = lay.S - (lay.nc - 1) * lay.L;
+  const int n_last = (last_rows + kHalf - 1) / kHalf;
+  const int steps = lay.nc > 1 ? n_last + (lay.nc - 2) * per_chunk : 0;
+  auto chunk_of = [&](int s) {
+    return s < n_last ? lay.nc - 1 : lay.nc - 2 - (s - n_last) / per_chunk;
+  };
+  auto row_of = [&](int s) {
+    return (s < n_last ? s : (s - n_last) % per_chunk) * kHalf;
+  };
+  // the last chunk's dC' is 0
+  if (t == 0) part[((long long)bh * lay.nc + lay.nc - 1) * tiles + tile] = 0.f;
+
+  auto load = [&](int s) {
+    const int r = chunk_of(s) * lay.L + row_of(s);
+    unsigned char* stage = base + (s & 1) * kStateStage;
+    const uint32_t bar = smem_addr(bars + (s & 1));
+    mbar_expect_tx(bar, kStateStage);
+    for (int cb = 0; cb < 2; ++cb) {
+      tma_load(smem_addr(stage + cb * kHalfBlock), &tm_q, bar, d0 + cb * kCB,
+               head, r, b);
+      tma_load(smem_addr(stage + (2 + cb) * kHalfBlock), &tm_g, bar,
+               e0 + cb * kCB, head, r, b);
+    }
+  };
+  if (t == 0) init_barriers(bars, 2);
+  __syncthreads();
+  if (t == 0 && steps > 0) {
+    load(0);
+    if (steps > 1) load(1);
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) acc[x] = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    const int c = chunk_of(s), j0 = row_of(s);
+    const int r0 = c * lay.L;
+    const int Lc = min(lay.L, lay.S - r0);
+    if (j0 == 0) w_s[t] = t < Lc ? r_inter[r0 + t] / r_norm[r0 + t] : 0.f;
+    if (t == 0) bulk_wait_read();  // the last dC' planes have left
+    __syncthreads();  // w_s, and the planes buffer is free
+    const unsigned char* stage = base + (s & 1) * kStateStage;
+    mbar_wait(smem_addr(bars + (s & 1)), (s >> 1) & 1);
+    // w * q in float32 as three bf16 planes; a piece's row is its offset /
+    // 128 in its column block
+    for (int p = t; p < 2 * kHalfBlock / 16; p += kThreads) {
+      const int o = 16 * p;
+      const float w = w_s[j0 + (o % kHalfBlock) / kRB];
+      const uint4 x = *reinterpret_cast<const uint4*>(stage + o);
+      const uint32_t in[4] = {x.x, x.y, x.z, x.w};
+      uint32_t out[kPlanes][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 f = unpack_bf16(in[u]);
+        uint32_t terms[kPlanes];
+        split3(f.x * w, f.y * w, terms);
+#pragma unroll
+        for (int pl = 0; pl < kPlanes; ++pl) out[pl][u] = terms[pl];
+      }
+#pragma unroll
+      for (int pl = 0; pl < kPlanes; ++pl)
+        *reinterpret_cast<uint4*>(planes + pl * 2 * kHalfBlock + o) =
+            make_uint4(out[pl][0], out[pl][1], out[pl][2], out[pl][3]);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (j0 == 0 && c + 1 < lay.nc) {  // dC' of chunk c, decayed
+      const float dc = decay[(long long)bh * lay.nc + c];
+#pragma unroll
+      for (int x = 0; x < 64; ++x) acc[x] *= dc;
+    }
+    // dC += (w q)^T g: d is A's row (MN-major), the step's rows the
+    // contraction; rows past the chunk have zero planes (w = 0)
+#pragma unroll
+    for (int x = 0; x < 64; ++x) pin(acc[x]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHalf / 16; ++kk) {
+      const int row = 16 * kk * kRB;
+      const uint64_t dg = mnmajor(stage + 2 * kHalfBlock + row, kHalfBlock);
+#pragma unroll
+      for (int pl = 0; pl < kPlanes; ++pl)
+        wgmma_ss_n128<1, 1>(
+            acc,
+            mnmajor(planes + pl * 2 * kHalfBlock + wg * kHalfBlock + row,
+                    kHalfBlock),
+            dg, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int x = 0; x < 64; ++x) pin(acc[x]);
+    if (j0 + kHalf >= Lc) {
+      // chunk c is done: acc is dC' of chunk cp = c - 1. The tile's part
+      // of <dC', C_cp>, C_cp entering chunk cp (0 for cp = 0)
+      const int cp = c - 1;
+      float dot = 0.f;
+      if (cp > 0) {
+        const bf16* Cc =
+            C_planes + ((long long)bh * (lay.nc - 1) + cp - 1) * kPlanes * hd2;
+#pragma unroll
+        for (int t8 = 0; t8 < 16; ++t8)
+#pragma unroll
+          for (int pr = 0; pr < 2; ++pr) {
+            const int d = dA + 8 * pr;
+            const int e = e0 + 8 * t8 + 2 * (lane % 4);
+            if (d >= lay.hd || e >= lay.hd) continue;
+            const float2 cv = from_planes(Cc + (long long)d * lay.hd + e, hd2);
+            dot += acc[4 * t8 + 2 * pr] * cv.x +
+                   acc[4 * t8 + 2 * pr + 1] * cv.y;
+          }
+      }
+      dot = warp_sum32(dot);
+      // dC' as three bf16 planes, staged in the planes buffer (no longer
+      // read) with the 128-byte swizzle and written by TMA, as the states
+      // kernel writes C
+      __syncthreads();  // every warpgroup's wgmmas have read the planes
+      if (lane == 0) red[warp] = dot;
+#pragma unroll
+      for (int t8 = 0; t8 < 16; ++t8)
+#pragma unroll
+        for (int pr = 0; pr < 2; ++pr) {
+          const int r = dA - d0 + 8 * pr;  // row of the tile
+          const int col = 8 * t8 + 2 * (lane % 4);
+          uint32_t terms[kPlanes];
+          split3(acc[4 * t8 + 2 * pr], acc[4 * t8 + 2 * pr + 1], terms);
+          const int o = (col / kCB) * kHalfBlock + r * kRB +
+                        ((((col % kCB) / 8) ^ (r % 8)) << 4) + 2 * (col % 8);
+#pragma unroll
+          for (int pl = 0; pl < kPlanes; ++pl)
+            *reinterpret_cast<uint32_t*>(planes + pl * 2 * kHalfBlock + o) =
+                terms[pl];
+        }
+      fence_proxy_async();
+      __syncthreads();
+      if (t == 0) {
+        float sum = 0.f;
+        for (int w = 0; w < kThreads / 32; ++w) sum += red[w];
+        part[((long long)bh * lay.nc + cp) * tiles + tile] = sum;
+        const int first = (bh * (lay.nc - 1) + cp) * kPlanes;
+        for (int pl = 0; pl < kPlanes; ++pl)
+          for (int cb = 0; cb < 2; ++cb)
+            tma_store3(&tm_dc,
+                       smem_addr(planes + (2 * pl + cb) * kHalfBlock),
+                       e0 + cb * kCB, d0, first + pl);
+        bulk_commit();
+      }
+    }
+    __syncthreads();  // stage s & 1 and the planes are no longer read
+    if (t == 0 && s + 2 < steps) load(s + 2);
+  }
+  if (t == 0) bulk_wait_read();  // shared memory outlives its reads
+}
+
+// ------------------------------------------------------ b3. the products
+// One block per (128 rows, 256 columns, chunk, bh), the layout of the
+// outputs kernel: up to two products into one float32 accumulator,
+// m64n256 a warpgroup, from two TMA stages of 112 KB:
+//   a state product over hd: A = 128 rows of an input, B = the three bf16
+//   planes of C or dC' (K-major: 256 rows of a plane a box; MN-major: 64);
+//   a row scale;
+//   a chunk product over the chunk's rows, 64 a step: A = the three bf16
+//   planes of dS or W / N (K-major for dq; transposed, MN-major, for dk
+//   and dv), B = 64 rows of an input.
+// kCu: y_i = C u_i = C g_i / N_i in float32 and its rows' parts of
+//      <q_i, y_i>; chunks >= 1 (C = 0 before the first);
+// kDq: dq_i = sum_{j <= i} dS_ij k_j + inter_s_i (y_i + s_i n);
+// kDk: dk_j = kd_j (dC' v_j + dn') + sum_{i >= j} dS_ij q_i, with the
+//      rows' parts of <k_j, dC' v_j + dn'>;
+// kDv: dv_j = kd_j dC'^T k_j + sum_{i >= j} (W_ij / N_i) g_i.
+// The last chunk has no state product (dC' = 0 after it). A warpgroup
+// skips a chunk step whose block of dS or W is zero for all its rows.
+enum { kCu = 0, kDq, kDk, kDv };
+constexpr int kBPlane = kOutCols * kRB;  // a K-major plane of 256 rows
+
+template <int kKind>
+__global__ void __launch_bounds__(kThreads, 1)
+    mlstm_dproduct_tc_kernel(const __grid_constant__ CUtensorMap tm_a1,
+                             const __grid_constant__ CUtensorMap tm_b1,
+                             const __grid_constant__ CUtensorMap tm_a2,
+                             const __grid_constant__ CUtensorMap tm_b2,
+                             Layout lay, int BH, int row_tiles,
+                             const float* __restrict__ rows,
+                             const float* __restrict__ brows,
+                             const float* __restrict__ vec,
+                             const bf16* __restrict__ xdot,
+                             float* __restrict__ y,
+                             float* __restrict__ parts,
+                             bf16* __restrict__ out) {
+  constexpr bool kState = kKind != kDq;
+  constexpr bool kChunk = kKind != kCu;
+  constexpr int kTB1 = kKind == kCu || kKind == kDk ? 0 : 1;  // MN-major?
+  constexpr int kTA2 = kKind == kDq ? 0 : 1;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + 2 * kOutStage);
+  const int rt = blockIdx.x % row_tiles, ct = blockIdx.x / row_tiles;
+  const int c = kKind == kCu ? blockIdx.y + 1 : blockIdx.y;
+  const int bh = blockIdx.z;
+  const int r0 = c * lay.L;
+  const int Lc = min(lay.L, lay.S - r0);
+  const int i0 = rt * kTile, e0 = ct * kOutCols;
+  if (i0 >= Lc) return;  // the whole block: no barrier is skipped
+  const int b = bh / lay.H, head = bh % lay.H;
+  const int t = threadIdx.x, wg = t / 128, warp = t / 32, lane = t % 32;
+  const int n1 = kState && (kKind == kCu || c + 1 < lay.nc)
+                     ? (lay.hd + kCB - 1) / kCB
+                     : 0;
+  const int k0 = kKind == kDq ? 0 : i0;  // the chunk product's rows
+  const int k1 = kKind == kDq ? min(i0 + kTile, Lc) : Lc;
+  const int n2 = kChunk ? (k1 - k0 + kCB - 1) / kCB : 0;
+  const int steps = n1 + n2;
+  const int p1 = (bh * (lay.nc - 1) + (kKind == kCu ? c - 1 : c)) * kPlanes;
+  const int p2 = (bh * lay.nc + c) * kPlanes;
+  const int nd = out_tiles(lay.hd);
+
+  auto load = [&](int s) {
+    unsigned char* stage = base + (s & 1) * kOutStage;
+    const uint32_t bar = smem_addr(bars + (s & 1));
+    if (s < n1) {
+      unsigned char* b1 = stage + kQTile;
+      mbar_expect_tx(bar, kOutStage);
+      tma_load(smem_addr(stage), &tm_a1, bar, s * kCB, head, r0 + i0, b);
+      for (int pl = 0; pl < kPlanes; ++pl) {
+        if (kTB1 == 0)
+          tma_load3(smem_addr(b1 + pl * kBPlane), &tm_b1, bar, s * kCB, e0,
+                    p1 + pl);
+        else
+          for (int cb = 0; cb < 4; ++cb)
+            tma_load3(smem_addr(b1 + (4 * pl + cb) * kOutB), &tm_b1, bar,
+                      e0 + cb * kCB, s * kCB, p1 + pl);
+      }
+    } else {
+      const int kb = k0 + (s - n1) * kCB;
+      unsigned char* b2 = stage + kPlanes * kQTile;
+      mbar_expect_tx(bar, kPlanes * kQTile + 4 * kOutB);
+      for (int pl = 0; pl < kPlanes; ++pl) {
+        if (kTA2 == 0)
+          tma_load3(smem_addr(stage + pl * kQTile), &tm_a2, bar, kb, i0,
+                    p2 + pl);
+        else
+          for (int w = 0; w < 2; ++w)
+            tma_load3(smem_addr(stage + pl * kQTile + w * kOutB), &tm_a2, bar,
+                      i0 + w * kCB, kb, p2 + pl);
+      }
+      for (int cb = 0; cb < 4; ++cb)
+        tma_load(smem_addr(b2 + cb * kOutB), &tm_b2, bar, e0 + cb * kCB,
+                 head, r0 + kb, b);
+    }
+  };
+  if (t == 0) init_barriers(bars, 2);
+  __syncthreads();
+  if (t == 0) {
+    load(0);
+    if (steps > 1) load(1);
+  }
+  const Rows hr = lay.rows(bh);
+  const long long plane = (long long)BH * lay.S;
+  const long long off = (long long)bh * lay.S + r0;
+  const float* r_inter = rows + kInterS * plane + off;
+  const float* r_kd = rows + kKDecay * plane + off;
+  const float* r_norm = rows + kDenom * plane + off;
+  // acc[4 t8 + e] is row rA + 8 (e / 2), column e0 + 8 t8 + 2 (lane % 4) +
+  // e % 2
+  const int rA = i0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+
+  float acc[128];
+#pragma unroll
+  for (int x = 0; x < 128; ++x) acc[x] = 0.f;
+  // between the products: dk's z = acc + dn' (and its dots), scaled by
+  // the key decay; dv's likewise
+  auto middle = [&]() {
+    if (kKind != kDk && kKind != kDv) return;
+    const float* dn =
+        kKind == kDk ? vec + ((long long)bh * lay.nc + c) * lay.hd : nullptr;
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      const int i = rA + 8 * pr;
+      const bool live = i < Lc;
+      const float kd = live ? r_kd[i] : 0.f;
+      float dot = 0.f;
+#pragma unroll
+      for (int t8 = 0; t8 < 32; ++t8) {
+        const int col = e0 + 8 * t8 + 2 * (lane % 4);
+        if (col >= lay.hd) continue;
+        float z0 = acc[4 * t8 + 2 * pr], z1 = acc[4 * t8 + 2 * pr + 1];
+        if (kKind == kDk) {
+          z0 += dn[col];
+          z1 += dn[col + 1];
+          if (live) {
+            const float2 x = unpack_bf16(*reinterpret_cast<const uint32_t*>(
+                xdot + hr.at(r0 + i) + col));
+            dot += x.x * z0 + x.y * z1;
+          }
+        }
+        acc[4 * t8 + 2 * pr] = kd * z0;
+        acc[4 * t8 + 2 * pr + 1] = kd * z1;
+      }
+      if (kKind == kDk) {
+        dot = quad_sum(dot);
+        if (lane % 4 == 0 && live) parts[(off + i) * nd + ct] = dot;
+      }
+    }
+  };
+  if (n1 == 0) middle();
+  for (int s = 0; s < steps; ++s) {
+    const unsigned char* stage = base + (s & 1) * kOutStage;
+    mbar_wait(smem_addr(bars + (s & 1)), (s >> 1) & 1);
+    bool live = true;
+    if (s >= n1) {
+      const int kb = k0 + (s - n1) * kCB;
+      live = kKind == kDq ? kb <= i0 + 64 * wg + 63
+                          : kb + kCB - 1 >= i0 + 64 * wg;
+    }
+    if (live) {
+#pragma unroll
+      for (int x = 0; x < 128; ++x) pin(acc[x]);
+      wgmma_fence();
+      if (s < n1) {
+        const unsigned char* b1 = stage + kQTile;
+#pragma unroll
+        for (int kk = 0; kk < kCB / 16; ++kk)
+#pragma unroll
+          for (int pl = 0; pl < kPlanes; ++pl)
+            wgmma_ss_n256<0, kTB1>(
+                acc, kmajor(stage + 64 * wg * kRB + 32 * kk),
+                kTB1 == 0 ? kmajor(b1 + pl * kBPlane + 32 * kk)
+                          : mnmajor(b1 + 4 * pl * kOutB + 16 * kk * kRB,
+                                    kOutB),
+                1);
+      } else {
+        const unsigned char* b2 = stage + kPlanes * kQTile;
+#pragma unroll
+        for (int kk = 0; kk < kCB / 16; ++kk)
+#pragma unroll
+          for (int pl = 0; pl < kPlanes; ++pl)
+            wgmma_ss_n256<kTA2, 1>(
+                acc,
+                kTA2 == 0
+                    ? kmajor(stage + pl * kQTile + 64 * wg * kRB + 32 * kk)
+                    : mnmajor(stage + pl * kQTile + wg * kOutB +
+                                  16 * kk * kRB,
+                              kOutB),
+                mnmajor(b2 + 16 * kk * kRB, kOutB), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int x = 0; x < 128; ++x) pin(acc[x]);
+    }
+    if (s == n1 - 1) middle();
+    __syncthreads();  // stage s & 1 is no longer read
+    if (t == 0 && s + 2 < steps) load(s + 2);
+  }
+
+  const int q_stride = lay.H * lay.hd;
+  bf16* hb = kKind == kCu ? nullptr
+                          : out + ((long long)b * lay.S + r0) * q_stride +
+                                (long long)head * lay.hd;
+  const float* s_row = brows + kSRow * plane + off;
+  const float* n_c =
+      kKind == kDq ? vec + ((long long)bh * lay.nc + c) * lay.hd : nullptr;
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    const int i = rA + 8 * pr;
+    const bool live = i < Lc;
+    const int il = live ? i : 0;
+    if (kKind == kCu) {
+      const float norm = r_norm[il];
+      float* yrow = y + (off + il) * lay.hd;
+      float dot = 0.f;
+#pragma unroll
+      for (int t8 = 0; t8 < 32; ++t8) {
+        const int col = e0 + 8 * t8 + 2 * (lane % 4);
+        if (!live || col >= lay.hd) continue;
+        const float y0 = acc[4 * t8 + 2 * pr] / norm;
+        const float y1 = acc[4 * t8 + 2 * pr + 1] / norm;
+        *reinterpret_cast<float2*>(yrow + col) = make_float2(y0, y1);
+        const float2 x = unpack_bf16(
+            *reinterpret_cast<const uint32_t*>(xdot + hr.at(r0 + i) + col));
+        dot += x.x * y0 + x.y * y1;
+      }
+      dot = quad_sum(dot);
+      if (lane % 4 == 0 && live) parts[(off + i) * (nd + 1) + ct] = dot;
+      continue;
+    }
+    if (!live) continue;
+    float is = 0.f, sv = 0.f;
+    const float* yrow = nullptr;
+    if (kKind == kDq) {
+      is = r_inter[i];
+      sv = s_row[i];
+      if (c > 0) yrow = y + (off + i) * lay.hd;
+    }
+#pragma unroll
+    for (int t8 = 0; t8 < 32; ++t8) {
+      const int col = e0 + 8 * t8 + 2 * (lane % 4);
+      if (col >= lay.hd) continue;
+      float o0 = acc[4 * t8 + 2 * pr], o1 = acc[4 * t8 + 2 * pr + 1];
+      if (kKind == kDq) {
+        const float2 yv = yrow ? *reinterpret_cast<const float2*>(yrow + col)
+                               : make_float2(0.f, 0.f);
+        o0 += is * (yv.x + sv * n_c[col]);
+        o1 += is * (yv.y + sv * n_c[col + 1]);
+      }
+      *reinterpret_cast<uint32_t*>(hb + (long long)i * q_stride + col) =
+          pack_bf16(o0, o1);
+    }
+  }
+}
+
+// The backward's tensor-core route on `s`: the forward's gates, states and
+// scores (with the signed denominator and <q_i, n>), then cu, dW, the dC
+// walk, the dn walk (CUDA cores), dq, dk, dv and the gates' sums.
+cudaError_t launch_bwd(const bf16* q, const bf16* k, const bf16* v,
+                       const bf16* g, const float* log_i, const float* log_f,
+                       bf16* dq, bf16* dk, bf16* dv, float* dlog_i,
+                       float* dlog_f, unsigned char* scratch, int batch,
+                       int BH, Layout lay, cudaStream_t s) {
+  const BwdScratch o = bwd_scratch_of(BH, lay.S, lay.hd, lay.L, lay.nc);
+  auto f32 = [&](long long at) {
+    return reinterpret_cast<float*>(scratch + at);
+  };
+  auto b16 = [&](long long at) {
+    return reinterpret_cast<bf16*>(scratch + at);
+  };
+  float* rows = f32(o.f.rows);
+  float* decay = f32(o.f.decay);
+  float* n_prev = f32(o.f.n_prev);
+  float* brows = f32(o.brows);
+  bf16* C_planes = b16(o.f.c);
+  bf16* dC = b16(o.dc);
+  const long long plane = (long long)BH * lay.S;
+  const int lp = wpitch(lay.L), nrt = lp / kTile;
+  const int nd = out_tiles(lay.hd), nt = state_tiles(lay.hd);
+  const int w_planes = kPlanes * BH * lay.nc;        // of W, dS and W / N
+  const int s_planes = kPlanes * BH * (lay.nc - 1);  // of C and dC'
+  CUtensorMap tq, tk, tv, tg, tq64, tk64, tg64, ts, ts64, twn64, tc_store,
+      tc_k, tdc_store, tdc_k, tdc64;
+  if (!head_map(&tq, q, batch, lay.S, lay.H, lay.hd, kTile) ||
+      !head_map(&tk, k, batch, lay.S, lay.H, lay.hd, kTile) ||
+      !head_map(&tv, v, batch, lay.S, lay.H, lay.hd, kTile) ||
+      !head_map(&tg, g, batch, lay.S, lay.H, lay.hd, kTile) ||
+      !head_map(&tq64, q, batch, lay.S, lay.H, lay.hd, kCB) ||
+      !head_map(&tk64, k, batch, lay.S, lay.H, lay.hd, kCB) ||
+      !head_map(&tg64, g, batch, lay.S, lay.H, lay.hd, kCB) ||
+      !plane_map(&ts, b16(o.ds), lp, lp, w_planes, kTile) ||
+      !plane_map(&ts64, b16(o.ds), lp, lp, w_planes, kCB) ||
+      !plane_map(&twn64, b16(o.wn), lp, lp, w_planes, kCB))
+    return cudaErrorInvalidValue;
+  // the states exist from chunk 1 on (C) and up to chunk nc - 2 (dC'); with
+  // one chunk their maps are never read and keep dS's
+  tc_store = tc_k = tdc_store = tdc_k = tdc64 = ts;
+  if (lay.nc > 1 &&
+      (!plane_map(&tc_store, C_planes, lay.hd, lay.hd, s_planes, kTile) ||
+       !plane_map(&tc_k, C_planes, lay.hd, lay.hd, s_planes, kOutCols) ||
+       !plane_map(&tdc_store, dC, lay.hd, lay.hd, s_planes, kTile) ||
+       !plane_map(&tdc_k, dC, lay.hd, lay.hd, s_planes, kOutCols) ||
+       !plane_map(&tdc64, dC, lay.hd, lay.hd, s_planes, kCB)))
+    return cudaErrorInvalidValue;
+
+  cudaError_t err;
+  const void* fns[] = {(const void*)mlstm_scores_kernel,
+                       (const void*)mlstm_states_kernel,
+                       (const void*)mlstm_dweights_tc_kernel,
+                       (const void*)mlstm_dstate_tc_kernel,
+                       (const void*)mlstm_dproduct_tc_kernel<kCu>,
+                       (const void*)mlstm_dproduct_tc_kernel<kDq>,
+                       (const void*)mlstm_dproduct_tc_kernel<kDk>,
+                       (const void*)mlstm_dproduct_tc_kernel<kDv>};
+  const int smem[] = {kScoreSmem, kStateSmem, kDwSmem,   kStateSmem,
+                      kOutSmem,   kOutSmem,   kOutSmem,   kOutSmem};
+  for (int x = 0; x < 8; ++x)
+    if ((err = cudaFuncSetAttribute(
+             fns[x], cudaFuncAttributeMaxDynamicSharedMemorySize,
+             smem[x])) != cudaSuccess)
+      return err;
+  mlstm_gates_kernel<<<BH, kThreads, 0, s>>>(log_i, log_f, lay, BH, rows,
+                                             decay, f32(o.m));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_states_kernel<<<dim3(nt, nt, BH), kThreads, kStateSmem, s>>>(
+      tk, tv, tc_store, lay, BH, rows, decay, nullptr, n_prev,
+      f32(o.n_last));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_scores_kernel<<<dim3(nrt, lay.nc, BH), kThreads, kScoreSmem, s>>>(
+      tq, tk, q, log_i, lay, BH, rows, n_prev, b16(o.f.w),
+      brows + kDenRaw * plane, brows + kQnRow * plane);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (lay.nc > 1) {
+    mlstm_dproduct_tc_kernel<kCu>
+        <<<dim3(nrt * nd, lay.nc - 1, BH), kThreads, kOutSmem, s>>>(
+            tg, tc_k, ts, tg64, lay, BH, nrt, rows, brows, nullptr, q,
+            f32(o.y), f32(o.qparts), nullptr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  mlstm_dweights_tc_kernel<<<dim3(nrt, lay.nc, BH), kThreads, kDwSmem,
+                             s>>>(tg, tv, log_i, lay, BH, rows, brows,
+                                  b16(o.f.w), f32(o.qparts), b16(o.ds),
+                                  b16(o.wn), f32(o.colpart));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dstate_tc_kernel<<<dim3(nt, nt, BH), kThreads, kStateSmem, s>>>(
+      tq, tg, tdc_store, lay, BH, rows, decay, C_planes, f32(o.part_c));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dn_kernel<bf16><<<dim3(lay.hd / 32, BH), kThreads, 0, s>>>(
+      q, lay, BH, rows, brows, decay, n_prev, f32(o.dn), f32(o.part_n));
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 grid(nrt * nd, lay.nc, BH);
+  mlstm_dproduct_tc_kernel<kDq><<<grid, kThreads, kOutSmem, s>>>(
+      tg, tc_k, ts, tk64, lay, BH, nrt, rows, brows, n_prev, nullptr,
+      f32(o.y), nullptr, dq);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dproduct_tc_kernel<kDk><<<grid, kThreads, kOutSmem, s>>>(
+      tv, tdc_k, ts64, tq64, lay, BH, nrt, rows, brows, f32(o.dn), k,
+      nullptr, f32(o.kparts), dk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_dproduct_tc_kernel<kDv><<<grid, kThreads, kOutSmem, s>>>(
+      tk, tdc64, twn64, tg64, lay, BH, nrt, rows, brows, nullptr, nullptr,
+      nullptr, nullptr, dv);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const GateParts np = {nd + 1, nd, nt * nt, lay.hd / 32, kTile, nrt};
+  mlstm_dgates_kernel<<<dim3(lay.nc, BH), kThreads, 0, s>>>(
+      lay, BH, np, rows, brows, decay, f32(o.colpart), f32(o.qparts),
+      f32(o.kparts), f32(o.part_c), f32(o.part_n), dlog_i, dlog_f);
+  return cudaGetLastError();
 }
 
 }  // namespace tc
@@ -2135,17 +3018,21 @@ extern "C" const char* mlstm_error_string(int code) {
 }
 
 // Size of the backward's scratch in bytes (L = min(chunk, S), nc = ceil(S /
-// L)): the forward's rows, decays, n per chunk and W, h in float32, C
-// entering and dC' after every chunk (2 * B*H * nc * hd^2 floats, 512 MB at
-// B=4 H=4 S=2048 hd=1024 L=256), dS, the parts of every sum, and for bf16
-// inputs q, k, v and g widened to float32.
+// L)). The float32 route: the forward's rows, decays, n per chunk and W, h
+// in float32, C entering and dC' after every chunk (2 * B*H * nc * hd^2
+// floats, 512 MB at B=4 H=4 S=2048 hd=1024 L=256), dS and the parts of
+// every sum. The bf16 route: the forward's rows, decays, n per chunk, W
+// planes and entering states' planes, then y = C u in float32, dS, W / N
+// and dC' as three bf16 planes each and the parts of every sum; q, k, v and
+// g are read in place.
 extern "C" long long mlstm_bwd_scratch_bytes(int batch, int heads, int seq,
                                              int head_dim, int chunk,
                                              int is_bf16) {
   const long long BH = (long long)batch * heads;
   const int L = chunk < seq ? chunk : seq;
   const int nc = (seq + L - 1) / L;
-  return 4 * bwd_scratch_of(BH, seq, head_dim, L, nc, is_bf16 != 0).total;
+  return is_bf16 ? tc::bwd_scratch_of(BH, seq, head_dim, L, nc).bytes
+                 : 4 * bwd_scratch_of(BH, seq, head_dim, L, nc).total;
 }
 
 // The backward from a fresh state: dq, dk, dv (B, S, H, hd) in the input
@@ -2174,47 +3061,65 @@ extern "C" int mlstm_chunkwise_bwd(const void* q, const void* k,
   lay.nc = (seq + lay.L - 1) / lay.L;
   if (lay.nc > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdScratch o =
-      bwd_scratch_of(BH, seq, head_dim, lay.L, lay.nc, is_bf16 != 0);
-  float* sc = static_cast<float*>(scratch);
   const float* li = static_cast<const float*>(log_i);
   const float* lf = static_cast<const float*>(log_f);
   float* dli = static_cast<float*>(dlog_i);
   float* dlf = static_cast<float*>(dlog_f);
   if (is_bf16) {
     using bf16 = __nv_bfloat16;
-    const long long n = BH * seq * head_dim;
-    float* wide = sc + o.wide;
-    const void* src[4] = {q, k, v, g};
-    const unsigned blocks =
-        (unsigned)((n + kThreads - 1) / kThreads < 4096
-                       ? (n + kThreads - 1) / kThreads
-                       : 4096);
-    for (int x = 0; x < 4; ++x) {
-      mlstm_widen_kernel<<<blocks, kThreads, 0, s>>>(
-          static_cast<const bf16*>(src[x]), wide + x * n, n);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-    return (int)dispatch_bwd<bf16>(
-        wide, wide + n, wide + 2 * n, wide + 3 * n, li, lf,
+    return (int)tc::launch_bwd(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(g), li, lf,
         static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), dli, dlf, sc, o, (int)BH, lay, s);
+        static_cast<bf16*>(dv), dli, dlf, static_cast<unsigned char*>(scratch),
+        batch, (int)BH, lay, s);
   }
-  return (int)dispatch_bwd<float>(
+  return (int)dispatch_bwd(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(g), li, lf,
       static_cast<float*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), dli, dlf, sc, o, (int)BH, lay, s);
+      static_cast<float*>(dv), dli, dlf, static_cast<float*>(scratch),
+      bwd_scratch_of(BH, seq, head_dim, lay.L, lay.nc), (int)BH, lay, s);
 }
 
-// The backward's kernels' resources (which: 0 values, 1 dstate, 2
-// dweights, 3 dq, 4 dk, 5 dv, 6 dgates) at head dim `head_dim` and chunk
-// `chunk`: registers a thread, local (spilled) bytes a thread, static and
-// dynamic shared memory a block.
+// The backward's kernels' resources (which: the float32 route's 0 values,
+// 1 dstate, 2 dweights, 3 dq, 4 dk, 5 dv, 6 dgates; the bf16 route's 7 cu,
+// 8 dweights, 9 dstate, 10 dq, 11 dk, 12 dv, 13 dn, 14 dgates) at head dim
+// `head_dim` and chunk `chunk`: registers a thread, local (spilled) bytes a
+// thread, static and dynamic shared memory a block.
 extern "C" int mlstm_bwd_attributes(int which, int head_dim, int chunk,
                                     int* regs, int* local_bytes,
                                     int* static_smem, int* dynamic_smem) {
-  return (int)bwd_attributes(which, head_dim, chunk, regs, local_bytes,
-                             static_smem, dynamic_smem);
+  const void* fns[] = {
+      (const void*)mlstm_values_kernel<true>,
+      (const void*)mlstm_dstate_kernel,
+      (const void*)mlstm_dweights_kernel,
+      (const void*)mlstm_dproducts_kernel<kOutQ>,
+      (const void*)mlstm_dproducts_kernel<kOutK>,
+      (const void*)mlstm_dproducts_kernel<kOutV>,
+      (const void*)mlstm_dgates_kernel,
+      (const void*)tc::mlstm_dproduct_tc_kernel<tc::kCu>,
+      (const void*)tc::mlstm_dweights_tc_kernel,
+      (const void*)tc::mlstm_dstate_tc_kernel,
+      (const void*)tc::mlstm_dproduct_tc_kernel<tc::kDq>,
+      (const void*)tc::mlstm_dproduct_tc_kernel<tc::kDk>,
+      (const void*)tc::mlstm_dproduct_tc_kernel<tc::kDv>,
+      (const void*)mlstm_dn_kernel<__nv_bfloat16>,
+      (const void*)mlstm_dgates_kernel};
+  const int values = (int)values_smem(head_dim, chunk);
+  const int dyn[] = {values,         values,         0,
+                     0,              0,              0,
+                     0,              tc::kOutSmem,   tc::kDwSmem,
+                     tc::kStateSmem, tc::kOutSmem,   tc::kOutSmem,
+                     tc::kOutSmem,   0,              0};
+  if (which < 0 || which >= (int)(sizeof(fns) / sizeof(fns[0])))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fns[which]);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *static_smem = (int)attr.sharedSizeBytes;
+  *dynamic_smem = dyn[which];
+  return 0;
 }

@@ -31,10 +31,15 @@ non-reentrant ``torch.utils.checkpoint`` drops and recomputes them), and
 its backward launches the backward kernel of ``csrc/mlstm.cu``
 (:func:`mlstm_chunkwise_bwd`), the counterpart of the reference's
 ``_bwd`` (``jax.vjp`` of its plain chunkwise form) for the cotangent of
-h: one route on the CUDA cores for both input types, which recomputes
-the forward's row scalars, n, W and h in float32 and C entering every
-chunk, carries the state's cotangent from the last chunk, and returns
-dq/dk/dv in q's type and the gates' gradients in float32. A cotangent of
+h. It recomputes the forward and carries the state's cotangent from the
+last chunk, and returns dq/dk/dv in q's type and the gates' gradients in
+float32, on one of two routes, chosen by the input type as the
+forward's (:func:`bwd_route`): bfloat16 on the tensor cores (the
+forward's tensor-core passes, then the products on ``wgmma`` with
+operands by TMA from q, k, v and the cotangent in place, and
+``<g_i, h_i>`` from products it forms anyway rather than from a
+recomputed h: ``ref.gh_dots``), float32 on the CUDA cores (the
+float32 forward recomputed, h among it). A cotangent of
 the returned state (C, n, m) raises ``ValueError``: no path takes a
 gradient through the carried state (training passes a fresh one and
 drops it, as the reference's ``mlstm_block``), and C and n are scaled by
@@ -120,6 +125,12 @@ def route(dtype: torch.dtype) -> str:
 TENSOR_CORE_KERNELS = ("scores", "states", "outputs")
 
 
+def bwd_route(dtype: torch.dtype) -> str:
+    """The backward kernels a CUDA call with inputs of ``dtype`` launches:
+    ``"tensor_core"`` for bfloat16, ``"cuda_core"`` for float32."""
+    return route(dtype)
+
+
 def tensor_core_attributes(kernel: str) -> dict:
     """Registers and local (spilled) bytes a thread, static and dynamic
     shared memory a block, of one of the tensor-core route's kernels
@@ -136,27 +147,34 @@ def scratch_bytes(B: int, H: int, S: int, hd: int, chunk: int,
                                          int(dtype == torch.bfloat16))
 
 
-#: The backward's kernels, in the order of
-#: :func:`backward_attributes`' argument: pass 4 of the float32 forward
-#: (h in float32 and C entering every chunk), the dC walk, dW, the dq, dk
-#: and dv products and the gates.
-BACKWARD_KERNELS = ("values", "dstate", "dweights", "dq", "dk", "dv",
-                    "dgates")
+#: The backward's own kernels by route, in the order of the kernel's
+#: attribute index. The CUDA-core route: pass 4 of the float32 forward (h
+#: in float32 and C entering every chunk), the dC walk, dW, the dq, dk and
+#: dv products and the gates. The tensor-core route (after the forward's
+#: gates, states and scores): y = C u, dW, the dC walk, the dq, dk and dv
+#: products, the dn walk and the gates, the last two on the CUDA cores.
+BACKWARD_KERNELS = {
+    "cuda_core": ("values", "dstate", "dweights", "dq", "dk", "dv",
+                  "dgates"),
+    "tensor_core": ("cu", "dweights", "dstate", "dq", "dk", "dv", "dn",
+                    "dgates"),
+}
 
 
-def backward_attributes(kernel: str) -> dict:
+def backward_attributes(kernel: str, route: str = "cuda_core") -> dict:
     """Registers and local (spilled) bytes a thread, static and dynamic
     shared memory a block (at the largest head dim and chunk), of one of
-    the backward's kernels (``cudaFuncGetAttributes``)."""
+    the backward's kernels of ``route`` (``cudaFuncGetAttributes``)."""
+    first = 0 if route == "cuda_core" else len(BACKWARD_KERNELS["cuda_core"])
     return _attributes(_kernel().mlstm_bwd_attributes,
-                       BACKWARD_KERNELS.index(kernel), MAX_HEAD_DIM,
-                       MAX_CHUNK)
+                       first + BACKWARD_KERNELS[route].index(kernel),
+                       MAX_HEAD_DIM, MAX_CHUNK)
 
 
 def bwd_scratch_bytes(B: int, H: int, S: int, hd: int, chunk: int,
                       dtype: torch.dtype) -> int:
     """Bytes of device scratch one call of the backward kernel at these
-    shapes allocates."""
+    shapes allocates (by route: ``dtype`` names it)."""
     return _kernel().mlstm_bwd_scratch_bytes(B, H, S, hd, chunk,
                                              int(dtype == torch.bfloat16))
 
@@ -242,7 +260,7 @@ def _launch_bwd(q, k, v, log_i, log_f, g_h, chunk):
             log_f.data_ptr(), g_h.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dlog_i.data_ptr(), dlog_f.data_ptr(),
             scratch.data_ptr(), B, H, S, hd, chunk,
-            int(q.dtype == torch.bfloat16), stream)
+            int(bwd_route(q.dtype) == "tensor_core"), stream)
     if rc != 0:
         raise RuntimeError(f"mlstm backward launch failed: {_error(lib, rc)}")
     BWD_LAUNCHES += 1
@@ -327,7 +345,8 @@ def mlstm_chunkwise_bwd(q, k, v, log_i, log_f, g_h, *, chunk: int = 64):
     """The gradient of :func:`mlstm_chunkwise` (fresh state) for the
     cotangent ``g_h`` of h (model layout, q's type): (dq, dk, dv) in q's
     type and (dlog_i, dlog_f) float32. On CUDA one launch of the backward
-    kernel; on the CPU the plain version (``ref.mlstm_chunkwise_bwd``)."""
+    kernel on the route of q's type (:func:`bwd_route`); on the CPU the
+    plain version (``ref.mlstm_chunkwise_bwd``)."""
     if _route(q) == "cuda":
         return _launch_bwd(q, k, v, log_i, log_f, g_h, chunk)
     return _plain_bwd(q, k, v, log_i, log_f, g_h, chunk)

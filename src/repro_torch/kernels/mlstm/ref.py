@@ -12,9 +12,10 @@ C and n, but not h or ``C * exp(m)``.
 The CPU tests use it, ``chip_smoke.py`` holds the CUDA kernels against
 it on the card, and the kernel wrapper (``ops``) takes it for tensors
 that lie on the CPU. :func:`mlstm_chunkwise_bwd` is the plain version of
-the backward kernel, in explicit formulas on the same schedule. Under
-float64 inputs (the CPU tests' float64 evaluations) both compute in
-float64.
+the backward kernel, in explicit formulas on the same schedule, and
+:func:`gh_dots` the identity by which the backward's tensor-core route
+gets ``<g_i, h_i>`` without h. Under float64 inputs (the CPU tests'
+float64 evaluations) all compute in float64.
 """
 
 from __future__ import annotations
@@ -96,12 +97,48 @@ def mlstm_chunkwise(q, k, v, log_i, log_f, chunk: int = 64, state=None):
     return torch.cat(hs, dim=1), (C, n, m)
 
 
-def mlstm_chunkwise_bwd(q, k, v, log_i, log_f, g_h, chunk: int = 64):
+def _gh_identity(p, u, qc, vc, C):
+    """<g_i, h_i> for the rows of one chunk (``p`` its :func:`_parts`,
+    u_i = g_i / N_i, C entering it) from two products the backward forms
+    anyway, G = u v^T and y = C u:
+        <g_i, h_i> = sum_{j <= i} W_ij G_ij + inter_s_i <q_i, y_i>,
+    since h_i = (sum_j W_ij v_j + inter_s_i q_i C) / N_i (W is 0 above
+    the diagonal)."""
+    G = u @ vc.transpose(1, 2)
+    y = u @ C.transpose(1, 2)
+    return (p["weighted"] * G).sum(2) + p["inter_s"] * (qc * y).sum(2)
+
+
+def gh_dots(q, k, v, log_i, log_f, g_h, chunk: int = 64):
+    """<g_i, h_i> of every row (BH, S) for the cotangent ``g_h`` of h, by
+    the identity of :func:`_gh_identity` (no h), on
+    :func:`mlstm_chunkwise`'s schedule from a fresh state."""
+    BH, S, hd = q.shape
+    L = min(chunk, S)
+    f = torch.float64 if q.dtype == torch.float64 else torch.float32
+    C, n, m = init_state(BH, hd, q.device, f)
+    li, lf = log_i.to(f), log_f.to(f)
+    out = []
+    for s0 in range(0, S, L):
+        rows = slice(s0, min(s0 + L, S))
+        qc, kc, vc = (t[:, rows].to(f) for t in (q, k, v))
+        p, state = _parts(qc, kc, vc, li[:, rows], lf[:, rows], C, n, m)
+        u = g_h[:, rows].to(f) / p["norm"][:, :, None]
+        out.append(_gh_identity(p, u, qc, vc, C))
+        C, n, m = state
+    return torch.cat(out, dim=1)
+
+
+def mlstm_chunkwise_bwd(q, k, v, log_i, log_f, g_h, chunk: int = 64,
+                        gh: str = "h"):
     """The gradient of :func:`mlstm_chunkwise` (fresh state) for the
     cotangent ``g_h`` (BH, S, hd) of h alone, the function of the backward
-    kernel of ``csrc/mlstm_bwd.cu``, in explicit formulas on the same
+    kernel of ``csrc/mlstm.cu``, in explicit formulas on the same
     schedule. Returns (dq, dk, dv) in q's type and (dlog_i, dlog_f)
-    float32 (float64 under float64 inputs).
+    float32 (float64 under float64 inputs). ``gh`` says how s_i gets
+    <g_i, h_i>: from the recomputed h (``"h"``, the CUDA-core route's
+    way) or by :func:`_gh_identity` (``"identity"``, the tensor-core
+    route's).
 
     h_i = num_i / N_i does not depend on the stabilizers (m_new_i, the
     carried m): with den_i = exp(-m_new_i) Dn_i, h_i is the unstabilised
@@ -141,9 +178,15 @@ def mlstm_chunkwise_bwd(q, k, v, log_i, log_f, g_h, chunk: int = 64):
     for rows, (qc, kc, vc), C, n, p in reversed(walk):
         g = g_h[:, rows].to(f)
         u = g / p["norm"][:, :, None]
+        if gh == "h":
+            gh_i = (g * p["h"]).sum(2)
+        elif gh == "identity":
+            gh_i = _gh_identity(p, u, qc, vc, C)
+        else:
+            raise ValueError(f"gh is 'h' or 'identity', got {gh!r}")
         s = torch.where(p["den"].abs() > p["floor"],
-                        -torch.sign(p["den"]) * (g * p["h"]).sum(2)
-                        / p["norm"], torch.zeros_like(p["den"]))
+                        -torch.sign(p["den"]) * gh_i / p["norm"],
+                        torch.zeros_like(p["den"]))
         inter_s, kdecay = p["inter_s"], p["kdecay"]
         # within the chunk (dW is 0 above the diagonal through dmat_s, W)
         dW = u @ vc.transpose(1, 2) + s[:, :, None]

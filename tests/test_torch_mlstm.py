@@ -216,6 +216,29 @@ def test_route_refuses_what_no_kernel_takes(dtype):
         ops.route(dtype)
 
 
+def test_backward_route_sends_bf16_to_tensor_cores_and_f32_to_cuda_cores():
+    assert ops.bwd_route(torch.bfloat16) == "tensor_core"
+    assert ops.bwd_route(torch.float32) == "cuda_core"
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_backward_route_refuses_what_no_kernel_takes(dtype):
+    with pytest.raises(TypeError, match="the kernel takes"):
+        ops.bwd_route(dtype)
+
+
+def test_backward_kernels_name_both_routes():
+    """The tensor-core route's own kernels (after the forward's gates,
+    states and scores): y = C u, dW, the dC walk, the three products, and
+    the dn walk and the gates on the CUDA cores; the CUDA-core route's as
+    before."""
+    assert ops.BACKWARD_KERNELS == {
+        "cuda_core": ("values", "dstate", "dweights", "dq", "dk", "dv",
+                      "dgates"),
+        "tensor_core": ("cu", "dweights", "dstate", "dq", "dk", "dv", "dn",
+                        "dgates")}
+
+
 def _good(B=1, S=10, H=4, hd=64):
     return (torch.zeros(B, S, H, hd), torch.zeros(B, S, H, hd),
             torch.zeros(B, S, H, hd), torch.zeros(B, S, H),
@@ -364,3 +387,35 @@ def test_cuda_tensor_core_route_matches_plain_version_on_tile_edges(hd):
             rel = float(torch.linalg.vector_norm(a - e)
                         / torch.linalg.vector_norm(e))
             assert rel <= 1e-4, (S, chunk)
+
+
+# the tensor-core backward's tiles: 128 rows a dW or product tile, 64 rows
+# a chunk step, 128 rows a dC step, 64 head-dim columns a TMA box, 128 (d,
+# e) a dC tile and 256 columns a product tile
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [32, 96, 160, 288])
+def test_cuda_tensor_core_backward_matches_plain_version_on_tile_edges(hd):
+    """bf16: the backward on every S of the forward's edges and chunks of
+    256, 100 and 64 rows, at B = 2, H = 3, against the plain version per
+    tensor (max |a - b| / max |b|) at chip_smoke.py's 2e-2; one launch a
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert ops.bwd_route(torch.bfloat16) == "tensor_core"
+    g = torch.Generator().manual_seed(8)
+    for S, chunk in itertools.product(EDGE_LENGTHS, (256, 100, 64)):
+        arrays = [torch.from_numpy(model_layout(x, 2, 3)).cuda()
+                  for x in make_inputs(6, S, hd, seed=8)]
+        q, k, v = (x.bfloat16() for x in arrays[:3])
+        li, lf = arrays[3:]
+        g_h = torch.randn(2, S, 3, hd, generator=g).cuda().bfloat16()
+        before = ops.BWD_LAUNCHES
+        got = ops.mlstm_chunkwise_bwd(q, k, v, li, lf, g_h, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ops.BWD_LAUNCHES == before + 1
+        want = ops._plain_bwd(q, k, v, li, lf, g_h, chunk)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            err = float((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp_min(1e-30))
+            assert err <= 2e-2, (S, chunk)

@@ -293,6 +293,68 @@ def test_mlstm_gradient_mirrors_the_references_state_overflow():
                 assert not np.isfinite(a).any(), name
 
 
+@functools.lru_cache(maxsize=None)
+def jax_h(chunk):
+    """h of the reference's plain chunkwise form, jitted once a chunk."""
+    import jax
+
+    from repro.kernels.mlstm import ref as jref
+
+    return jax.jit(lambda *a: jref.mlstm_chunkwise(*a, chunk=chunk)[0])
+
+
+@pytest.mark.parametrize("BH,S_,hd,chunk", BWD_SHAPES)
+def test_gh_identity_matches_g_dot_h(BH, S_, hd, chunk):
+    """``ref.gh_dots``, <g_i, h_i> from G = u v^T and C u without h (the
+    tensor-core backward's way), against <g_i, h_i> from h: the port's
+    plain forward in float64 at F64_RTOL, and the reference's plain
+    chunkwise form (one chunk of 300 rows where the port takes 256 + 44)
+    in float32 at BWD_RTOL."""
+    from repro_torch.kernels.mlstm import ref
+
+    arrays = bwd_inputs(BH, S_, hd, seed=2)
+    x64 = [torch.from_numpy(a).double() for a in arrays]
+    h, _ = ref.mlstm_chunkwise(*x64[:5], chunk=chunk)
+    got = ref.gh_dots(*x64, chunk=chunk)
+    assert got.shape == (BH, S_) and got.dtype == torch.float64
+    assert _rel(got.numpy(), (x64[5] * h).sum(2).numpy()) <= F64_RTOL
+    got32 = ref.gh_dots(*(torch.from_numpy(a) for a in arrays), chunk=chunk)
+    h_jax = np.asarray(jax_h(chunk)(*arrays[:5]))
+    assert _rel(got32.numpy(), (arrays[5] * h_jax).sum(2)) <= BWD_RTOL
+
+
+@pytest.mark.parametrize("BH,S_,hd,chunk", BWD_SHAPES)
+def test_mlstm_gradient_by_the_identity_matches_jax_and_float64(BH, S_, hd,
+                                                                chunk):
+    """``ref.mlstm_chunkwise_bwd(gh="identity")`` (s_i from ``gh_dots``'
+    identity, as the tensor-core route takes it) against the same with s_i
+    from h in float64 at F64_RTOL, and against ``jax.vjp`` of the
+    reference's plain form and custom-VJP op per tensor at BWD_RTOL."""
+    arrays = bwd_inputs(BH, S_, hd, seed=4)
+    exact = _plain_bwd(arrays, chunk, torch.float64)
+    from repro_torch.kernels.mlstm import ref
+
+    got64 = ref.mlstm_chunkwise_bwd(
+        *(torch.from_numpy(x).double() for x in arrays), chunk=chunk,
+        gh="identity")
+    for name, a, b in zip(NAMES, got64, exact):
+        assert _rel(a.numpy(), b.numpy()) <= F64_RTOL, name
+    got = ref.mlstm_chunkwise_bwd(
+        *(torch.from_numpy(x) for x in arrays), chunk=chunk, gh="identity")
+    pallas = S_ % min(chunk, S_) == 0
+    for route, grads in jax_vjps(chunk, pallas)(*arrays).items():
+        for name, a, b in zip(NAMES, got, grads):
+            assert _rel(a.numpy(), np.asarray(b)) <= BWD_RTOL, (route, name)
+
+
+def test_mlstm_gradient_refuses_an_unknown_gh():
+    from repro_torch.kernels.mlstm import ref
+
+    arrays = [torch.from_numpy(x) for x in bwd_inputs(1, 8, 32)]
+    with pytest.raises(ValueError, match="gh is"):
+        ref.mlstm_chunkwise_bwd(*arrays, chunk=4, gh="norm")
+
+
 # ------------------------------------------------------------ the sLSTM
 def _slstm_per_step_writes(params, cfg, x):
     """``slstm_block`` in "train" mode as it was written before its steps
