@@ -29,7 +29,10 @@ failure and a restart from a checkpoint (the flash-attention forward
 and its backward kernel, and the edge-softmax kernels), and
 RecurrentGemma's training at every published width through
 ``launch/train.py::make_step`` and at small scale through ``main`` (the
-RG-LRU scan's forward and backward kernels and flash's).
+RG-LRU scan's forward and backward kernels and flash's), xLSTM-1.3B's
+(the mLSTM's forward and backward kernels) and DeepSeek-V2-Lite's (the
+flash forward and backward at the latent attention's (192, 128), the
+MoE with shared experts under grad).
 
     python3 chip_smoke.py
 
@@ -364,6 +367,34 @@ Phases, each printing on lines of its own:
    version.
    ``phase_card()``, ``phase_build()`` and ``phase_xlstm_train()`` run
    it alone.
+25. DeepSeek-V2-Lite's training: (a) the flash backward at the latent
+   attention's head-dim pairs against the plain version's autograd at
+   |a - b| <= TOL (1 + |b|) over dq, dk and dv (float32 against float64):
+   (192, 128) on both routes and (24, 16) on the float32 route, S
+   1/63/64/65/129/777/4096, T = S and (S + 1) // 2, H = KH 4 and 16,
+   causal (84 cases); the tensor-core kernels' registers, spills (none)
+   and shared memory at (192, 128); a bf16 gradient at (24, 16) refused
+   with a ValueError before a launch; at DeepSeek's training problem (B
+   2, H 16, S 4096) 5 launches bit for bit and one call through autograd;
+   (b) the small DeepSeek (float32, flash at (24, 16) on the CUDA cores)
+   against ``lm_train_deepseek_small_golden.npz`` as [22b]; (c)
+   ``deepseek-v2-lite-16b`` at every published width with its body cut
+   to 4 of 26 periods (the dense layer and 4 MLA-MoE layers, 2.84 B
+   parameters: 12 bytes a parameter fit the card, the full depth's 15.7
+   B do not), bf16 seed-0 weights, 8 steps of B 2 x S 4096 through
+   ``make_step`` with AdamW (in place) under ``cosine_schedule(1e-3, 1,
+   8)``: losses finite and falling, 9 flash forward and 5 backward
+   launches a step, step time, tokens/s, peak memory beside the card, a
+   profiled step (its device rows, idle share, the share of routing
+   choices dropped past capacity); at the trained weights, B 1 x S 1024,
+   kernels vs plain in float32 (1e-4) and in bf16 by distance from the
+   float32 plain route (max(1e-1, 1.25 x)); ``launch.train.main`` on the
+   small DeepSeek in float32, 20 steps, a failure at step 12; (d) the
+   backward at (c)'s attention problem on both routes, and on the
+   float32 route at the small DeepSeek's (24, 16) in ``main``'s problem
+   (B 8, H = KH = 4, S 256), each beside its bound and SDPA's backward.
+   ``phase_card()``, ``phase_build()`` and ``phase_ds_train()`` run it
+   alone.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -5593,11 +5624,10 @@ FLASH_BWD_GEMMA3 = (1, 8, 4, 4096, 256, 1024)
 # D = 128 problem and the D = 256 prefill of the kernel table
 # (B, H, KH, S, D, window)
 FLASH_LSE_TIMED = (FLASH_BWD_D128, (1, 16, 1, 4096, 256, 2048))
-# the backward's FLOPs as a multiple of the forward's (FlashAttention-2's
-# count: dV, dP, dS and dQ, dK products, five matmuls to the forward's
-# two), for its bound; the kernels compute S and dP twice (14 D flops a
-# live pair, 16 D at D = 256, against the bound's 10 D)
-FLASH_BWD_FLOP_RATIO = 2.5
+# The backward's bound counts FlashAttention-2's five products a live
+# pair: S, dK and dQ over D, dP and dV over DV, 6 D + 4 DV flops (2.5 x the
+# forward's 4 D at D = DV); the kernels compute S and dP twice (14 D
+# flops a live pair, 16 D where dK and dV take separate blocks)
 # what the bf16 backward is, for the kernels line
 FLASH_BWD_DESIGN = ("tensor cores: wgmma m64n64 S^T/dP^T and m64nD dV/dK "
                     "(P^T, dS^T as register A operands, each as two bf16 "
@@ -6096,16 +6126,16 @@ def phase_lm_train_full():
     return out
 
 
-def time_flash_bwd(g, B, H, KH, S, D, W):
+def time_flash_bwd(g, B, H, KH, S, D, W, DV=None):
     """(d) The backward kernel at one causal problem (window W, 0 for
-    none) in bf16 and float32, with L from the forward, the plain
-    version's autograd, SDPA's backward (the faster of k/v repeated to
-    the query heads and ``enable_gqa=True``, and which of its backends
-    ran; a window takes a boolean mask and the repeated heads), and the
-    bounds: FLASH_BWD_FLOP_RATIO x the forward's FLOPs at the bf16
-    tensor-core rate (the float32 route at the float32 rate), or q, k, v,
-    the output and its cotangent read once and the three gradients
-    written once."""
+    none; v head dim DV, default D) in bf16 and float32, with L from the
+    forward, the plain version's autograd, SDPA's backward (the faster of
+    k/v repeated to the query heads and ``enable_gqa=True``, and which of
+    its backends ran; a window takes a boolean mask and the repeated
+    heads), and the bounds: the backward's 6 D + 4 DV flops a live pair
+    (2.5 x the forward's at D = DV) at the bf16 tensor-core rate (the
+    float32 route at the float32 rate), or q, k, v, the output and its
+    cotangent read once and the three gradients written once."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -6113,8 +6143,9 @@ def time_flash_bwd(g, B, H, KH, S, D, W):
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     mode = dict(window=W)
-    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16)
-    dout = torch.randn(B, S, H, D, generator=g, device="cuda").to(
+    DV = D if DV is None else DV
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16, DV)
+    dout = torch.randn(B, S, H, DV, generator=g, device="cuda").to(
         torch.bfloat16)
     out, lse = fa_ops.flash_attention_with_lse(q, k, v, **mode)
     ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, dout, lse,
@@ -6186,13 +6217,15 @@ def time_flash_bwd(g, B, H, KH, S, D, W):
               key=lambda name: backends[name][1])
     del default
     pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
-    fwd_flops = 2 * (D + D) * pairs * H * B
-    flops = FLASH_BWD_FLOP_RATIO * fwd_flops
+    fwd_flops = 2 * (D + DV) * pairs * H * B
+    # S, dK, dQ over D and dP, dV over DV: 2.5 x the forward's at D = DV
+    flops = (6 * D + 4 * DV) * pairs * H * B
     # q, out, dout read and dq written; k, v read and dk, dv written
-    nbytes = 3 * q.nbytes + 2 * (k.nbytes + v.nbytes) + dout.nbytes
+    nbytes = 2 * (q.nbytes + dout.nbytes + k.nbytes + v.nbytes)
     t_ops, t_bytes = (flops / BF16_FLOP_PER_S * 1e3,
                       nbytes / HBM_BYTES_PER_S * 1e3)
-    row = {"shape": f"B={B} H={H} KH={KH} S={S} D={D} window={W} causal "
+    dims = f"D={D}" if DV == D else f"(D, DV)=({D}, {DV})"
+    row = {"shape": f"B={B} H={H} KH={KH} S={S} {dims} window={W} causal "
                     f"bfloat16",
            "ms": ms, "plain_ms": plain_ms, "library_ms":
            library_times[library_call],
@@ -6205,9 +6238,9 @@ def time_flash_bwd(g, B, H, KH, S, D, W):
            "flops": flops, "bytes": nbytes,
            "tflop_per_s": flops / ms / 1e9, "f32_ms": f32_ms,
            "f32_bound_ms": f32_bound_ms(flops, 2 * nbytes),
-           "route": fa_ops.bwd_route(q.dtype, D)}
+           "route": fa_ops.bwd_route(q.dtype, D, DV)}
     print(f"  flash backward {row['shape']}: kernel {ms:.4f} ms "
-          f"({row['tflop_per_s']:.1f} TFLOP/s at {FLASH_BWD_FLOP_RATIO:g} x the "
+          f"({row['tflop_per_s']:.1f} TFLOP/s at {flops / fwd_flops:g} x the "
           f"forward's {fwd_flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, "
           f"SDPA backward {row['library_ms']:.4f} ms ({row['library_call']}"
           f": {library_times}; nearest the default call's gradients: {ran}, "
@@ -7392,6 +7425,397 @@ def phase_xlstm_train():
     return out
 
 
+# ------------------------------ DeepSeek-V2-Lite training (phase [25])
+DS = "deepseek-v2-lite-16b"
+# (a) the flash backward at the latent attention's head-dim pairs against
+# the plain version's autograd: (192, 128) on both routes, the small
+# DeepSeek's (24, 16) on the float32 route (bf16 refuses it); S around the
+# 64-row tiles up to 4096, T = S and about S / 2, H = KH (MLA has no
+# GQA), causal
+DS_BWD_PAIRS = (((192, 128), ("float32", "bfloat16")), ((24, 16),
+                                                        ("float32",)))
+DS_BWD_S = (1, 63, 64, 65, 129, 777, 4096)
+DS_BWD_HEADS = (4, 16)
+# the timed problems (B, H, KH, S, D, window, DV), causal: DeepSeek's
+# training attention, and the small DeepSeek's in (c)'s run of main (B 8
+# x S 256, H = KH = 4), which only the float32 route takes
+DS_FLASH_BWD = (2, 16, 16, 4096, 192, 0, 128)
+DS_SMALL_FLASH_BWD = (8, 4, 4, 256, 24, 0, 16)
+DS_FLASH_DESIGN = ("(192, 128): dV and dK in separate blocks (S^T over 192, "
+                   "dP^T and dV over 128), dK += dS^T Q and dQ += dS K as "
+                   "wgmma m64n128 + m64n64 on the same A; Q/K tiles 3 and "
+                   "V/dO tiles 2 column blocks of 64; (24, 16) on the CUDA "
+                   "cores only, a thread's last dQ/dK column guarded")
+# (c) the full-width cell: every published width, the body cut from 26
+# periods to DS_PERIODS (the dense layer 0 and DS_PERIODS MLA-MoE layers:
+# 2.84 B parameters' weights, gradients and float32 moments are 34 GB;
+# the full depth's 15.7 B, 188 GB, do not fit the card's 80 GB)
+DS_PERIODS = 4
+DS_B, DS_S, DS_STEPS = 2, 4096, 8
+DS_LR = (1e-3, 1, 8)  # cosine_schedule(peak, warmup, steps), AdamW
+DS_TIMED_FROM = 2  # steps after the first two
+DS_CHECK_B, DS_CHECK_S = 1, 1024  # kernels vs plain at the trained weights
+# launches a step: the five layers' attention forward, the body's again
+# under remat, and five backwards
+DS_LAUNCHES = {"flash_fwd": 1 + 2 * DS_PERIODS, "flash_bwd": 1 + DS_PERIODS}
+DS_MAIN_CKPT = ROOT / "build" / "chip_ds_ckpt"
+# the small DeepSeek's (24, 16) attention trains on the card in float32
+# (the bf16 route refuses the pair)
+DS_MAIN_ARGV = ["--arch", DS, "--scale", "small", "--dtype", "float32",
+                "--steps", "20", "--fail-at", "12", "--checkpoint-every",
+                "10", "--device", "cuda", "--ckpt-dir", str(DS_MAIN_CKPT)]
+DS_MAIN_LOSSES = 21  # 20 steps, step 11 run twice
+
+
+def phase_ds_train_kernels():
+    """(a) The flash backward at (192, 128) and (24, 16) against the plain
+    version's autograd, its routes and tensor-core resources at
+    (192, 128), the bf16 (24, 16) refusal, and at DeepSeek's training
+    problem 5 launches bit for bit and one call through autograd."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    out = {"attributes": fa_ops.backward_attributes(192, 128)}
+    for (D, DV), types in DS_BWD_PAIRS:
+        routes = {name: fa_ops.bwd_route(getattr(torch, name), D, DV)
+                  for name in types}
+        want = {name: "cuda_core" if name == "float32" else "tensor_core"
+                for name in types}
+        check(routes == want, f"the backward's routes at {(D, DV)}: "
+                              f"{routes}")
+    for name, a in out["attributes"].items():
+        check(a["local_bytes"] == 0, f"the flash backward's {name} kernel "
+                                     f"at (192, 128) spills: {a}")
+    print("  flash backward (192, 128): tensor-core kernels "
+          + ", ".join(f"{name} {a['registers']} registers, "
+                      f"{a['local_bytes']} local bytes, "
+                      f"{a['static_smem_bytes'] + a['dynamic_smem_bytes']} "
+                      f"bytes of shared memory"
+                      for name, a in out["attributes"].items()))
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(1, 8, 4, 24, **bf16).requires_grad_()
+    before = (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES)
+    try:
+        fa_ops.flash_attention(q, torch.randn(1, 8, 4, 24, **bf16),
+                               torch.randn(1, 8, 4, 16, **bf16))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    check("(24, 16)" in refused
+          and (fa_ops.LAUNCHES, fa_ops.BWD_LAUNCHES) == before,
+          f"a bf16 gradient at (24, 16) is refused before a launch: "
+          f"{refused!r}")
+    print(f"  a bf16 gradient at (24, 16) raises ValueError before a "
+          f"launch: {refused}")
+    for (D, DV), types in DS_BWD_PAIRS:
+        for name in types:
+            dtype, tol, largest, n = getattr(torch, name), TOL[name], 0.0, 0
+            for S, half, H in itertools.product(DS_BWD_S, (False, True),
+                                                DS_BWD_HEADS):
+                T = (S + 1) // 2 if half else S
+                q, k, v = _flash_inputs(g, 1, H, H, S, D, dtype, DV, T)
+                dout = torch.randn(1, S, H, DV, generator=g,
+                                   device="cuda").to(dtype)
+                err, _ = flash_bwd_errors(q, k, v, dout, True, 0)
+                check(err <= tol, f"flash backward vs plain, ({D}, {DV}) "
+                                  f"H={H} S={S} T={T} {name}: {err}")
+                largest, n = max(largest, err), n + 1
+            out[f"{D}_{DV}_{name}"] = largest
+            print(f"  flash backward ({D}, {DV}) {name}: {n} cases (S "
+                  f"{DS_BWD_S}, T = S and (S + 1) // 2, H = KH "
+                  f"{DS_BWD_HEADS}, causal), largest |a - b| / (1 + |b|) "
+                  f"over dq, dk, dv {largest:.3e} (tol {tol:g}) ok")
+            torch.cuda.empty_cache()
+    B, H, KH, S, D, W, DV = DS_FLASH_BWD
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16, DV)
+    dout = torch.randn(B, S, H, DV, generator=g, device="cuda").to(
+        torch.bfloat16)
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v)
+    first = fa_ops.flash_attention_bwd(q, k, v, o, dout, lse)
+    for _ in range(4):
+        again = fa_ops.flash_attention_bwd(q, k, v, o, dout, lse)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              "the flash backward at (192, 128) is deterministic")
+    before = fa_ops.BWD_LAUNCHES
+    out["main"], out["main_abs"] = flash_bwd_errors(q, k, v, dout, True, W)
+    check(fa_ops.BWD_LAUNCHES == before + 1,
+          "one call through autograd launched the backward once")
+    check(out["main"] <= TOL["bfloat16"],
+          f"flash backward at DeepSeek's training problem: {out['main']}")
+    print(f"  flash backward at DeepSeek's training problem (B={B} H={H} "
+          f"KH={KH} S={S} (D, DV)=({D}, {DV}) causal bfloat16): 5 launches "
+          f"equal bit for bit; through autograd (1 launch) vs plain "
+          f"{out['main']:.3e} (max abs err {out['main_abs']:.3e})")
+    del q, k, v, dout, o, lse, first, again
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ds_train_golden():
+    """(b) The small DeepSeek (float32, flash at (24, 16) on the CUDA-core
+    route) against ``lm_train_deepseek_small_golden.npz``, through the
+    kernels."""
+    from repro_torch.models.params import load_lm_train_golden
+
+    golden = load_lm_train_golden(DS)
+    out = lm_train_golden_errors(golden)
+    print(f"  small {DS}: loss terms {out['loss']:.2e} (rtol "
+          f"{LM_LOSS_RTOL:g}), gradients {out['grads']:.2e} (rtol "
+          f"{LM_GRAD_RTOL:g}, every step), parameters after "
+          f"{golden.tokens.shape[0]} AdamW steps on the JAX gradients "
+          f"{out['params']:.2e} (atol {LM_PARAMS_ATOL:g}); flash launches a "
+          f"step {out['launches']}")
+    check(out["launches"]["forward"] > 0 and out["launches"]["backward"] > 0,
+          "the small DeepSeek launched the flash forward and backward")
+    return out
+
+
+def _ds_launches():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {"flash_fwd": fa_ops.LAUNCHES, "flash_bwd": fa_ops.BWD_LAUNCHES}
+
+
+def _zero_ds_launches():
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+
+
+def phase_ds_train_full():
+    """(c) deepseek-v2-lite-16b at every published width, its body cut to
+    DS_PERIODS periods, trained by ``launch/train.py::make_step``; then
+    ``launch.train.main`` on the small DeepSeek across a failure."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    full = get_config(DS)
+    cfg = dataclasses.replace(
+        full, n_periods=DS_PERIODS,
+        n_layers=len(full.head_pattern)
+        + DS_PERIODS * len(full.body_pattern) + len(full.tail_pattern))
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the cut model alone: a full-depth bf16 init leaves the card's memory
+    # fragmented (phase [20c])
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    m = cfg.mla
+    print(f"  {DS} at full width (d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads, MLA kv rank {m.kv_lora_rank}, (D, DV) = "
+          f"({m.qk_nope_head_dim + m.qk_rope_head_dim}, {m.v_head_dim}), "
+          f"dense d_ff {cfg.d_ff}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of d_ff {cfg.moe.expert_d_ff} and "
+          f"{cfg.moe.n_shared_experts} shared of {cfg.moe.shared_d_ff} in "
+          f"all, vocab {cfg.vocab_size}, remat {cfg.remat}), {cfg.n_layers} "
+          f"of {full.n_layers} layers ({cfg.layer_kinds}): "
+          f"{n_params / 1e9:.3f} B parameters, {cfg.dtype}, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # in place: the functional update would hold two copies of the 22.7 GB
+    # of float32 moments
+    opt = AdamW(lr=cosine_schedule(*DS_LR), inplace=True)
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step = train.make_step(model, opt)
+    pipe = TokenPipeline(cfg.vocab_size, DS_S, DS_B, seed=0)
+    losses, step_ms = [], []
+    _zero_ds_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    for i in range(DS_STEPS):
+        batch = pipe.batch_at(i)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state["params"], state["opt"], loss = step(state["params"],
+                                                   state["opt"], batch)
+        end.record()
+        losses.append(float(loss))
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    seconds = time.perf_counter() - t0
+    launches = _ds_launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / DS_STEPS for k, v in launches.items()}
+    check(per_step == DS_LAUNCHES, f"launches a step: {per_step}")
+    check(bool(np.all(np.isfinite(losses))), f"finite losses: {losses}")
+    check(float(np.mean(losses[-4:])) < losses[0],
+          f"the loss falls: {losses[0]} -> {np.mean(losses[-4:])}")
+    median = statistics.median(step_ms[DS_TIMED_FROM:])
+    card = card_line()
+    out = {"layers": cfg.n_layers, "params": n_params, "losses": losses,
+           "step_ms": step_ms, "median_step_ms": median,
+           "tokens_per_s": DS_B * DS_S / median * 1e3,
+           "peak_memory_gb": peak / 1e9, "launches": launches,
+           "launches_per_step": per_step, "seconds": seconds, "card": card}
+    print(f"  {DS_STEPS} steps of B {DS_B} x S {DS_S} through make_step "
+          f"(AdamW, cosine_schedule{DS_LR}) in {seconds:.1f} s: losses "
+          f"{losses[0]:.4f} -> mean of the last four "
+          f"{np.mean(losses[-4:]):.4f}; step (CUDA events, median after "
+          f"{DS_TIMED_FROM}) {median:.2f} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s; peak memory {out['peak_memory_gb']:.2f} GB on {card};"
+          f" launches a step {per_step}")
+
+    batch = pipe.batch_at(DS_STEPS)
+    with moe.record_keep() as keeps, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    # the forward's calls: remat's recompute repeats them
+    fwd = keeps[:DS_PERIODS]
+    dropped = sum(int((~k).sum()) for k in fwd) / sum(k.numel() for k in fwd)
+    device_us, top = _top_device(prof)
+    port = _port_device(prof)
+    split = _device_by_name(prof, FLASH_BWD_KERNELS)
+    out["profile"] = {
+        "wall_s": wall, "device_s": device_us / 1e6,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "top": [{"name": k[:90], "us": us, "count": c} for us, c, k in top],
+        "port_kernels": {k: {"us": us, "count": c}
+                         for k, (us, c) in port.items()},
+        "flash_bwd_split": {k: {"us": us, "count": c}
+                            for k, (us, c) in split.items()},
+        "dropped_share": dropped}
+    print(f"  profiled step: {wall * 1e3:.1f} ms wall, {device_us / 1e3:.1f} "
+          f"ms of device activity, idle share "
+          f"{out['profile']['device_idle_share']:.4f}; routing choices "
+          f"dropped past capacity {dropped:.2%}; the port's kernels: "
+          + ", ".join(f"{k} {us / 1e3:.3f} ms x{c} ({us / device_us:.2%})"
+                      for k, (us, c) in port.items()) + "; top device "
+          "entries:")
+    for us, c, k in top:
+        print(f"    {us:10.1f} us x{c:4d}  {k[:90]}")
+    params = state.pop("params")
+    del state, batch
+    torch.cuda.empty_cache()
+    check_pipe = TokenPipeline(cfg.vocab_size, DS_CHECK_S, DS_CHECK_B,
+                               seed=0)
+    out["vs_plain"] = _train_vs_plain(
+        model, build_model(dataclasses.replace(cfg, dtype="float32")),
+        params, check_pipe.batch_at(0),
+        f"full width at B {DS_CHECK_B} x S {DS_CHECK_S}")
+    del params
+    torch.cuda.empty_cache()
+
+    shutil.rmtree(DS_MAIN_CKPT, ignore_errors=True)
+    _zero_ds_launches()  # the entry point's run starts here
+    t0 = time.perf_counter()
+    result = train.main(DS_MAIN_ARGV)
+    main_launches = _ds_launches()  # ... and ends here
+    main_losses = result["losses"]
+    check(len(main_losses) == DS_MAIN_LOSSES and result["restarts"] == 1,
+          f"{len(main_losses)} losses, {result['restarts']} restarts")
+    check(bool(np.all(np.isfinite(main_losses))), "every loss is finite")
+    check(main_launches["flash_bwd"] > 0,
+          f"main launched the backward kernels: {main_launches}")
+    out["main"] = {"seconds": time.perf_counter() - t0,
+                   "losses": main_losses, "restarts": result["restarts"],
+                   "launches": main_launches,
+                   "events": [(e.step, e.kind, e.detail)
+                              for e in result["events"]]}
+    print(f"  launch.train.main({' '.join(DS_MAIN_ARGV)}): "
+          f"{out['main']['seconds']:.1f} s; {len(main_losses)} losses, "
+          f"{main_losses[0]:.4f} -> {main_losses[-1]:.4f}; restarts "
+          f"{result['restarts']}; events {out['main']['events']}; launches "
+          f"{main_launches}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_bwd_f32(g, B, H, KH, S, D, W, DV):
+    """(d) The float32 route alone, at a pair the tensor cores do not
+    take: the kernel with L from the forward, the plain version's
+    autograd, SDPA's backward on the same float32 inputs (``is_causal``;
+    no window), and the bound at the float32 rate (6 D + 4 DV flops a
+    live pair) or of the bytes read and written once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.float32, DV)
+    dout = torch.randn(B, S, H, DV, generator=g, device="cuda")
+    out, lse = fa_ops.flash_attention_with_lse(q, k, v, window=W)
+    ms = cuda_ms(lambda: fa_ops.flash_attention_bwd(q, k, v, out, dout, lse,
+                                                    window=W), 20)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    plain_out = _plain_flash(*leaves, window=W)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        plain_out, leaves, dout, retain_graph=True), 5)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    check(W == 0 and H == KH, "SDPA's backward timed causal, no GQA")
+    o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    do = dout.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (qs, ks, vs), do, retain_graph=True), 5)
+    pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
+    flops = (6 * D + 4 * DV) * pairs * H * B
+    nbytes = 2 * (q.nbytes + dout.nbytes + k.nbytes + v.nbytes)
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"shape": f"B={B} H={H} KH={KH} S={S} (D, DV)=({D}, {DV}) "
+                    f"window={W} causal float32",
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "is_causal", "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes,
+           "route": fa_ops.bwd_route(q.dtype, D, DV)}
+    print(f"  flash backward {row['shape']}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']} at the float32 "
+          f"rate: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    del q, k, v, dout, out, lse, leaves, plain_out, qs, ks, vs, o, do
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ds_train():
+    import torch
+
+    print(f"[25] DeepSeek-V2-Lite training: the flash backward at (D, DV) = "
+          f"(192, 128) and (24, 16) vs the plain version's autograd, the "
+          f"small DeepSeek's loss, gradients and AdamW steps vs the JAX "
+          f"package's (lm_train_deepseek_small_golden.npz), {DS} at full "
+          f"width with {DS_PERIODS} body periods (B {DS_B} x S {DS_S}, "
+          f"{DS_STEPS} steps), launch.train.main across a failure, and the "
+          f"backward's time")
+    out = {}
+    t0 = time.perf_counter()
+    out["kernel_errors"] = phase_ds_train_kernels()
+    print(f"    -- (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["golden"] = phase_ds_train_golden()
+    print(f"    -- (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["full"] = phase_ds_train_full()
+    print(f"    -- (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    out["timing"] = {"flash_bwd": time_flash_bwd(g, *DS_FLASH_BWD),
+                     "flash_bwd_small": time_flash_bwd_f32(
+                         g, *DS_SMALL_FLASH_BWD)}
+    print(f"    -- (d) {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -7551,6 +7975,10 @@ def main() -> int:
     mlstm_bwd = xl_timing["B=1 H=4 S=4096 hd=1024 chunk=256 bfloat16"]
     mlstm_bwd_f32 = xl_timing["B=1 H=4 S=4096 hd=1024 chunk=256 float32"]
     mlstm_bwd_cell = xl_timing["B=4 H=4 S=2048 hd=1024 chunk=256 bfloat16"]
+    # DeepSeek-V2-Lite's training: its full-width steps and its entry
+    # point's run each set the flash counts to 0 before and read them after
+    ds_train = timed("DeepSeek-V2-Lite training", seconds, phase_ds_train)
+    ds_bwd = ds_train["timing"]["flash_bwd"]
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -7711,6 +8139,20 @@ def main() -> int:
             "launches_per_step":
                 rg_train["full"]["launches_per_step"]["flash_bwd"],
             "errors": rg_train["kernel_errors"]["flash_bwd"]},
+        "head_dim_pairs": {k: [list(p) for p in v]
+                           for k, v in fa_ops.BWD_PAIRS.items()},
+        "deepseek_192_128": {
+            **ds_bwd, "design": DS_FLASH_DESIGN,
+            "launches": ds_train["full"]["launches"]["flash_bwd"],
+            "launches_per_step":
+                ds_train["full"]["launches_per_step"]["flash_bwd"],
+            "launches_main": ds_train["full"]["main"]["launches"][
+                "flash_bwd"],
+            "errors": ds_train["kernel_errors"]},
+        "deepseek_small_24_16": {
+            **ds_train["timing"]["flash_bwd_small"],
+            "launches_per_step_small":
+                ds_train["golden"]["launches"]["backward"]},
     }, {
         "name": "rg_lru_scan_bwd",
         "route": "cuda",
@@ -7785,9 +8227,9 @@ def main() -> int:
         "search": {**search, "launches": search_launches},
         "lm_zoo": zoo, "mla_mrope": mla, "whisper": whisper,
         "lm_training": lm_train, "recurrentgemma_training": rg_train,
-        "xlstm_training": xl_train},
+        "xlstm_training": xl_train, "deepseek_training": ds_train},
         indent=1, default=str))
-    print(f"[25] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[26] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -39,11 +39,13 @@ hand-written backward of ``csrc/flash_attention_bwd.cu``
 then dK/dV and dQ from L). :func:`bwd_route` names its kernels by the
 input type, as :func:`route` does the forward's: bfloat16 goes to the
 tensor-core kernels (``wgmma`` + TMA), float32 to the CUDA-core kernels
-(held at 2e-5). The backward takes the square head dims of
-``HEAD_DIMS`` (``BWD_PAIRS``) with every mode of the forward: a call
-that needs a gradient at another pair (MLA's (192, 128), the small
-DeepSeek's (24, 16)) raises ``ValueError`` before any launch. Its
-gradient at a row with no live key is 0, as the kernels' output there.
+(held at 2e-5). The backward takes every pair of the forward's route
+(``BWD_PAIRS``), with every mode of the forward: the square head dims of
+``HEAD_DIMS`` and MLA's (192, 128) on both routes, the small DeepSeek's
+(24, 16) on the float32 route; a call that needs a gradient at another
+pair (a bfloat16 gradient at (24, 16) among them) raises ``ValueError``
+before any launch. Its gradient at a row with no live key is 0, as the
+kernels' output there.
 On the CPU the plain version runs under autograd.
 :func:`flash_attention_with_lse` returns the output and L without
 autograd (the plain pair on the CPU). ``BWD_LAUNCHES`` counts backward
@@ -75,8 +77,8 @@ PAIRS = {"tensor_core": tuple((d, d) for d in HEAD_DIMS) + ((192, 128),),
          "cuda_core": tuple((d, d) for d in HEAD_DIMS)
          + ((192, 128), (24, 16))}
 DTYPES = (torch.float32, torch.bfloat16)
-#: (D, DV) pairs the backward takes, on both input types.
-BWD_PAIRS = tuple((d, d) for d in HEAD_DIMS)
+#: (D, DV) pairs the backward takes by route: those of the forward.
+BWD_PAIRS = PAIRS
 
 _FN = None
 _BWD = None
@@ -158,6 +160,8 @@ def _check(q, k, v, window):
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one of {DTYPES}, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        bwd_route(q.dtype, D, DV)  # a pair the backward takes
     route(q.dtype, D, DV)  # a pair the route takes
     if max(S * H, k.shape[1] * KH) * max(D, DV) >= 2 ** 31:
         raise ValueError("the kernel indexes one batch row with 32-bit "
@@ -172,8 +176,6 @@ def _check(q, k, v, window):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        bwd_route(q.dtype, D, DV)
 
 
 def _launch(q, k, v, causal, window, scale, keep_lse=False, out32=None):
@@ -210,14 +212,14 @@ def _bwd_kernel():
     if _BWD is None:
         lib = build.load("flash_attention_bwd")
         fn = lib.flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
         attrs = lib.flash_attention_bwd_attributes
-        attrs.argtypes = ([ctypes.c_int] * 2
+        attrs.argtypes = ([ctypes.c_int] * 3
                           + [ctypes.POINTER(ctypes.c_int)] * 4)
         attrs.restype = ctypes.c_int
         _BWD = (fn, lib.flash_attention_bwd_error_string, attrs)
@@ -228,13 +230,13 @@ def bwd_route(dtype: torch.dtype, D: int, DV: int | None = None) -> str:
     """The backward kernels a CUDA call with inputs of ``dtype`` and head
     dims ``D`` and ``DV`` (default ``D``) launches: ``"tensor_core"``
     for bfloat16 (``wgmma`` + TMA), ``"cuda_core"`` for float32. Raises
-    ``ValueError`` for a pair outside ``BWD_PAIRS``."""
+    ``ValueError`` for a pair outside the route's ``BWD_PAIRS``."""
     DV = D if DV is None else DV
     name = _route_name(dtype)
-    if (D, DV) not in BWD_PAIRS:
+    if (D, DV) not in BWD_PAIRS[name]:
         raise ValueError(f"the flash-attention kernel has no backward at "
-                         f"(D, DV) = {(D, DV)} (it takes {BWD_PAIRS}); a "
-                         f"gradient at this pair comes with a later slice")
+                         f"(D, DV) = {(D, DV)} in {dtype} (its {name} route "
+                         f"takes {BWD_PAIRS[name]})")
     return name
 
 
@@ -243,15 +245,17 @@ def bwd_route(dtype: torch.dtype, D: int, DV: int | None = None) -> str:
 BWD_KERNELS = ("delta", "dkdv", "dq")
 
 
-def backward_attributes(D: int) -> dict:
+def backward_attributes(D: int, DV: int | None = None) -> dict:
     """Registers and local (spilled) bytes a thread, static and dynamic
     shared memory a block, of each kernel of the tensor-core backward at
-    head dim ``D`` (``cudaFuncGetAttributes``), by ``BWD_KERNELS``."""
+    head dims ``D`` and ``DV`` (default ``D``) (``cudaFuncGetAttributes``),
+    by ``BWD_KERNELS``."""
     _, error_string, attrs = _bwd_kernel()
     found = {}
     for i, name in enumerate(BWD_KERNELS):
         out = [ctypes.c_int() for _ in range(4)]
-        rc = attrs(D, i, *(ctypes.byref(x) for x in out))
+        rc = attrs(D, D if DV is None else DV, i,
+                   *(ctypes.byref(x) for x in out))
         if rc != 0:
             raise RuntimeError(f"cudaFuncGetAttributes failed: "
                                f"{error_string(rc).decode()} ({rc})")
@@ -267,7 +271,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     model's layout, given its output ``out`` for these q, k, v, the
     log-sum-exp ``lse`` (B, H, S) that the forward kept with it (both
     from :func:`flash_attention_with_lse`) and the output's cotangent
-    ``dout`` (B, S, H, D): three launches of ``csrc/flash_attention_bwd.cu``
+    ``dout`` (B, S, H, DV): three launches of ``csrc/flash_attention_bwd.cu``
     on the current stream and on :func:`bwd_route`'s kernels (delta =
     rowsum(dout * out) into a float32 (B, H, S) scratch, then dK/dV, then
     dQ), gradients in q's type. ``out`` is in q's type, or float32: the
@@ -285,8 +289,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                 or t.device != q.device or not t.is_contiguous()
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"{tuple(q.shape)} tensor like q, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+                             f"{tuple(q.shape[:3] + v.shape[3:])} tensor "
+                             f"like q, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
     B, S, H, D = q.shape
     T, KH = k.shape[1], k.shape[2]
     if (lse.shape != (B, H, S) or lse.dtype != torch.float32
@@ -304,8 +309,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, KH, S, T,
-                D, int(causal), int(window), float(scale), int(tensor_core),
-                int(out.dtype != q.dtype), stream)
+                D, v.shape[-1], int(causal), int(window), float(scale),
+                int(tensor_core), int(out.dtype != q.dtype), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: "
                            f"{error_string(rc).decode()} ({rc})")

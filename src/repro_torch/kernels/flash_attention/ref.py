@@ -82,7 +82,8 @@ def attention_lse(q, k, *, causal: bool = True, window: int = 0,
 def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                   window: int = 0, scale: float | None = None):
     """The gradient of :func:`attention` as the backward kernels compute
-    it, in float32: q (B, H, S, D), k (B, KH, T, D), v (B, KH, T, DV), the
+    it, in float32 (float64 for float64 inputs, the rounding-free
+    control): q (B, H, S, D), k (B, KH, T, D), v (B, KH, T, DV), the
     output ``out`` and its cotangent ``dout`` (B, H, S, DV), the
     log-sum-exp ``lse`` (B, H, S) of :func:`attention_lse`.
     delta = rowsum(dout * out), P = exp(s - L) at live pairs and 0 at
@@ -93,15 +94,16 @@ def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     B, H, S, D = q.shape
     KH = k.shape[1]
     s, live, scale = _scores(q, k, causal, window, scale)
+    acc = s.dtype
     rows = (B, KH, H // KH, S)
-    do = dout.float().reshape(*rows, -1)
-    delta = (do * out.float().reshape(*rows, -1)).sum(-1, keepdim=True)
-    p = torch.where(live, torch.exp(s - lse.float().reshape(*rows, 1)), 0.0)
-    dp = torch.einsum("bkgsd,bktd->bkgst", do, v.float())
+    do = dout.to(acc).reshape(*rows, -1)
+    delta = (do * out.to(acc).reshape(*rows, -1)).sum(-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - lse.to(acc).reshape(*rows, 1)), 0.0)
+    dp = torch.einsum("bkgsd,bktd->bkgst", do, v.to(acc))
     ds = p * (dp - delta)
-    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.float()) * scale
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.to(acc)) * scale
     dk = torch.einsum("bkgst,bkgsd->bktd", ds,
-                      q.float().reshape(*rows, D)) * scale
+                      q.to(acc).reshape(*rows, D)) * scale
     dv = torch.einsum("bkgst,bkgsd->bktd", p, do)
     return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))

@@ -4,7 +4,10 @@
         --steps 200 --batch 8 --seq 256 --scale small
 
 ``repro/launch/train.py`` in PyTorch, with the reference's flags and
-defaults plus ``--device`` (the card unless ``--device cpu``). The flow:
+defaults plus ``--device`` (the card unless ``--device cpu``) and
+``--dtype`` (the configuration's unless given: the small DeepSeek-V2-Lite,
+whose latent attention is (24, 16) wide, trains on the card in float32,
+since the flash kernel's bf16 route does not take that pair). The flow:
   1. fingerprint the cluster's hosts (``--hosts`` n2-standard-4 nodes)
      with the standardized suite, train Perona on the executions and rank
      the hosts (:func:`fingerprint_cluster`);
@@ -24,6 +27,7 @@ virtual, the model runs on one device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 
@@ -119,6 +123,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the run goes: the card unless 'cpu'")
+    ap.add_argument("--dtype", choices=["bfloat16", "float32"],
+                    help="the model's type (default: the configuration's)")
     return ap
 
 
@@ -132,6 +138,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.scale == "small":
         cfg = cfg.scaled_down(max_seq=args.seq)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     model = build_model(cfg)
 
     # --- 1. Perona: fingerprint + rank the cluster ----------------------

@@ -44,7 +44,9 @@ small decoders' (``lm_train_small_golden.npz``, written by
 (``lm_train_recurrentgemma_small_golden.npz``, written by
 ``tests/test_torch_rg_lru_train.py --write``) and the small xLSTM's
 (``lm_train_xlstm_small_golden.npz``, written by
-``tests/test_torch_xlstm_train.py --write``).
+``tests/test_torch_xlstm_train.py --write``) and the small
+DeepSeek-V2-Lite's (``lm_train_deepseek_small_golden.npz``, written by
+``tests/test_torch_deepseek_train.py --write``).
 
 :func:`load_whisper_golden` reads ``assets/lm_zoo_whisper_small_golden.npz``
 (``WHISPER_GOLDEN_PATH``, written by ``tests/test_torch_whisper.py
@@ -77,6 +79,7 @@ WHISPER_GOLDEN_PATH = ASSETS / "lm_zoo_whisper_small_golden.npz"
 LM_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_small_golden.npz"
 RG_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_recurrentgemma_small_golden.npz"
 XLSTM_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_xlstm_small_golden.npz"
+DEEPSEEK_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_deepseek_small_golden.npz"
 
 #: Ends of the leaf paths the reference reads in float32 whatever the
 #: compute type: norm scales and biases, the RG-LRU ``lambda``, the MoE
@@ -246,11 +249,17 @@ def load_lm_train_golden(arch: str, path=None) -> LMTrainGolden:
     init: the training configuration differs only in ``chunked_ce`` and
     ``max_seq``, which make no parameter), or ``xlstm-1.3b`` from
     ``lm_train_xlstm_small_golden.npz`` with its initial parameters from
-    ``xlstm_small_golden.npz`` (likewise: only ``max_seq`` differs)."""
+    ``xlstm_small_golden.npz`` (likewise: only ``max_seq`` differs), or
+    ``deepseek-v2-lite-16b`` from ``lm_train_deepseek_small_golden.npz``
+    with its initial parameters from ``lm_zoo_mla_mrope_small_golden.npz``
+    (the same configuration)."""
     if arch == "recurrentgemma-9b":
         path, init = path or RG_TRAIN_GOLDEN_PATH, (LM_GOLDEN_PATH, "")
     elif arch == "xlstm-1.3b":
         path, init = path or XLSTM_TRAIN_GOLDEN_PATH, (XLSTM_GOLDEN_PATH, "")
+    elif arch == "deepseek-v2-lite-16b":
+        path, init = path or DEEPSEEK_TRAIN_GOLDEN_PATH, (
+            LM_MLA_MROPE_GOLDEN_PATH, f"{arch}/")
     else:
         path, init = path or LM_TRAIN_GOLDEN_PATH, (LM_ZOO_GOLDEN_PATH,
                                                     f"{arch}/")

@@ -175,9 +175,11 @@ def _good(B=2, H=4, KH=2, S=10, D=16):
     (lambda q, k, v: (q.transpose(1, 2).contiguous().transpose(1, 2), k, v,
                       0), "contiguous"),
     # a gradient at a pair the backward does not take (the small
-    # DeepSeek's (24, 16)); the square pairs have one
-    (lambda q, k, v: (torch.zeros(2, 10, 4, 24).requires_grad_(),
-                      torch.zeros(2, 10, 2, 24), torch.zeros(2, 10, 2, 16),
+    # DeepSeek's (24, 16) in bfloat16; float32 has a backward there)
+    (lambda q, k, v: (torch.zeros(2, 10, 4, 24, dtype=torch.bfloat16)
+                      .requires_grad_(),
+                      torch.zeros(2, 10, 2, 24, dtype=torch.bfloat16),
+                      torch.zeros(2, 10, 2, 16, dtype=torch.bfloat16),
                       0), "no backward"),
 ])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad, match):

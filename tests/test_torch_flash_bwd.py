@@ -168,10 +168,18 @@ def test_bwd_route_names_both_routes_and_refuses_other_pairs():
     for D in ops.HEAD_DIMS:
         assert ops.bwd_route(torch.bfloat16, D) == "tensor_core"
         assert ops.bwd_route(torch.float32, D, D) == "cuda_core"
-    for pair in ((192, 128), (24, 16)):
-        for dtype in ops.DTYPES:
-            with pytest.raises(ValueError, match="no backward"):
-                ops.bwd_route(dtype, *pair)
+    # MLA's (192, 128) on both routes, the small DeepSeek's (24, 16) on the
+    # float32 route only, as the forward takes them
+    assert ops.bwd_route(torch.bfloat16, 192, 128) == "tensor_core"
+    assert ops.bwd_route(torch.float32, 192, 128) == "cuda_core"
+    assert ops.bwd_route(torch.float32, 24, 16) == "cuda_core"
+    assert ops.BWD_PAIRS == ops.PAIRS
+    with pytest.raises(ValueError, match=r"no backward at \(D, DV\) = "
+                                         r"\(24, 16\) in torch.bfloat16"):
+        ops.bwd_route(torch.bfloat16, 24, 16)
+    for dtype in ops.DTYPES:
+        with pytest.raises(ValueError, match=r"no backward.*\(192, 64\)"):
+            ops.bwd_route(dtype, 192, 64)
     with pytest.raises(TypeError):
         ops.bwd_route(torch.float16, 64)
     assert ops.route(torch.bfloat16, 192, 128) == "tensor_core"

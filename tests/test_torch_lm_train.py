@@ -671,7 +671,7 @@ def test_recurrent_kernels_refuse_a_gradient_on_the_card():
     """Under grad on a CUDA tensor the RG-LRU and the mLSTM launch their
     backward kernels once each, and the mLSTM refuses a cotangent of its
     returned state; flash launches its backward at a square pair and
-    refuses (24, 16)."""
+    refuses a bfloat16 gradient at (24, 16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -699,10 +699,11 @@ def test_recurrent_kernels_refuse_a_gradient_on_the_card():
     before = fa_ops.BWD_LAUNCHES
     fa_ops.flash_attention(q, k, v).sum().backward()
     assert fa_ops.BWD_LAUNCHES == before + 1
-    q = torch.randn(1, 8, 2, 24, **cuda).requires_grad_()
+    bf16 = dict(device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(1, 8, 2, 24, **bf16).requires_grad_()
     with pytest.raises(ValueError, match="no backward"):
-        fa_ops.flash_attention(q, torch.randn(1, 8, 2, 24, **cuda),
-                               torch.randn(1, 8, 2, 16, **cuda))
+        fa_ops.flash_attention(q, torch.randn(1, 8, 2, 24, **bf16),
+                               torch.randn(1, 8, 2, 16, **bf16))
 
 
 # ------------------------------------------------------------ golden file
