@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of Perona (``src/repro_torch``) on one NVIDIA
 GPU, hold it against its plain versions and the JAX package's stored
-outputs, and time its kernels. Twelve paths are driven: Perona's scoring
+outputs, and time its kernels. The paths driven: Perona's scoring
 path (edge-softmax kernel), RecurrentGemma-9B serving at full width
 (flash-attention and RG-LRU scan kernels), xLSTM-1.3B serving at full
 width (chunkwise mLSTM kernel), Perona's host-loop training and its
@@ -30,9 +30,12 @@ and its backward kernel, and the edge-softmax kernels), and
 RecurrentGemma's training at every published width through
 ``launch/train.py::make_step`` and at small scale through ``main`` (the
 RG-LRU scan's forward and backward kernels and flash's), xLSTM-1.3B's
-(the mLSTM's forward and backward kernels) and DeepSeek-V2-Lite's (the
+(the mLSTM's forward and backward kernels), DeepSeek-V2-Lite's (the
 flash forward and backward at the latent attention's (192, 128), the
-MoE with shared experts under grad).
+MoE with shared experts under grad), and Qwen2-VL's and whisper-small's
+(the flash forward and backward at a GQA group of 7 with M-RoPE from
+embeddings, and without a mask in an encoder and a cross-attention over
+1500 frames).
 
     python3 chip_smoke.py
 
@@ -394,7 +397,35 @@ Phases, each printing on lines of its own:
    float32 route at the small DeepSeek's (24, 16) in ``main``'s problem
    (B 8, H = KH = 4, S 256), each beside its bound and SDPA's backward.
    ``phase_card()``, ``phase_build()`` and ``phase_ds_train()`` run it
-   alone.
+   alone;
+26. Qwen2-VL's and whisper-small's training: (a) the flash backward at
+   Qwen2-VL's (H, KH) (28, 4), D 128, causal, and whisper's (12, 12), D
+   64, causal and without a mask over T = S and over T = 1500, on both
+   routes against the plain version's autograd at |a - b| <= TOL (1 +
+   |b|) (S 1/63/64/65/129/448/1500/4096; T = 1500 at S 1/448/1500; 54
+   cases), the tensor-core kernels' registers at D 64 and 128 (no
+   spills), and the float32 route where a cross-attention's keys and
+   values nearly agree (dq, dk, dv and E^T dk within VW_AGREE_RTOL of
+   float64, relative L2); (b) the small Qwen2-VL (from embeddings with an
+   image's positions) and the small whisper (with frames) against
+   ``lm_train_qwen2_vl_small_golden.npz`` and
+   ``lm_train_whisper_small_golden.npz`` as [22b]; (c) ``qwen2-vl-7b`` at
+   every published width with 8 of its 28 layers (2.954 B parameters: 12
+   bytes a parameter fit the card, the full depth's 7.62 B do not), B 2 x
+   S 4096 of seeded embeddings with an image's M-RoPE positions, and
+   ``whisper-small`` at full width and depth, B 16 x S 448 tokens with
+   seeded frames (16, 1500, 768), bf16 seed-0 weights, 8 steps each
+   through ``make_step`` with AdamW (in place) under
+   ``cosine_schedule(1e-3, 1, 8)``: losses finite and falling, flash
+   launches a step (16 forward and 8 backward; 72 and 36) against
+   ``vw_launches``, step time, tokens/s, peak memory beside the card, a
+   profiled step (idle share, flash's share, top entries); at the trained
+   weights kernels vs plain in float32 (1e-4) and in bf16 by distance from
+   the float32 plain route (max(1e-1, 1.25 x)); (d) the bf16 backward at
+   the cells' four attention problems (Qwen2-VL's; whisper's encoder,
+   cross-attention and decoder self-attention) beside its bound and
+   SDPA's backward. ``phase_card()``, ``phase_build()`` and
+   ``phase_vw_train()`` run it alone.
 
 Each phase prints its seconds. Then it writes every number to
 ``build/chip_smoke_report.json`` and prints the ``{"kernels":
@@ -5026,6 +5057,44 @@ def vl_positions(n_before, grid, merge, length):
     return torch.cat([text, image, after.expand(3, -1)], 1)
 
 
+def lm_train_batch(cfg, B, S, seed=0, device="cuda",
+                   image=(VL_TEXT_BEFORE, VL_GRID, VL_MERGE)):
+    """The training batch of ``cfg``'s family, with the keys, shapes and
+    types of the reference's ``Model.input_specs(ShapeConfig(..., S, B,
+    "train"))``, drawn on ``device`` from ``seed``: labels (B, S) int32
+    over the vocabulary; for a "vlm" embeddings (B, S, d_model) of the
+    stub frontend in the compute type and (3, B, S) int32 M-RoPE
+    positions of an image, row b laid out as ``vl_positions(n_before +
+    3 b, grid, merge, S)`` for ``image = (n_before, grid, merge)``;
+    otherwise tokens (B, S) int32, and for "audio" the stub frontend's
+    frames (B, n_audio_frames, d_model) in the compute type."""
+    import torch
+
+    from repro_torch.models.transformer import compute_dtype
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    dtype = compute_dtype(cfg)
+
+    def ints(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=g,
+                             device=device, dtype=torch.int32)
+
+    batch = {"labels": ints(B, S)}
+    if cfg.family == "vlm":
+        batch["embeddings"] = torch.randn(B, S, cfg.d_model, generator=g,
+                                          device=device).to(dtype)
+        n_before, grid, merge = image
+        batch["positions"] = torch.stack(
+            [vl_positions(n_before + 3 * b, grid, merge, S)
+             for b in range(B)], 1).to(device=device, dtype=torch.int32)
+    else:
+        batch["tokens"] = ints(B, S)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(B, cfg.n_audio_frames, cfg.d_model,
+                                      generator=g, device=device).to(dtype)
+    return batch
+
+
 def _mla_tile_edges(g):
     """The bf16 kernel against the plain version at the tile edges of
     ``_flash_tile_edges``, at the pairs and (H, KH) of MLA_EDGE_PAIRS."""
@@ -5814,7 +5883,9 @@ def flash_bwd_routes():
 def lm_train_golden_errors(golden, device="cuda", float64_anchor=False):
     """(b) One small decoder of ``lm_train_small_golden.npz`` on
     ``device``, over the golden's AdamW steps under ``cosine_schedule``:
-    its pipeline's batches equal the golden's bit for bit; the loss terms
+    its pipeline's batches equal the golden's bit for bit (a golden of
+    the "vlm" or "audio" family's batches, which holds embeddings and
+    positions or frames, gives its batches whole); the loss terms
     on the first (LM_LOSS_RTOL); at each step every gradient leaf
     (LM_GRAD_RTOL of the leaf's largest); and the port's AdamW, fed the
     JAX gradients of each step, gives the golden's parameters at
@@ -5854,17 +5925,19 @@ def lm_train_golden_errors(golden, device="cuda", float64_anchor=False):
     opt = AdamW(lr=cosine_schedule(a["peak"], int(a["warmup"]),
                                    int(a["steps"])))
     st = opt.init(params)
-    steps, B, S = golden.tokens.shape
+    steps, B, S = golden.labels.shape
     pipe = TokenPipeline(cfg.vocab_size, S, B, seed=0, device=device)
+    drawn = any(x is not None for x in (golden.embeddings, golden.positions,
+                                        golden.frames))
     out = {"loss": 0.0, "grads": 0.0, "zero_grads": 0.0, "anchored": 0,
            "anchored_grads": 0.0}
     model64 = (build_model(dataclasses.replace(cfg, dtype="float64"))
                if float64_anchor else None)
     for i in range(steps):
-        batch = pipe.batch_at(i)
+        batch = golden.batch(i, device) if drawn else pipe.batch_at(i)
         for key in ("tokens", "labels"):
-            check(np.array_equal(batch[key].cpu().numpy(),
-                                 getattr(golden, key)[i]),
+            check(drawn or np.array_equal(batch[key].cpu().numpy(),
+                                          getattr(golden, key)[i]),
                   f"{cfg.name}: batch_at({i}) {key} equals the golden's")
         fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
         lru_ops.LAUNCHES = lru_ops.BWD_LAUNCHES = 0
@@ -6126,25 +6199,27 @@ def phase_lm_train_full():
     return out
 
 
-def time_flash_bwd(g, B, H, KH, S, D, W, DV=None):
-    """(d) The backward kernel at one causal problem (window W, 0 for
-    none; v head dim DV, default D) in bf16 and float32, with L from the
-    forward, the plain version's autograd, SDPA's backward (the faster of
-    k/v repeated to the query heads and ``enable_gqa=True``, and which of
-    its backends ran; a window takes a boolean mask and the repeated
-    heads), and the bounds: the backward's 6 D + 4 DV flops a live pair
-    (2.5 x the forward's at D = DV) at the bf16 tensor-core rate (the
-    float32 route at the float32 rate), or q, k, v, the output and its
-    cotangent read once and the three gradients written once."""
+def time_flash_bwd(g, B, H, KH, S, D, W, DV=None, causal=True, T=None):
+    """(d) The backward kernel at one problem (window W, 0 for none; v
+    head dim DV, default D; T keys, default S; causal, or without a mask)
+    in bf16 and float32, with L from the forward, the plain version's
+    autograd, SDPA's backward (the faster of k/v repeated to the query
+    heads and ``enable_gqa=True``, and which of its backends ran; a
+    window takes a boolean mask and the repeated heads), and the bounds:
+    the backward's 6 D + 4 DV flops a live pair (2.5 x the forward's at
+    D = DV) at the bf16 tensor-core rate (the float32 route at the
+    float32 rate), or q, k, v, the output and its cotangent read once and
+    the three gradients written once."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
-    mode = dict(window=W)
+    mode = dict(causal=causal, window=W)
     DV = D if DV is None else DV
-    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16, DV)
+    T = S if T is None else T
+    q, k, v = _flash_inputs(g, B, H, KH, S, D, torch.bfloat16, DV, T)
     dout = torch.randn(B, S, H, DV, generator=g, device="cuda").to(
         torch.bfloat16)
     out, lse = fa_ops.flash_attention_with_lse(q, k, v, **mode)
@@ -6166,7 +6241,7 @@ def time_flash_bwd(g, B, H, KH, S, D, W, DV=None):
         rel = pos[:, None] - pos[None, :]
         how = {"attn_mask": (rel >= 0) & (rel < W)}
     else:
-        how = {"is_causal": True}
+        how = {"is_causal": causal}
 
     def sdpa_grads(gqa, backend=None):
         qs = q.transpose(1, 2).contiguous().requires_grad_()
@@ -6216,7 +6291,8 @@ def time_flash_bwd(g, B, H, KH, S, D, W, DV=None):
     ran = min((name for name, (_, d) in backends.items() if d is not None),
               key=lambda name: backends[name][1])
     del default
-    pairs = sum(min(i + 1, W) if W > 0 else i + 1 for i in range(S))
+    pairs = (sum(min(i + 1, W) if W > 0 else min(i + 1, T)
+                 for i in range(S)) if causal else S * T)
     fwd_flops = 2 * (D + DV) * pairs * H * B
     # S, dK, dQ over D and dP, dV over DV: 2.5 x the forward's at D = DV
     flops = (6 * D + 4 * DV) * pairs * H * B
@@ -6225,8 +6301,9 @@ def time_flash_bwd(g, B, H, KH, S, D, W, DV=None):
     t_ops, t_bytes = (flops / BF16_FLOP_PER_S * 1e3,
                       nbytes / HBM_BYTES_PER_S * 1e3)
     dims = f"D={D}" if DV == D else f"(D, DV)=({D}, {DV})"
-    row = {"shape": f"B={B} H={H} KH={KH} S={S} {dims} window={W} causal "
-                    f"bfloat16",
+    keys = "" if T == S else f"T={T} "
+    row = {"shape": f"B={B} H={H} KH={KH} S={S} {keys}{dims} window={W} "
+                    f"{'causal' if causal else 'no mask'} bfloat16",
            "ms": ms, "plain_ms": plain_ms, "library_ms":
            library_times[library_call],
            "library_call": f"{next(iter(how))}, {library_call}",
@@ -7816,6 +7893,356 @@ def phase_ds_train():
     return out
 
 
+# ------------------------- Qwen2-VL and whisper training (phase [26])
+VL = "qwen2-vl-7b"
+# (a) the flash backward at the two models' head layouts against the
+# plain version's autograd, both routes, B 1: (label, H, KH, D, causal,
+# T (None: T = S), S). Qwen2-VL's GQA group of 7 at D 128, causal, S
+# around the 64-row tiles up to 4096; whisper's (12, 12) at D 64 causal
+# (the decoder's self-attention), without a mask over T = S (the
+# encoder) and over the encoder's 1500 keys (the cross-attention)
+VW_BWD_S = (1, 63, 64, 65, 129, 448, 1500, 4096)
+VW_BWD_SWEEPS = (("Qwen2-VL", 28, 4, 128, True, None, VW_BWD_S),
+                 ("whisper decoder", 12, 12, 64, True, None, VW_BWD_S),
+                 ("whisper encoder", 12, 12, 64, False, None, VW_BWD_S),
+                 ("whisper cross", 12, 12, 64, False, 1500, (1, 448, 1500)))
+# whisper's cross-attention where its keys and values nearly agree, as in
+# its first decoder layer at (c)'s trained weights (keys 3.3 % and values
+# 2.2 % from their mean, rms 1.0 and 1.4): (B, H, KH, S, T, D, key spread,
+# value spread). The float32 route's dq, dk, dv and wk's gradient's
+# stand-in E^T dk (E the keys themselves, which agree as closely) against
+# the plain version in float64, by relative L2. On NVIDIA H100 80GB HBM3,
+# 700 W: 2.01e-4 at most (the plain version's autograd 1.67e-4; F7,
+# ROADMAP.md section 3)
+VW_AGREE = (2, 12, 12, 448, 1500, 64, 0.03, 0.02)
+VW_AGREE_RTOL = 5e-4
+# the timed problems of (c)'s steps, bf16, (B, H, KH, S, D, window, DV,
+# causal, T): Qwen2-VL's training attention; whisper's encoder, its
+# cross-attention and its decoder's self-attention
+VW_FLASH_BWD = {
+    "qwen2_vl": (2, 28, 4, 4096, 128, 0, 128, True, 4096),
+    "whisper_encoder": (16, 12, 12, 1500, 64, 0, 64, False, 1500),
+    "whisper_cross": (16, 12, 12, 448, 64, 0, 64, False, 1500),
+    "whisper_decoder": (16, 12, 12, 448, 64, 0, 64, True, 448)}
+# (c) Qwen2-VL-7B at every published width, the body cut from 28 layers
+# to VL_LAYERS: 2.954 B parameters' bf16 weights, gradients and float32
+# moments are 35.5 GB; the full depth's 7.62 B, 91 GB, do not fit the
+# card's 80 GB. B 2 x S 4096 of seeded embeddings, each row an image of
+# 64 x 64 patches merged 2 x 2 after 32 (35) text tokens
+VL_LAYERS = 8
+VL_B, VL_S, VL_STEPS = 2, 4096, 8
+VL_LR = (1e-3, 1, 8)  # cosine_schedule(peak, warmup, steps), AdamW
+# kernels vs plain at the trained weights: one row of 1024 with an image
+# of 32 x 32 patches merged 2 x 2
+VL_CHECK_B, VL_CHECK_S, VL_CHECK_IMAGE = 1, 1024, (32, 32, 2)
+# whisper-small at full width and depth: B 16 x S 448 decoder tokens
+# (whisper's own context), 30 s of audio a row (1500 frames) from the
+# stub frontend
+WT_B, WT_S, WT_STEPS = 16, 448, 8
+WT_LR = (1e-3, 1, 8)
+WT_CHECK_B, WT_CHECK_S = 2, 448
+VW_TIMED_FROM = 2  # steps after the first two
+
+
+def vw_launches(cfg):
+    """The flash launches a training step of ``cfg`` makes under remat:
+    each attention forward twice (the forward, then the recompute in the
+    backward) and its backward once; an encoder layer has one attention,
+    a decoder layer with cross-attention two."""
+    per_layer = 2 if "xattn" in cfg.layer_kinds else 1
+    n = cfg.n_encoder_layers + per_layer * cfg.n_layers
+    return {"flash_fwd": 2 * n, "flash_bwd": n}
+
+
+def phase_vw_train_kernels():
+    """(a) The flash backward at Qwen2-VL's (28, 4) at D 128 and
+    whisper's (12, 12) at D 64, causal and without a mask over T = S and
+    T = 1500, on both routes against the plain version's autograd; the
+    tensor-core kernels' registers and spills at D 64 and 128."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    out = {"attributes": {}}
+    for D in (64, 128):
+        routes = {name: fa_ops.bwd_route(getattr(torch, name), D)
+                  for name in TOL}
+        check(routes == {"float32": "cuda_core", "bfloat16": "tensor_core"},
+              f"the backward's routes at D = {D}: {routes}")
+        found = out["attributes"][D] = fa_ops.backward_attributes(D)
+        for name, a in found.items():
+            check(a["local_bytes"] == 0, f"the flash backward's {name} "
+                                         f"kernel at D = {D} spills: {a}")
+        print(f"  flash backward D={D}: tensor-core kernels "
+              + ", ".join(f"{name} {a['registers']} registers, "
+                          f"{a['local_bytes']} local bytes" for name, a in
+                          found.items()))
+    for label, H, KH, D, causal, T_fixed, sizes in VW_BWD_SWEEPS:
+        for name, tol in TOL.items():
+            largest, n = 0.0, 0
+            for S in sizes:
+                T = S if T_fixed is None else T_fixed
+                q, k, v = _flash_inputs(g, 1, H, KH, S, D,
+                                        getattr(torch, name), None, T)
+                dout = torch.randn(1, S, H, D, generator=g,
+                                   device="cuda").to(q.dtype)
+                err, _ = flash_bwd_errors(q, k, v, dout, causal, 0)
+                check(err <= tol, f"flash backward vs plain, {label} H={H} "
+                                  f"KH={KH} D={D} S={S} T={T} {name}: {err}")
+                largest, n = max(largest, err), n + 1
+            out[f"{label} {name}"] = largest
+            print(f"  flash backward {label} (H, KH) ({H}, {KH}) D={D} "
+                  f"{'causal' if causal else 'no mask'} "
+                  f"{name}: {n} cases (S {sizes}, T "
+                  f"{'= S' if T_fixed is None else T_fixed}), largest "
+                  f"|a - b| / (1 + |b|) over dq, dk, dv {largest:.3e} (tol "
+                  f"{tol:g}) ok")
+        torch.cuda.empty_cache()
+    out["agree"] = _agreeing_keys_case(g)
+    return out
+
+
+def _agreeing_keys_case(g):
+    """(a) The float32 route at VW_AGREE, a cross-attention whose keys
+    and values nearly agree: dq, dk, dv and E^T dk (E = k, per batch row
+    and kv head) through the kernels and through the plain version's
+    autograd in float32, each by relative L2 from the plain version in
+    float64; the kernels' within VW_AGREE_RTOL."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, H, KH, S, T, D, k_spread, v_spread = VW_AGREE
+
+    def near(scale, spread):
+        return (scale * torch.randn(B, 1, KH, D, generator=g, device="cuda")
+                + spread * torch.randn(B, T, KH, D, generator=g,
+                                       device="cuda"))
+
+    q = torch.randn(B, S, H, D, generator=g, device="cuda")
+    k, v = near(1.0, k_spread), near(1.4, v_spread)
+    dout = torch.randn(B, S, H, D, generator=g, device="cuda")
+    grads = {}
+    for name, fn, dtype in (("kernels", fa_ops.flash_attention,
+                             torch.float32),
+                            ("plain", _plain_flash, torch.float32),
+                            ("float64", _plain_flash, torch.float64)):
+        leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+        dq, dk, dv = torch.autograd.grad(fn(*leaves, causal=False), leaves,
+                                         dout.to(dtype))
+        grads[name] = (dq, dk, dv, torch.einsum(
+            "btkd,btke->bkde", k.double(), dk.double()))
+    out = {route: {n: _l2(a, b) for n, a, b in zip(
+        ("dq", "dk", "dv", "E^T dk"), grads[route], grads["float64"])}
+        for route in ("kernels", "plain")}
+    worst = max(out["kernels"].values())
+    print(f"  flash backward float32, keys and values nearly agreeing "
+          f"(B={B} H={H} S={S} T={T} D={D} no mask, spreads {k_spread} and "
+          f"{v_spread}), relative L2 from float64: kernels "
+          + ", ".join(f"{n} {e:.2e}" for n, e in out["kernels"].items())
+          + "; plain " + ", ".join(f"{n} {e:.2e}" for n, e in
+                                   out["plain"].items())
+          + f" (tol {VW_AGREE_RTOL:g})")
+    check(worst <= VW_AGREE_RTOL, f"float32 backward where keys nearly "
+                                  f"agree: {out}")
+    return out
+
+
+def phase_vw_train_golden():
+    """(b) The small Qwen2-VL (from embeddings with an image's M-RoPE
+    positions) and the small whisper (with frames) against their
+    training golden files, float32, through the kernels."""
+    from repro_torch.models.params import load_lm_train_golden
+
+    out = {}
+    for arch in (VL, WHISPER):
+        golden = load_lm_train_golden(arch)
+        e = out[arch] = lm_train_golden_errors(golden)
+        print(f"  small {arch}: loss terms {e['loss']:.2e} (rtol "
+              f"{LM_LOSS_RTOL:g}), gradients {e['grads']:.2e} (rtol "
+              f"{LM_GRAD_RTOL:g}, every step), parameters after "
+              f"{golden.labels.shape[0]} AdamW steps on the JAX gradients "
+              f"{e['params']:.2e} (atol {LM_PARAMS_ATOL:g}); flash launches "
+              f"a step {e['launches']}")
+        check(e["launches"]["forward"] > 0 and e["launches"]["backward"] > 0,
+              f"the small {arch} launched the flash forward and backward")
+    return out
+
+
+def _vw_cell(cfg, full_layers, steps, lr, make_batch, check_batch, tokens,
+             label):
+    """(c) One full-width training cell: seed-0 bf16 weights, ``steps``
+    steps through ``launch/train.py::make_step`` with the in-place AdamW
+    on ``make_batch(i)``, the flash launches a step against
+    :func:`vw_launches`, step time, tokens/s (``tokens`` a step), peak
+    memory, a profiled step, and kernels vs plain at the trained weights
+    on ``check_batch``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import AdamW, cosine_schedule
+
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} kv heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.rope_style} positions, tied {cfg.tie_embeddings}, remat "
+          f"{cfg.remat}), {cfg.n_layers} of {full_layers} decoder layers"
+          + (f" and {cfg.n_encoder_layers} encoder layers over "
+             f"{cfg.n_audio_frames} frames" if cfg.n_encoder_layers else "")
+          + f": {n_params / 1e9:.3f} B parameters, {cfg.dtype}, drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    opt = AdamW(lr=cosine_schedule(*lr), inplace=True)
+    state = {"params": params, "opt": opt.init(params)}
+    del params
+    step = train.make_step(model, opt)
+    batches = [make_batch(i) for i in range(steps + 1)]  # set-up
+    losses, step_ms = [], []
+    _zero_ds_launches()  # the main path starts here
+    t0 = time.perf_counter()
+    for batch in batches[:steps]:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state["params"], state["opt"], loss = step(state["params"],
+                                                   state["opt"], batch)
+        end.record()
+        losses.append(float(loss))
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    seconds = time.perf_counter() - t0
+    launches = _ds_launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = vw_launches(cfg)
+    check(per_step == want, f"{cfg.name}: launches a step {per_step}, "
+                            f"expected {want}")
+    check(bool(np.all(np.isfinite(losses))), f"finite losses: {losses}")
+    check(float(np.mean(losses[-4:])) < losses[0],
+          f"the loss falls: {losses[0]} -> {np.mean(losses[-4:])}")
+    median = statistics.median(step_ms[VW_TIMED_FROM:])
+    card = card_line()
+    out = {"layers": cfg.n_layers, "encoder_layers": cfg.n_encoder_layers,
+           "params": n_params, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": median, "tokens_per_s": tokens / median * 1e3,
+           "peak_memory_gb": peak / 1e9, "launches": launches,
+           "launches_per_step": per_step, "seconds": seconds, "card": card}
+    print(f"  {steps} steps of {label} through make_step (AdamW in place, "
+          f"cosine_schedule{lr}) in {seconds:.1f} s: losses "
+          f"{losses[0]:.4f} -> mean of the last four "
+          f"{np.mean(losses[-4:]):.4f}; step (CUDA events, median after "
+          f"{VW_TIMED_FROM}) {median:.2f} ms, {out['tokens_per_s']:.0f} "
+          f"tokens/s; peak memory {out['peak_memory_gb']:.2f} GB on {card};"
+          f" flash launches a step {per_step} (expected {want})")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batches[-1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    device_us, top = _top_device(prof)
+    port = _port_device(prof)
+    flash_us = sum(us for k, (us, _) in port.items() if k.startswith("flash"))
+    out["profile"] = {
+        "wall_s": wall, "device_s": device_us / 1e6,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "flash_share": flash_us / device_us,
+        "top": [{"name": k[:90], "us": us, "count": c} for us, c, k in top],
+        "port_kernels": {k: {"us": us, "count": c}
+                         for k, (us, c) in port.items()},
+        "flash_bwd_split": {k: {"us": us, "count": c} for k, (us, c) in
+                            _device_by_name(prof, FLASH_BWD_KERNELS).items()}}
+    print(f"  profiled step: {wall * 1e3:.1f} ms wall, {device_us / 1e3:.1f} "
+          f"ms of device activity, idle share "
+          f"{out['profile']['device_idle_share']:.4f}, flash's share of the "
+          f"device time {out['profile']['flash_share']:.2%}; the port's "
+          f"kernels: " + ", ".join(f"{k} {us / 1e3:.3f} ms x{c}"
+                                   for k, (us, c) in port.items())
+          + "; top device entries:")
+    for us, c, k in top:
+        print(f"    {us:10.1f} us x{c:4d}  {k[:90]}")
+    params = state.pop("params")
+    del state, batches
+    torch.cuda.empty_cache()
+    out["vs_plain"] = _train_vs_plain(
+        model, build_model(dataclasses.replace(cfg, dtype="float32")),
+        params, check_batch, f"{cfg.name} at full width")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_vw_train_full():
+    """(c) Qwen2-VL-7B at every published width with VL_LAYERS of its 28
+    layers, and whisper-small at full width and depth, each trained by
+    ``launch/train.py::make_step`` on its family's batch."""
+    from repro_torch.configs import get_config
+
+    full = get_config(VL)
+    vl = dataclasses.replace(full, n_layers=VL_LAYERS, n_periods=VL_LAYERS)
+    out = {VL: _vw_cell(
+        vl, full.n_layers, VL_STEPS, VL_LR,
+        lambda i: lm_train_batch(vl, VL_B, VL_S, seed=i),
+        lm_train_batch(vl, VL_CHECK_B, VL_CHECK_S, seed=100,
+                       image=VL_CHECK_IMAGE), VL_B * VL_S,
+        f"B {VL_B} x S {VL_S} from embeddings with an image's M-RoPE "
+        f"positions")}
+    wt = get_config(WHISPER)
+    out[WHISPER] = _vw_cell(
+        wt, wt.n_layers, WT_STEPS, WT_LR,
+        lambda i: lm_train_batch(wt, WT_B, WT_S, seed=i),
+        lm_train_batch(wt, WT_CHECK_B, WT_CHECK_S, seed=100), WT_B * WT_S,
+        f"B {WT_B} x S {WT_S} tokens with {wt.n_audio_frames} frames a row")
+    check(out[WHISPER]["params"] == WHISPER_PARAMS,
+          f"whisper-small has {WHISPER_PARAMS} parameters")
+    return out
+
+
+def phase_vw_train():
+    import torch
+
+    print(f"[26] Qwen2-VL and whisper training: the flash backward at "
+          f"(H, KH) (28, 4) D 128 and (12, 12) D 64 (causal, and without a "
+          f"mask over T = S and T = 1500) vs the plain version's autograd, "
+          f"the small Qwen2-VL's and whisper's loss, gradients and AdamW "
+          f"steps vs the JAX package's (lm_train_qwen2_vl_small_golden.npz, "
+          f"lm_train_whisper_small_golden.npz), {VL} at full width with "
+          f"{VL_LAYERS} layers (B {VL_B} x S {VL_S}, {VL_STEPS} steps) and "
+          f"{WHISPER} at full width and depth (B {WT_B} x S {WT_S}, 1500 "
+          f"frames, {WT_STEPS} steps), and the backward's time at their "
+          f"attention problems")
+    out = {}
+    t0 = time.perf_counter()
+    out["kernel_errors"] = phase_vw_train_kernels()
+    print(f"    -- (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["golden"] = phase_vw_train_golden()
+    print(f"    -- (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["full"] = phase_vw_train_full()
+    print(f"    -- (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out["timing"] = {}
+    for label, (B, H, KH, S, D, W, DV, causal, T) in VW_FLASH_BWD.items():
+        out["timing"][label] = time_flash_bwd(g, B, H, KH, S, D, W, DV,
+                                              causal=causal, T=T)
+    print(f"    -- (d) {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def timed(label, seconds, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -7979,6 +8406,11 @@ def main() -> int:
     # point's run each set the flash counts to 0 before and read them after
     ds_train = timed("DeepSeek-V2-Lite training", seconds, phase_ds_train)
     ds_bwd = ds_train["timing"]["flash_bwd"]
+    # Qwen2-VL's and whisper's training: each full-width cell sets the
+    # flash counts to 0 before its steps and reads them after
+    vw_train = timed("Qwen2-VL and whisper training", seconds,
+                     phase_vw_train)
+    vw_full = vw_train["full"]
 
     big = timing["262144"]
     big_bwd = bwd_timing["262144"]
@@ -8057,6 +8489,10 @@ def main() -> int:
                     "attributes")},
                 "sdpa_backend": wk[f"sdpa_backend_{label}"]}
                for label in ("encoder", "cross")}},
+        "training_qwen2_vl_whisper": {
+            arch: {k: vw_full[arch][k]["flash_fwd"]
+                   for k in ("launches", "launches_per_step")}
+            for arch in (VL, WHISPER)},
     }, {
         "name": "rg_lru_scan",
         "route": "cuda",
@@ -8153,6 +8589,16 @@ def main() -> int:
             **ds_train["timing"]["flash_bwd_small"],
             "launches_per_step_small":
                 ds_train["golden"]["launches"]["backward"]},
+        "qwen2_vl_whisper": {
+            "problems": vw_train["timing"],
+            "launches": {arch: vw_full[arch]["launches"]["flash_bwd"]
+                         for arch in (VL, WHISPER)},
+            "launches_per_step": {
+                arch: vw_full[arch]["launches_per_step"]["flash_bwd"]
+                for arch in (VL, WHISPER)},
+            "errors": {k: v for k, v in vw_train["kernel_errors"].items()
+                       if k != "attributes"},
+            "attributes": vw_train["kernel_errors"]["attributes"]},
     }, {
         "name": "rg_lru_scan_bwd",
         "route": "cuda",
@@ -8227,9 +8673,10 @@ def main() -> int:
         "search": {**search, "launches": search_launches},
         "lm_zoo": zoo, "mla_mrope": mla, "whisper": whisper,
         "lm_training": lm_train, "recurrentgemma_training": rg_train,
-        "xlstm_training": xl_train, "deepseek_training": ds_train},
+        "xlstm_training": xl_train, "deepseek_training": ds_train,
+        "qwen2_vl_whisper_training": vw_train},
         indent=1, default=str))
-    print(f"[26] done in {time.perf_counter() - t_start:.1f} s; report in "
+    print(f"[27] done in {time.perf_counter() - t_start:.1f} s; report in "
           f"{REPORT.relative_to(ROOT)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,18 +27,20 @@
 // with no live key (only when T < S with a window) has P = 0 everywhere:
 // the forward kernels give 0 there, so its gradient is 0.
 //
-// Three launches a call, on both routes, with no atomics (every gradient
-// element is written by one block, in a fixed order: bit for bit from call
-// to call):
-//   (a) `flash_bwd_delta_kernel`: delta into a float32 scratch (B, H, S), a
-//       pass over O and dO bounded by bandwidth;
+// Three launches a call on the bf16 route and two on the float32 route,
+// with no atomics (every gradient element is written by one block, in a
+// fixed order: bit for bit from call to call):
+//   (a) bf16: `flash_bwd_delta_kernel`, delta into a float32 scratch
+//       (2, B, H, S), a pass over O and dO bounded by bandwidth (float32:
+//       (c) writes delta and the row sums of dS there);
 //   (b) dK/dV, one block per (key tile, kv head, batch row): K and V of the
 //       tile stay in shared memory while the block walks every query head
 //       of the group and every query tile that holds a live pair for the
 //       tile; each query tile's terms are summed apart and added to dK
 //       and dV, which accumulate in registers across the group;
 //   (c) dQ, one block per (query tile, head, batch row): walks the live key
-//       tiles and accumulates dQ in registers.
+//       tiles and accumulates dQ in registers (on the float32 route it runs
+//       before (b) and walks them twice, below).
 //
 // What bounds it: operations. The function needs five products a live
 // pair, 2 D flops each for S, dK and dQ and 2 DV for dP and dV; (b) and
@@ -98,6 +100,29 @@
 //
 // float32: the CUDA-core kernels of the anonymous namespace, whose checks
 // against the plain version are held at 2e-5, which TF32 does not reach.
+// Its delta and dS follow autograd's softmax backward: the dQ kernel walks
+// each row's live keys twice, first for delta_i = sum_j P_ij dP_ij / sum_j
+// P_ij (from the P and dP of these kernels, not from O), then for dS, and
+// every row of dS, whose exact sum is 0, has the rounding of its float32
+// sum eta_i put on one live key of the row, as autograd puts it on the
+// row's largest score: j_i = i mod T (min(i, T - 1) with a window, the
+// latest key at or before i, live whenever the row has a live key), which
+// spreads the rows over the keys. (c) writes delta and eta into the
+// scratch and takes dQ_i = scale * (sum_j dS_ij k_j - eta_i k_{j_i}); (b)
+// forms the same dS bit for bit and takes dS_{i j_i} - eta_i. Both are
+// the same functions. Where a row's keys and values nearly agree, dP -
+// delta keeps only the last few digits of each, and the row sums of dS
+// are not small against the true gradients: delta from the forward's O
+// and dS summed as it stands put dQ times the keys' common part and dK's
+// sum over keys, which the common part of the keys' input projects (wk's
+// gradient), far from their values. At whisper-small's trained weights
+// (phase [26c]: its first decoder layer's cross-attention, keys 3.3 % and
+// values 2.2 % from their mean, P within 1.1x of uniform over 1500 keys)
+// dQ sat 1.17e-2 (relative L2) from a float64 evaluation, against 5.0e-5
+// for the plain version's autograd, and wk's and wq's gradients 1.44e-3
+// and 1.38e-3 from the plain route's; now 5.9e-5 and 1.6e-5 from float64
+// (tools/xattn_float32_precision.py, NVIDIA H100 80GB HBM3, 700 W). The
+// walk for delta costs 4 D flops a live pair more.
 // Each block is a 16 x 16 grid of threads, as the float32 forward
 // kernel's: thread (ty, tx) owns rows ty * R .. ty * R + R - 1 and columns
 // tx + 16 c of every tile (where D or DV is not a multiple of 16, as the
@@ -253,6 +278,7 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
+                          const float* __restrict__ eta,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int heads, int kv_heads, int q_len, int k_len,
                           int causal, int window, float scale) {
@@ -274,6 +300,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sdS = sP + kBK * LP;   // kBK x LP: dS transposed
   float* sL = sdS + kBK * LP;   // kBQ
   float* sD = sL + kBQ;         // kBQ
+  float* sE = sD + kBQ;         // kBQ: each row's sum of dS
 
   const int k0 = blockIdx.x * kBK;  // the causal mask's longest first
   const int kvh = blockIdx.y;
@@ -321,6 +348,7 @@ __global__ void __launch_bounds__(kThreads)
         const int row = q0 + threadIdx.x;
         sL[threadIdx.x] = row < q_len ? lse[row_base + row] : 0.f;
         sD[threadIdx.x] = row < q_len ? delta[row_base + row] : 0.f;
+        sE[threadIdx.x] = row < q_len ? eta[row_base + row] : 0.f;
       }
       __syncthreads();
 
@@ -379,7 +407,11 @@ __global__ void __launch_bounds__(kThreads)
                   ? expf(s[i][j] * scale - sL[col])
                   : 0.f;
           sP[(ty * kRows + i) * LP + col] = p;
-          sdS[(ty * kRows + i) * LP + col] = p * (dp[i][j] - sD[col]);
+          // the row's rounded sum of dS goes to its key j_i
+          const int qpos = q0 + col;
+          const int dump = window > 0 ? min(qpos, k_len - 1) : qpos % k_len;
+          sdS[(ty * kRows + i) * LP + col] =
+              p * (dp[i][j] - sD[col]) - (kpos == dump ? sE[col] : 0.f);
         }
       }
       __syncthreads();  // P and dS are complete
@@ -445,7 +477,63 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// (c) dQ of 64 query rows of one (batch row, head).
+// s (S) and dp (dP) of a thread's kRows query rows and kCols keys of one
+// key tile: the dot products over D and DV in shared memory, in the same
+// order as (b)'s (fmaf over the columns, from the first), so that both
+// kernels get the same values bit for bit
+template <int D, int DV, int kRows, int kCols>
+__device__ __forceinline__ void scores_and_dp(
+    const float* sQ, const float* sdO, const float* sK, const float* sV,
+    int tx, int ty, float (&s)[kRows][kCols], float (&dp)[kRows][kCols]) {
+  constexpr int LD = D + 1;
+  constexpr int LDV = DV + 1;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      s[i][j] = 0.f;
+      dp[i][j] = 0.f;
+    }
+  // S over D and dP over DV, as in (b)
+#pragma unroll 4
+  for (int d = 0; d < DV; ++d) {
+    float qv[kRows], ov[kRows], kv[kCols], vv[kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      qv[i] = sQ[(ty * kRows + i) * LD + d];
+      ov[i] = sdO[(ty * kRows + i) * LDV + d];
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      kv[j] = sK[(tx + 16 * j) * LD + d];
+      vv[j] = sV[(tx + 16 * j) * LDV + d];
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll 4
+  for (int d = DV; d < D; ++d) {
+    float qv[kRows], kv[kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) qv[i] = sQ[(ty * kRows + i) * LD + d];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  }
+}
+
+// (c) dQ of 64 query rows of one (batch row, head), in two walks over the
+// live key tiles: the first sums P and P dP of each row, whose ratio is
+// delta (written over the scratch's first plane for (b)); the second forms
+// dS, sums each row of it (eta, into the second plane) and accumulates dQ.
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const float* __restrict__ q,
@@ -453,10 +541,10 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ v,
                         const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        float* __restrict__ dq, int heads, int kv_heads,
-                        int q_len, int k_len, int causal, int window,
-                        float scale) {
+                        float* __restrict__ delta,
+                        float* __restrict__ eta, float* __restrict__ dq,
+                        int heads, int kv_heads, int q_len, int k_len,
+                        int causal, int window, float scale) {
   static_assert(DV <= D, "v rows no wider than q and k rows");
   constexpr int kBK = KeyTile<D>::value;
   constexpr int LD = D + 1;
@@ -494,74 +582,73 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile<D, kBQ>(q + q_base, q_stride, q0, q_len, sQ);
   load_tile<DV, kBQ>(dout + o_base, o_stride, q0, q_len, sdO);
-  float row_l[kRows], row_d[kRows];
+  float row_l[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
     row_l[i] = row < q_len ? lse[row_base + row] : 0.f;
-    row_d[i] = row < q_len ? delta[row_base + row] : 0.f;
   }
-  float acc[kRows][kOut];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < kOut; ++c) acc[i][c] = 0.f;
 
   const int q_hi = min(q0 + kBQ, q_len);
   const int k_end = causal ? min(k_len, q_hi) : k_len;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
+  const int k_first = (k_begin / kBK) * kBK;
+
+  // the first walk: delta_i = sum_j P_ij dP_ij / sum_j P_ij
+  float sum_p[kRows], sum_pdp[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) sum_p[i] = sum_pdp[i] = 0.f;
+  for (int k0 = k_first; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous key tile is no longer read
     load_tile<D, kBK>(k + k_base, k_stride, k0, k_len, sK);
     load_tile<DV, kBK>(v + v_base, v_stride, k0, k_len, sV);
     __syncthreads();
-
     float s[kRows][kCols], dp[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        s[i][j] = 0.f;
-        dp[i][j] = 0.f;
-      }
-    // S over D and dP over DV, as in (b)
-#pragma unroll 4
-    for (int d = 0; d < DV; ++d) {
-      float qv[kRows], ov[kRows], kv[kCols], vv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        qv[i] = sQ[(ty * kRows + i) * LD + d];
-        ov[i] = sdO[(ty * kRows + i) * LDV + d];
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        kv[j] = sK[(tx + 16 * j) * LD + d];
-        vv[j] = sV[(tx + 16 * j) * LDV + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll 4
-    for (int d = DV; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = sQ[(ty * kRows + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    scores_and_dp<D, DV>(sQ, sdO, sK, sV, tx, ty, s, dp);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int qpos = q0 + ty * kRows + i;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float p =
+            live_pair(qpos, k0 + tx + 16 * j, q_len, k_len, causal, window)
+                ? expf(s[i][j] * scale - row_l[i])
+                : 0.f;
+        sum_p[i] += p;
+        sum_pdp[i] = fmaf(p, dp[i][j], sum_pdp[i]);
+      }
+    }
+  }
+  float row_d[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      sum_p[i] += __shfl_xor_sync(0xffffffffu, sum_p[i], off);
+      sum_pdp[i] += __shfl_xor_sync(0xffffffffu, sum_pdp[i], off);
+    }
+    row_d[i] = sum_p[i] > 0.f ? sum_pdp[i] / sum_p[i] : 0.f;
+  }
+
+  // the second walk: dS, its row sums and dQ
+  float acc[kRows][kOut], row_e[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    row_e[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kOut; ++c) acc[i][c] = 0.f;
+  }
+  for (int k0 = k_first; k0 < k_end; k0 += kBK) {
+    __syncthreads();  // the previous key tile is no longer read
+    load_tile<D, kBK>(k + k_base, k_stride, k0, k_len, sK);
+    load_tile<DV, kBK>(v + v_base, v_stride, k0, k_len, sV);
+    __syncthreads();
+    float s[kRows][kCols], dp[kRows][kCols];
+    scores_and_dp<D, DV>(sQ, sdO, sK, sV, tx, ty, s, dp);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int qpos = q0 + ty * kRows + i;
+      float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int col = tx + 16 * j;
@@ -569,8 +656,14 @@ __global__ void __launch_bounds__(kThreads)
             live_pair(qpos, k0 + col, q_len, k_len, causal, window)
                 ? expf(s[i][j] * scale - row_l[i])
                 : 0.f;
-        sdS[(ty * kRows + i) * LS + col] = p * (dp[i][j] - row_d[i]);
+        const float ds = p * (dp[i][j] - row_d[i]);
+        sdS[(ty * kRows + i) * LS + col] = ds;
+        sum += ds;
       }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      row_e[i] += sum;
     }
     __syncthreads();  // dS is complete
 
@@ -593,10 +686,18 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
     if (row >= q_len) continue;
+    // less the row's rounded sum of dS times the k row of its key j_i
+    const int dump = window > 0 ? min(row, k_len - 1) : row % k_len;
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
       if (own_col<D>(tx, c))
-        dq[q_base + row * q_stride + tx + 16 * c] = acc[i][c] * scale;
+        dq[q_base + row * q_stride + tx + 16 * c] =
+            (acc[i][c] - row_e[i] * k[k_base + dump * k_stride + tx + 16 * c])
+            * scale;
+    if (tx == 0) {
+      delta[row_base + row] = row_d[i];
+      eta[row_base + row] = row_e[i];
+    }
   }
 }
 
@@ -605,14 +706,15 @@ struct Smem {
   static constexpr int kBK = KeyTile<D>::value;
   static constexpr int dkdv =
       (int)sizeof(float) * ((kBK + kBQ) * (D + 1) + (kBK + kBQ) * (DV + 1) +
-                            2 * kBK * (kBQ + 1) + 2 * kBQ);
+                            2 * kBK * (kBQ + 1) + 3 * kBQ);
   static constexpr int dq =
       (int)sizeof(float) * ((kBQ + kBK) * (D + 1) + (kBQ + kBK) * (DV + 1) +
                             kBQ * (kBK + 1));
   static_assert(dkdv <= 232448 && dq <= 232448, "a block's shared memory");
 };
 
-// the float32 route: delta, then the CUDA-core dK/dV and dQ kernels
+// the float32 route: the CUDA-core dQ kernel, which writes delta and the
+// rows' sums of dS into the scratch, then dK/dV (O is not read)
 template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, const float* lse,
@@ -634,20 +736,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const float* dot = static_cast<const float*>(dout);
   const int q_tiles = (q_len + kBQ - 1) / kBQ;
   const int k_tiles = (k_len + S::kBK - 1) / S::kBK;
-  err = launch_delta<float, float, DV>(out, dout, delta, batch, heads, q_len,
-                                       stream);
+  float* eta = delta + (long long)batch * heads * q_len;
+  flash_bwd_dq_kernel<D, DV>
+      <<<dim3(q_tiles, heads, batch), kThreads, S::dq, stream>>>(
+          qt, kt, vt, dot, lse, delta, eta, static_cast<float*>(dq), heads,
+          kv_heads, q_len, k_len, causal, window, scale);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<D, DV>
       <<<dim3(k_tiles, kv_heads, batch), kThreads, S::dkdv, stream>>>(
-          qt, kt, vt, dot, lse, delta, static_cast<float*>(dk),
+          qt, kt, vt, dot, lse, delta, eta, static_cast<float*>(dk),
           static_cast<float*>(dv), heads, kv_heads, q_len, k_len, causal,
           window, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<D, DV>
-      <<<dim3(q_tiles, heads, batch), kThreads, S::dq, stream>>>(
-          qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), heads,
-          kv_heads, q_len, k_len, causal, window, scale);
   return cudaGetLastError();
 }
 

@@ -35,7 +35,8 @@ saves q, k, v, that output and L (delta from the bf16 output sat up to
 2.06e-2 of 1 + |g| from the reference's oracle on the card, past the
 bf16 limit); its backward launches the
 hand-written backward of ``csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd`: a pre-pass for ``delta = rowsum(dO * O)``,
+(:func:`flash_attention_bwd`: on the bf16 route a pre-pass for ``delta =
+rowsum(dO * O)``; on the float32 route delta from P and dP,
 then dK/dV and dQ from L). :func:`bwd_route` names its kernels by the
 input type, as :func:`route` does the forward's: bfloat16 goes to the
 tensor-core kernels (``wgmma`` + TMA), float32 to the CUDA-core kernels
@@ -64,8 +65,9 @@ from repro_torch.kernels.flash_attention import ref
 
 #: Kernel launches so far (a plain count; callers reset it to 0).
 LAUNCHES = 0
-#: Backward calls so far, three kernel launches each on either route
-#: (delta, dK/dV, dQ) (a plain count).
+#: Backward calls so far, three kernel launches each on the bf16 route
+#: (delta, dK/dV, dQ) and two on the float32 route (dQ, dK/dV) (a plain
+#: count).
 BWD_LAUNCHES = 0
 
 #: The square head dims (D = DV) both routes take.
@@ -271,12 +273,14 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     model's layout, given its output ``out`` for these q, k, v, the
     log-sum-exp ``lse`` (B, H, S) that the forward kept with it (both
     from :func:`flash_attention_with_lse`) and the output's cotangent
-    ``dout`` (B, S, H, DV): three launches of ``csrc/flash_attention_bwd.cu``
-    on the current stream and on :func:`bwd_route`'s kernels (delta =
-    rowsum(dout * out) into a float32 (B, H, S) scratch, then dK/dV, then
-    dQ), gradients in q's type. ``out`` is in q's type, or float32: the
-    bf16 forward's output before its rounding, which ``_Flash`` keeps so
-    that delta carries no rounding of O."""
+    ``dout`` (B, S, H, DV): launches of ``csrc/flash_attention_bwd.cu`` on
+    the current stream and on :func:`bwd_route`'s kernels, gradients in
+    q's type. bfloat16: delta = rowsum(dout * out) into a float32 scratch,
+    then dK/dV, then dQ; ``out`` is in q's type, or float32: the bf16
+    forward's output before its rounding, which ``_Flash`` keeps so that
+    delta carries no rounding of O. float32: dQ, which writes delta (from
+    P and dP) and each row's rounded sum of dS into the scratch, then
+    dK/dV, as ``ref.attention_bwd`` computes them; ``out`` is not read."""
     global BWD_LAUNCHES
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     _check(q, k, v, window)
@@ -302,7 +306,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B == 0 or S == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    # delta, and on the float32 route each row's sum of dS
+    delta = torch.empty(2, B, H, S, dtype=torch.float32, device=q.device)
     fn, error_string, _ = _bwd_kernel()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

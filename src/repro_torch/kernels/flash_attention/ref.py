@@ -79,29 +79,46 @@ def attention_lse(q, k, *, causal: bool = True, window: int = 0,
     return (m + torch.log(torch.clamp_min(l, 1e-30))).reshape(B, H, S)
 
 
-def attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+def attention_bwd(q, k, v, lse, dout, *, causal: bool = True,
                   window: int = 0, scale: float | None = None):
-    """The gradient of :func:`attention` as the backward kernels compute
-    it, in float32 (float64 for float64 inputs, the rounding-free
-    control): q (B, H, S, D), k (B, KH, T, D), v (B, KH, T, DV), the
-    output ``out`` and its cotangent ``dout`` (B, H, S, DV), the
-    log-sum-exp ``lse`` (B, H, S) of :func:`attention_lse`.
-    delta = rowsum(dout * out), P = exp(s - L) at live pairs and 0 at
-    dead ones (a row with no live key gets no gradient), dP = dout v^T,
-    dS = P (dP - delta), dq = scale dS k, and dk = scale dS^T q and
-    dv = P^T dout summed over each kv head's group. Returns (dq, dk, dv)
-    in the inputs' type."""
+    """The gradient of :func:`attention` as the float32 backward kernels
+    compute it, in float32 (float64 for float64 inputs, the
+    rounding-free control): q (B, H, S, D), k (B, KH, T, D), v (B, KH, T,
+    DV), the output's cotangent ``dout`` (B, H, S, DV), the log-sum-exp
+    ``lse`` (B, H, S) of :func:`attention_lse`. P = exp(s - L) at live
+    pairs and 0 at dead ones (a row with no live key gets no gradient),
+    dP = dout v^T, delta = rowsum(P dP) / rowsum(P) (rowsum(dout * out)
+    in exact arithmetic), dS = P (dP - delta), dq = scale dS k, and dk =
+    scale dS^T q and dv = P^T dout summed over each kv head's group.
+    Every row of dS sums to 0; the rounding of each row's sum eta_i goes
+    to one live key of the row, j_i = i mod T (min(i, T - 1) with a
+    window): dq_i = scale (sum_j dS_ij k_j - eta_i k_{j_i}) and dk from
+    dS with dS_{i j_i} - eta_i, the same functions, which keep their
+    digits where a row's keys and values nearly agree, as autograd's
+    softmax backward does (the bf16 kernels take delta from the output
+    and dS as it is). Returns (dq, dk, dv) in the inputs' type."""
     B, H, S, D = q.shape
     KH = k.shape[1]
     s, live, scale = _scores(q, k, causal, window, scale)
     acc = s.dtype
     rows = (B, KH, H // KH, S)
     do = dout.to(acc).reshape(*rows, -1)
-    delta = (do * out.to(acc).reshape(*rows, -1)).sum(-1, keepdim=True)
     p = torch.where(live, torch.exp(s - lse.to(acc).reshape(*rows, 1)), 0.0)
     dp = torch.einsum("bkgsd,bktd->bkgst", do, v.to(acc))
+    total = p.sum(-1, keepdim=True)
+    delta = torch.where(total > 0, (p * dp).sum(-1, keepdim=True)
+                        / total.clamp_min(1e-30), 0.0)
     ds = p * (dp - delta)
-    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.to(acc)) * scale
+    # each row's rounded sum of dS to its key j_i
+    i = torch.arange(S, device=ds.device)
+    T = k.shape[2]
+    dump = i.clamp(max=T - 1) if window > 0 else i % T
+    eta = ds.sum(-1)
+    kc = k.to(acc)
+    dq = (torch.einsum("bkgst,bktd->bkgsd", ds, kc)
+          - eta[..., None] * kc[:, :, None, dump]) * scale
+    ds = ds.clone()
+    ds[..., i, dump] -= eta
     dk = torch.einsum("bkgst,bkgsd->bktd", ds,
                       q.to(acc).reshape(*rows, D)) * scale
     dv = torch.einsum("bkgst,bkgsd->bktd", p, do)

@@ -27,11 +27,15 @@ def value_and_grad(loss_fn, params, *args):
     """((loss, aux), grads) of ``loss_fn(params, *args) -> (loss, aux)``
     with respect to every leaf of ``params`` (floating tensors), as
     ``jax.value_and_grad(..., has_aux=True)``; the grads mirror
-    ``params``."""
+    ``params``. A leaf the loss does not read (Qwen2-VL's untied
+    ``embed/table`` when it trains from embeddings) gets zeros in its
+    own type and on its device, as JAX gives it, so the optimizer's
+    weight decay still moves it."""
     leaves = {k: t.detach().requires_grad_()
               for k, t in flatten(params).items()}
     loss, aux = loss_fn(unflatten_as(params, leaves), *args)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True, materialize_grads=True)
     return ((loss.detach(), {k: v.detach() for k, v in aux.items()}),
             unflatten_as(params, dict(zip(leaves, grads))))
 

@@ -21,7 +21,11 @@ since the flash kernel's bf16 route does not take that pair). The flow:
      weight step is ``launch.steps.make_train_step``).
 ``--scale full`` trains at the configuration's full width;
 ``--scale small`` at ``scaled_down(max_seq=--seq)``. The hosts are
-virtual, the model runs on one device.
+virtual, the model runs on one device. An encoder-decoder (whisper) is
+refused with ``ValueError`` before any of it: its loss takes frames,
+which the token pipeline does not draw (the reference's ``main`` fails
+on that batch with ``KeyError``); :func:`make_step` trains it on a batch
+with frames.
 """
 
 from __future__ import annotations
@@ -140,6 +144,14 @@ def main(argv=None):
         cfg = cfg.scaled_down(max_seq=args.seq)
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    if cfg.n_encoder_layers:
+        # the reference's main fails here too, later: its loss reads
+        # batch["frames"], which a token pipeline's batch lacks
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its loss takes frames (B, "
+            f"{cfg.n_audio_frames}, {cfg.d_model}), which the token "
+            f"pipeline does not draw; train it through make_step on a "
+            f"batch with frames")
     model = build_model(cfg)
 
     # --- 1. Perona: fingerprint + rank the cluster ----------------------

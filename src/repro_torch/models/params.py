@@ -46,7 +46,12 @@ small decoders' (``lm_train_small_golden.npz``, written by
 (``lm_train_xlstm_small_golden.npz``, written by
 ``tests/test_torch_xlstm_train.py --write``) and the small
 DeepSeek-V2-Lite's (``lm_train_deepseek_small_golden.npz``, written by
-``tests/test_torch_deepseek_train.py --write``).
+``tests/test_torch_deepseek_train.py --write``), and the small Qwen2-VL's
+and whisper's (``lm_train_qwen2_vl_small_golden.npz`` and
+``lm_train_whisper_small_golden.npz``, written by
+``tests/test_torch_vl_train.py --write`` and
+``tests/test_torch_whisper_train.py --write``), whose batches are their
+family's: embeddings and (3, B, S) positions, or tokens and frames.
 
 :func:`load_whisper_golden` reads ``assets/lm_zoo_whisper_small_golden.npz``
 (``WHISPER_GOLDEN_PATH``, written by ``tests/test_torch_whisper.py
@@ -80,6 +85,8 @@ LM_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_small_golden.npz"
 RG_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_recurrentgemma_small_golden.npz"
 XLSTM_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_xlstm_small_golden.npz"
 DEEPSEEK_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_deepseek_small_golden.npz"
+VL_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_qwen2_vl_small_golden.npz"
+WHISPER_TRAIN_GOLDEN_PATH = ASSETS / "lm_train_whisper_small_golden.npz"
 
 #: Ends of the leaf paths the reference reads in float32 whatever the
 #: compute type: norm scales and biases, the RG-LRU ``lambda``, the MoE
@@ -230,7 +237,10 @@ def load_whisper_golden(path=WHISPER_GOLDEN_PATH) -> WhisperGolden:
 class LMTrainGolden:
     config: ModelConfig  # the training configuration (chunked_ce set)
     params: Any  # the reference's initial tree of float32 CPU tensors
-    tokens: np.ndarray  # (steps, B, S) int32, batch_at(0..steps-1)
+    # (steps, B, S) int32: batch_at(0..steps-1) of the token pipeline, or
+    # the drawn batches' where the golden holds embeddings or frames;
+    # None for a batch of embeddings
+    tokens: Optional[np.ndarray]
     labels: np.ndarray  # (steps, B, S) int32
     loss: float  # JAX loss_fn on the first batch
     ce: float
@@ -238,6 +248,20 @@ class LMTrainGolden:
     grads: List[Any]  # each step's, trees of float32 CPU tensors
     params_after: Any  # after ``steps`` AdamW steps
     adamw: Dict[str, float]  # {"peak", "warmup", "steps"}: the schedule
+    # the batches' other inputs, by family (None where absent): "vlm"
+    # embeddings (steps, B, S, d_model) float32 and positions (steps, 3,
+    # B, S) int32; "audio" frames (steps, B, n_audio_frames, d_model)
+    # float32
+    embeddings: Optional[np.ndarray] = None
+    positions: Optional[np.ndarray] = None
+    frames: Optional[np.ndarray] = None
+
+    def batch(self, i: int, device="cpu") -> Dict[str, Any]:
+        """Step ``i``'s batch as ``model.loss`` takes it, on
+        ``device``."""
+        return {k: torch.as_tensor(getattr(self, k)[i], device=device)
+                for k in ("tokens", "labels", "embeddings", "positions",
+                          "frames") if getattr(self, k) is not None}
 
 
 def load_lm_train_golden(arch: str, path=None) -> LMTrainGolden:
@@ -252,7 +276,11 @@ def load_lm_train_golden(arch: str, path=None) -> LMTrainGolden:
     ``xlstm_small_golden.npz`` (likewise: only ``max_seq`` differs), or
     ``deepseek-v2-lite-16b`` from ``lm_train_deepseek_small_golden.npz``
     with its initial parameters from ``lm_zoo_mla_mrope_small_golden.npz``
-    (the same configuration)."""
+    (the same configuration), ``qwen2-vl-7b`` from
+    ``lm_train_qwen2_vl_small_golden.npz`` with its initial parameters
+    from the same file, or ``whisper-small`` from
+    ``lm_train_whisper_small_golden.npz`` with its initial parameters from
+    ``lm_zoo_whisper_small_golden.npz`` (the same configuration)."""
     if arch == "recurrentgemma-9b":
         path, init = path or RG_TRAIN_GOLDEN_PATH, (LM_GOLDEN_PATH, "")
     elif arch == "xlstm-1.3b":
@@ -260,6 +288,11 @@ def load_lm_train_golden(arch: str, path=None) -> LMTrainGolden:
     elif arch == "deepseek-v2-lite-16b":
         path, init = path or DEEPSEEK_TRAIN_GOLDEN_PATH, (
             LM_MLA_MROPE_GOLDEN_PATH, f"{arch}/")
+    elif arch == "qwen2-vl-7b":
+        path, init = path or VL_TRAIN_GOLDEN_PATH, (
+            LM_MLA_MROPE_GOLDEN_PATH, f"{arch}/")
+    elif arch == "whisper-small":
+        path, init = path or WHISPER_TRAIN_GOLDEN_PATH, None
     else:
         path, init = path or LM_TRAIN_GOLDEN_PATH, (LM_ZOO_GOLDEN_PATH,
                                                     f"{arch}/")
@@ -274,12 +307,16 @@ def load_lm_train_golden(arch: str, path=None) -> LMTrainGolden:
         return restore({k[len(name) + 1:]: v for k, v in g.items()
                         if k.startswith(name + "/")}, config)
 
+    params = (load_whisper_golden().params if init is None
+              else load_lm_golden(*init).params)
     return LMTrainGolden(
-        config=config, params=load_lm_golden(*init).params,
-        tokens=g["tokens"], labels=g["labels"], loss=float(g["loss"]),
-        ce=float(g["ce"]), aux=float(g["aux"]),
-        grads=[tree(f"grads/{i}") for i in range(len(g["tokens"]))],
-        params_after=tree("params_after"), adamw=adamw)
+        config=config, params=params, tokens=g.get("tokens"),
+        labels=g["labels"], loss=float(g["loss"]), ce=float(g["ce"]),
+        aux=float(g["aux"]),
+        grads=[tree(f"grads/{i}") for i in range(len(g["labels"]))],
+        params_after=tree("params_after"), adamw=adamw,
+        embeddings=g.get("embeddings"), positions=g.get("positions"),
+        frames=g.get("frames"))
 
 
 def load_pipeline_golden(path=LM_TRAIN_GOLDEN_PATH) -> Dict[str, Any]:

@@ -45,7 +45,8 @@ backward kernel). Under autograd with
 ``cfg.remat != "none"`` each body period runs under
 ``torch.utils.checkpoint`` (non-reentrant): only its input is kept, and
 the backward runs the period again (the reference's ``_remat``, a
-``jax.checkpoint`` of the scanned period). ``"dots"``, whose reference
+``jax.checkpoint`` of the scanned period); :func:`run_encoder` does the
+same for each encoder layer. ``"dots"``, whose reference
 policy saves the products' outputs, recomputes the whole period here as
 ``"full"`` does.
 """
@@ -319,16 +320,28 @@ def run_encoder(params, cfg: ModelConfig, frames):
     """Whisper's encoder over precomputed frame embeddings (B, T, d) (the
     conv frontend is a stub, as in the reference): fixed sinusoidal
     positions, cast to the frames' type before the add, then the
-    ``n_encoder_layers`` "enc_attn" layers and ``enc_norm``."""
+    ``n_encoder_layers`` "enc_attn" layers and ``enc_norm``. Under
+    autograd with ``cfg.remat != "none"`` each layer runs under
+    non-reentrant ``torch.utils.checkpoint``, as the reference's
+    ``_remat(body, cfg)``."""
     B, T, D = frames.shape
     x = frames + nn.sinusoidal_positions(T, D, frames.device)[None].to(
         frames.dtype)
     positions = torch.arange(T, device=x.device).expand(B, T)
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
     for i in range(cfg.n_encoder_layers):
-        lp = tree_map(lambda a: a[i], params["encoder"])
-        x, _, _ = layer_apply(lp, cfg, "enc_attn", x, positions,
-                              mode="train")
+        if remat:  # keep the layer's input, recompute the rest
+            x = checkpoint(_encoder_layer, params, cfg, i, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _encoder_layer(params, cfg, i, x, positions)
     return nn.apply_norm(params["enc_norm"], cfg.norm, x)
+
+
+def _encoder_layer(params, cfg: ModelConfig, i: int, x, positions):
+    """Encoder layer ``i``: views ``leaf[i]`` of the stacked leaves."""
+    lp = tree_map(lambda a: a[i], params["encoder"])
+    return layer_apply(lp, cfg, "enc_attn", x, positions, mode="train")[0]
 
 
 def encode(params, cfg: ModelConfig, frames):

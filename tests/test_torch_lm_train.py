@@ -160,9 +160,8 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def smoke():
-    """``chip_smoke.py``'s helpers: the script touches no card at
+def load_chip_smoke():
+    """``chip_smoke.py`` as a module: the script touches no card at
     import."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
@@ -171,12 +170,21 @@ def smoke():
     return module
 
 
+@pytest.fixture(scope="module")
+def smoke():
+    """``chip_smoke.py``'s helpers."""
+    return load_chip_smoke()
+
+
+# the inputs of a training batch a golden may hold, by family
+BATCH_KEYS = ("tokens", "labels", "embeddings", "positions", "frames")
+
+
 def golden_payload(arch, run):
-    out = {f"{arch}/config": json.dumps(dataclasses.asdict(run["cfg"])),
-           f"{arch}/tokens": run["tokens"], f"{arch}/labels": run["labels"],
-           f"{arch}/loss": np.float32(run["loss"]),
-           f"{arch}/ce": np.float32(run["ce"]),
-           f"{arch}/aux": np.float32(run["aux"])}
+    out = {f"{arch}/config": json.dumps(dataclasses.asdict(run["cfg"]))}
+    out.update({f"{arch}/{k}": run[k] for k in BATCH_KEYS if k in run})
+    out.update({f"{arch}/{k}": np.float32(run[k])
+                for k in ("loss", "ce", "aux")})
     for i, grads in enumerate(run["grads"]):
         out.update({f"{arch}/grads/{i}/{k}": v for k, v in grads.items()})
     out.update({f"{arch}/params_after/{k}": v
@@ -228,6 +236,76 @@ def check_grads(got, want, label):
     assert set(got) == set(want), label
     for k in want:
         assert rel(got[k], want[k]) <= GRAD_RTOL, f"{label}: grad {k}"
+
+
+def jax_train(cfg, params, arrays):
+    """The JAX package's STEPS AdamW steps of ``cfg``'s model from
+    ``params`` (a numpy tree) on the batches ``arrays`` ({input: (STEPS,
+    ...) numpy}), under ``cosine_schedule(PEAK, WARMUP, STEPS)``: a run
+    as :func:`golden_payload` writes it."""
+    import jax
+
+    from repro.models.model_zoo import build_model
+    from repro.optim.adamw import AdamW
+    from repro.optim.schedule import cosine_schedule
+
+    model = build_model(cfg)
+    opt = AdamW(lr=cosine_schedule(PEAK, WARMUP, STEPS))
+    grad = jax.jit(jax.value_and_grad(model.loss, has_aux=True))
+    update = jax.jit(opt.update)
+    p, st = params, opt.init(params)
+    grads_at = []
+    for i in range(STEPS):
+        (loss, met), grads = grad(p, {k: v[i] for k, v in arrays.items()})
+        p, st, _ = update(grads, st, p)
+        grads_at.append(flat_np(grads))
+        if i == 0:
+            first = (float(loss), float(met["ce"]), float(met["aux"]))
+    return {"cfg": cfg, "params": params, **arrays, "loss": first[0],
+            "ce": first[1], "aux": first[2], "grads": grads_at,
+            "params_after": flat_np(p)}
+
+
+def train_golden(run, cfg):
+    """A live JAX run as the port's ``LMTrainGolden`` of ``cfg``, for
+    ``chip_smoke.lm_train_golden_errors``."""
+    from repro_torch.models.params import LMTrainGolden, restore
+
+    return LMTrainGolden(
+        config=cfg, params=restore(flat_np(run["params"]), cfg),
+        tokens=run.get("tokens"), labels=run["labels"], loss=run["loss"],
+        ce=run["ce"], aux=run["aux"],
+        grads=[restore(g, cfg) for g in run["grads"]],
+        params_after=restore(run["params_after"], cfg),
+        adamw={"peak": PEAK, "warmup": WARMUP, "steps": STEPS},
+        embeddings=run.get("embeddings"), positions=run.get("positions"),
+        frames=run.get("frames"))
+
+
+def check_input_specs(smoke, arch, B, S, **kwargs):
+    """``chip_smoke.lm_train_batch`` of the small and the full ``arch``
+    against the reference's ``Model.input_specs(ShapeConfig(..., "train"))``:
+    the same keys, shapes and types."""
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jax_config
+    from repro.models.config import ShapeConfig
+    from repro.models.model_zoo import build_model
+    from repro_torch.configs import get_config
+
+    for small in (True, False):
+        cfgs = [get(arch) for get in (jax_config, get_config)]
+        if small:
+            cfgs = [c.scaled_down(dtype="float32") for c in cfgs]
+        want = build_model(cfgs[0]).input_specs(
+            ShapeConfig("train", S, B, "train"))["batch"]
+        got = smoke.lm_train_batch(cfgs[1], B, S, seed=0, device="cpu",
+                                   **kwargs)
+        assert set(got) == set(want), (arch, small)
+        for k, spec in want.items():
+            assert tuple(got[k].shape) == spec.shape, (arch, small, k)
+            assert (str(got[k].dtype).split(".")[-1]
+                    == jnp.dtype(spec.dtype).name), (arch, small, k)
 
 
 # ------------------------------------------------------------ threefry
